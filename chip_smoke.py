@@ -7,22 +7,39 @@ CUDA card, ``nvcc`` (``CUDA_HOME``, ``PATH`` or ``/usr/local/cuda``) and
 failure exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off;
-2. build: nvcc builds every kernel of the serving path from ``csrc/``
-   into ``mlagg_unet_torch/_build/``;
+2. build: nvcc builds every kernel of the serving and training paths from
+   ``csrc/`` into ``mlagg_unet_torch/_build/``, one nvcc per source, in
+   parallel;
 3. kernels: each kernel against its plain PyTorch twin at the flagship's
-   shapes (model batch 16, tile 256x224), fp32 and bf16 I/O, with the
-   tolerances stated below, and timed with CUDA events (median of 20);
+   shapes (serving: model batch 16, tile 256x224; the scan backward: the
+   training batch 10), fp32 and bf16 I/O, with the tolerances stated below,
+   and timed with CUDA events (median of 20). K1 with its tile-entry states
+   must give a y bit-equal to K1 without them and states equal to the plain
+   scan's; K5 (scan backward) is also held against autograd through the
+   step-by-step scan at b = 2, L = 1024;
 4. model: the full-width flagship (``bench.py``'s config, seeded random
    weights) on one tile, fp32 on the card (kernels) against the CPU (plain
    twins); then a bf16 forward at model batch 16;
 5. serve: ``VolumePredictor`` on ``bench.py``'s workload (8 volumes of
    1x10x320x260, mirror TTA over both in-plane axes, bf16), volumes/s and
-   peak memory; every kernel's launch count must grow in this phase;
-6. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
+   peak memory; K1-K4 must each be launched in this phase;
+6. train: the ``nnUNetTrainer_MLAgg_2D_dt_MS`` recipe on the full-width
+   flagship. One fp32 batch (batch 1, drop path off) on the card against a
+   CPU copy of the network: the loss and every parameter gradient. Then 2
+   warm-up and 10 timed bf16 steps at batch 10, 256x224, 4 classes, drop
+   path on, on one seeded synthetic batch whose label is a fixed function of
+   the image: ms per step, images/s, peak memory, the first and last loss
+   (the last must be lower), a profile of one step, and one validation
+   step. K1, K4 and K5 must each be launched in the timed steps, K2 and K3
+   never;
+7. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
-Kernel times in the JSON line are per flagship forward at model batch 16:
-the sum over the launches one forward makes (K1 2, K2 8, K3 8, K4 16).
+Kernel times in the JSON line are per flagship forward at model batch 16,
+the sum over the launches one forward makes (K1 2, K2 8, K3 8, K4 16), and
+for K5 per training step at batch 10 (2 launches, one per scan direction).
+A kernel's ``launches`` is its count in the serve run, K5's in the timed
+train run.
 """
 from __future__ import annotations
 
@@ -58,6 +75,19 @@ TOL_SCAN = 1e-4    # the scan's output is fp32 for either input type
 TOL_MODEL = 1e-3   # fp32 flagship card vs CPU: ~40 layers of re-ordered fp32
                    # sums, __expf in the scan, renormalised by LN/GroupNorm
 TOL_SERVE_REL_L2 = 5e-2  # bf16 serving vs fp32 serving of one volume
+TOL_SCAN_GRAD = 2e-4  # scan gradients, fp32 operands (PARITY.md:70): the
+                      # adjoint sums over L and d in another order
+TOL_SCAN_GRAD_BF16 = 2e-2  # bf16 operands: du, ddelta, dB, dC rounded to bf16
+TOL_TRAIN_LOSS = 1e-5  # fp32 training batch, card vs CPU, relative
+TOL_TRAIN_GRAD = 1e-3  # each gradient, relative to its max |value| (+1e-6)
+
+TRAIN_BATCH = 10                         # the 2d plan's batch (bench_train_step.py)
+TRAIN_STEPS, TRAIN_WARMUP = 10, 2
+SERVE_FIRST_VOLUMES_PER_S = 1.1404       # the serving slice's first run (PERF.md), H100 80GB HBM3 at 700 W
+SERVE_KERNELS = ("selective_scan_fwd", "mlla_front", "mlla_tail", "flash_attn_fwd")
+TRAIN_KERNELS = ("selective_scan_fwd", "flash_attn_fwd", "selective_scan_bwd")
+PORT_KERNEL_NAMES = ("scan_fwd_kernel", "scan_bwd_kernel", "front_kernel",
+                     "tail_kernel", "flash_fwd_kernel")
 
 
 def fail(msg: str) -> None:
@@ -256,6 +286,86 @@ def phase_kernels(torch, report: Report) -> None:
                        flops=calls * flops)
 
 
+def phase_scan_train(torch, report: Report) -> None:
+    """K1 with states and K5 at the training shapes: batch 10, both scan
+    directions, fp32 and bf16 operands, fp32 gy."""
+    from mlagg_unet_torch.ops.selective_scan import (
+        selective_scan_bwd_plain, selective_scan_seq_ref, selective_scan_states)
+    from mlagg_unet_torch.ops.selective_scan_cuda import (
+        STATE_EVERY, selective_scan_bwd, selective_scan_fwd, selective_scan_fwd_states)
+
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(1)
+
+    def T(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+
+    names = ("du", "ddelta", "dA", "dB", "dC", "dD", "dbias")
+    b, g, d, n, L = TRAIN_BATCH, 2, SCAN_D, SCAN_N, SCAN_L
+    log(f"[kernels] K1 with states and K5 selective_scan_bwd at ({b}, {g}, {d}, {L})")
+    A = T(-np.tile(np.arange(1, n + 1, dtype=np.float32), (g, d, 1)))
+    dt0 = np.exp(rs.rand(g, d) * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    bias = T(dt0 + np.log(-np.expm1(-dt0)))
+    Dp = T(1 + 0.1 * rs.randn(g, d))
+    full = [T(rs.randn(b, g, d, L) * s) for s in (1.0, 0.5)] + \
+           [T(rs.randn(b, g, n, L)) for _ in range(2)]
+    gy = T(rs.randn(b, g, d, L))
+    for dtype, tag, tol in ((torch.float32, "fp32", TOL_SCAN_GRAD),
+                            (torch.bfloat16, "bf16", TOL_SCAN_GRAD_BF16)):
+        u, dl, Bm, Cm = (t.to(dtype) for t in full)
+        for rev in (False, True):
+            args = (u, dl, A, Bm, Cm, Dp, bias, True, rev)
+            y_s, states = selective_scan_fwd_states(*args)
+            y = selective_scan_fwd(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(y_s, y):
+                fail(f"K1 {tag} reverse={rev}: y with states differs from y without")
+            log(f"  K1 {tag} reverse={rev}: y with states bit-equal to y without")
+            check(f"K1 {tag} reverse={rev} states vs plain scan at tile entries",
+                  states, selective_scan_states(u, dl, A, Bm, Cm, bias, True,
+                                                STATE_EVERY, rev), TOL_SCAN)
+            got = selective_scan_bwd(*args, gy, states)
+            ref = selective_scan_bwd_plain(*args, gy)
+            err = max(check(f"K5 {tag} reverse={rev} {nm}", g_, r_, tol)
+                      for nm, g_, r_ in zip(names, got, ref))
+            del got, ref
+            if tag != "bf16":
+                continue
+            ms = time_ms(lambda: selective_scan_bwd(*args, gy, states))
+            pms = time_ms(lambda: selective_scan_bwd_plain(*args, gy), reps=3, warmup=1)
+            k1s = time_ms(lambda: selective_scan_fwd_states(*args))
+            k1 = time_ms(lambda: selective_scan_fwd(*args))
+            log(f"  K5 bf16 reverse={rev}: {ms:.3f} ms, plain {pms:.3f} ms; "
+                f"K1 at this batch {k1:.3f} ms, with states {k1s:.3f} ms")
+            el, bc = b * g * d * L, b * g * n * L
+            n_tiles = math.ceil(L / STATE_EVERY)
+            # each input read once (u, delta, B, C in bf16, gy and the states
+            # in fp32, the per-channel parameters), each output written once
+            nbytes = (2 * el * 2 + 2 * bc * 2 + el * 4 + b * g * n_tiles * d * n * 4
+                      + 2 * (g * d * n + 2 * g * d) * 4 + 2 * el * 2 + 2 * bc * 2)
+            # ~15 fp32 operations per (row, channel, state, step) for the h
+            # recompute, the adjoint and the contractions; ~10 per channel step
+            flops = 15 * el * n + 10 * el
+            report.add("selective_scan_bwd", "mlagg_unet_torch/csrc/selective_scan_bwd.cu",
+                       "mlagg_unet_tpu/ops/selective_scan_pallas.py:274", kind="fp32",
+                       max_abs_err=err, ms=ms, plain_ms=pms, bytes=nbytes, flops=flops)
+    del full, gy
+
+    # K5 against autograd through the step-by-step scan (ground truth)
+    short = [T(rs.randn(2, g, d, 1024) * s) for s in (1.0, 0.5)] + \
+            [T(rs.randn(2, g, n, 1024)) for _ in range(2)]
+    gs = T(rs.randn(2, g, d, 1024))
+    for rev in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (*short[:2], A, *short[2:], Dp, bias)]
+        y = selective_scan_seq_ref(*leaves, delta_softplus=True, reverse=rev)
+        ref = torch.autograd.grad(y, leaves, gs)
+        _, states = selective_scan_fwd_states(*short[:2], A, *short[2:], Dp, bias, True, rev)
+        got = selective_scan_bwd(*short[:2], A, *short[2:], Dp, bias, True, rev, gs, states)
+        for nm, g_, r_ in zip(names, got, ref):
+            check(f"K5 fp32 reverse={rev} {nm} vs autograd of the step scan (L=1024)",
+                  g_, r_, TOL_SCAN_GRAD)
+
+
 def phase_model(torch):
     from mlagg_unet_torch import build_flagship
 
@@ -291,17 +401,17 @@ def phase_model(torch):
     return model
 
 
-def profile_volume(torch, pred, volume) -> None:
-    """Device time by kernel over one served volume, the port's kernels
-    against the rest, and the device's busy share of the wall time
-    (torch.profiler, whose own host overhead is in the wall time)."""
+def profile(torch, label, fn) -> None:
+    """Device time by kernel over one call of ``fn`` (which ends in a sync),
+    the port's kernels against the rest, and the device's busy share of the
+    wall time (torch.profiler, whose own host overhead is in the wall time)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as trace
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred(volume)
+        fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
@@ -309,9 +419,8 @@ def profile_volume(torch, pred, volume) -> None:
         log("  profile: no device time recorded (not measured)")
         return
     busy_ms = sum(t for _, t, _ in dev)
-    ours = sum(t for k, t, _ in dev if any(
-        n in k for n in ("scan_fwd_kernel", "front_kernel", "tail_kernel", "flash_fwd_kernel")))
-    log(f"  profile of one volume: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+    ours = sum(t for k, t, _ in dev if any(n in k for n in PORT_KERNEL_NAMES))
+    log(f"  profile of {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%), {sum(c for *_, c in dev)} device ops; "
         f"port kernels {ours:.1f} ms ({100 * ours / busy_ms:.1f}% of busy)")
     for key, t, count in sorted(dev, key=lambda r: -r[1])[:15]:
@@ -347,14 +456,104 @@ def phase_serve(torch, model):
         if o.shape != (4, 10, 320, 260) or not np.isfinite(o).all():
             fail(f"serve output {o.shape}, finite={bool(np.isfinite(o).all())}")
     vps = len(volumes) / elapsed
-    log(f"  {vps:.4f} volumes/s ({elapsed:.3f} s for {len(volumes)}), "
-        f"peak memory {peak:.2f} GiB, model batch {pred.model_batch}")
+    log(f"  {vps:.4f} volumes/s ({elapsed:.3f} s for {len(volumes)}; the serving slice's first run "
+        f"measured {SERVE_FIRST_VOLUMES_PER_S} on an H100 80GB HBM3 at 700 W), peak memory "
+        f"{peak:.2f} GiB, model batch {pred.model_batch}")
     log(f"  launches in the serve run: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-    profile_volume(torch, pred, volumes[1])
+    for name in SERVE_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the serving path")
+    profile(torch, "one volume", lambda: pred(volumes[1]))   # returns on the host
     return launches, vps
+
+
+def synthetic_batch(torch, batch: int, seed: int = 0):
+    """A seeded (batch, 256, 224, 1) image of smooth blobs and its 4-class
+    label, a fixed function of the image (three thresholds)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(batch, 1, *TILE, generator=g)
+    for _ in range(3):  # smooth: blobs a few pixels wide
+        x = torch.nn.functional.avg_pool2d(x, 9, stride=1, padding=4,
+                                           count_include_pad=False)
+    x = ((x - x.mean()) / x.std()).permute(0, 2, 3, 1).contiguous()
+    y = torch.bucketize(x[..., 0], torch.tensor([-0.5, 0.3, 1.0]))
+    return x, y
+
+
+def train_grads(trainer, network, x, y):
+    """Loss and every parameter's gradient of one batch through ``network``
+    with the trainer's loss."""
+    network.zero_grad(set_to_none=True)
+    loss = trainer.loss(network(x), y)
+    loss.backward()
+    return loss.item(), {k: p.grad.float().cpu() for k, p in network.named_parameters()}
+
+
+def phase_train(torch):
+    from mlagg_unet_torch import Trainer
+    from mlagg_unet_torch.ops import _ext
+
+    name = "nnUNetTrainer_MLAgg_2D_dt_MS"
+    log(f"[train] {name}, full-width flagship, fp32 batch 1 (drop path off), card vs CPU")
+    tr = Trainer(name, TILE, 1, 1, 4, seed=0, device="cuda", compute_dtype=torch.float32,
+                 network_overrides=dict(drop_path_rate=0.0, skip_drop_path=0.0))
+    x, y = synthetic_batch(torch, 1, seed=1)
+    cpu_net = copy.deepcopy(tr.network).cpu()
+    l_gpu, g_gpu = train_grads(tr, tr.network, x.cuda(), y.cuda())
+    t0 = time.perf_counter()
+    l_cpu, g_cpu = train_grads(tr, cpu_net, x, y)
+    log(f"  CPU forward + backward: {time.perf_counter() - t0:.1f} s")
+    d = abs(l_gpu - l_cpu) / abs(l_cpu)
+    log(f"  loss card {l_gpu:.7f} CPU {l_cpu:.7f}: rel {d:.3e} (tol {TOL_TRAIN_LOSS:g})")
+    if not d <= TOL_TRAIN_LOSS:
+        fail(f"fp32 training loss card vs CPU: rel {d:.3e}")
+    worst = (0.0, "")
+    for k, r in g_cpu.items():
+        g = g_gpu[k]
+        if not torch.isfinite(g).all():
+            fail(f"gradient {k} not finite on the card")
+        err = (g - r).abs().max().item()
+        bound = TOL_TRAIN_GRAD * r.abs().max().item() + 1e-6
+        if not err <= bound:
+            fail(f"gradient {k}: max |card - CPU| {err:.3e} > {bound:.3e}")
+        worst = max(worst, (err / bound, k))
+    log(f"  {len(g_cpu)} parameter gradients within {TOL_TRAIN_GRAD:g} x max|CPU| + 1e-6; "
+        f"closest to its bound: {worst[1]} at {worst[0]:.3f} of it")
+    del tr, cpu_net, g_gpu, g_cpu
+
+    log(f"[train] bf16 steps at batch {TRAIN_BATCH}, {TILE[0]}x{TILE[1]}, drop path on")
+    tr = Trainer(name, TILE, TRAIN_BATCH, 1, 4, seed=0, device="cuda")
+    x, y = (t.cuda() for t in synthetic_batch(torch, TRAIN_BATCH, seed=2))
+    warm = tr.run_steps([(x, y)] * TRAIN_WARMUP)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _ext.reset_launch_counts()
+    t0 = time.perf_counter()
+    timed = tr.run_steps([(x, y)] * TRAIN_STEPS)   # ends in a host sync
+    elapsed = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _ext.ALL_KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = warm + timed
+    ms = elapsed / TRAIN_STEPS * 1e3
+    log(f"  {ms:.2f} ms per step, {TRAIN_BATCH * TRAIN_STEPS / elapsed:.3f} images/s "
+        f"(10 steps in {elapsed:.3f} s), peak memory {peak:.2f} GiB")
+    log(f"  losses: first {losses[0]:.5f}, last {losses[-1]:.5f}; all {['%.5f' % v for v in losses]}")
+    log(f"  launches in the {TRAIN_STEPS} timed steps: {launches}")
+    if not losses[-1] < losses[0]:
+        fail(f"training loss did not fall: first {losses[0]}, last {losses[-1]}")
+    for k in TRAIN_KERNELS:
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the training path")
+    for k in set(launches) - set(TRAIN_KERNELS):
+        if launches[k] != 0:
+            fail(f"kernel {k} (no backward) was launched on the training path")
+    profile(torch, "one train step",
+            lambda: (tr.train_step(x, y), torch.cuda.synchronize()))
+    loss, tp, fp, fn = tr.val_step(x, y)
+    dice = (2 * tp / (2 * tp + fp + fn).clamp(min=1)).tolist()
+    log(f"  validation step: loss {loss.item():.5f}, pseudo dice per class "
+        f"{['%.4f' % v for v in dice]}")
+    return launches, ms
 
 
 def main() -> None:
@@ -384,13 +583,18 @@ def main() -> None:
 
     report = Report()
     phase_kernels(torch, report)
+    phase_scan_train(torch, report)
     model = phase_model(torch)
-    launches, vps = phase_serve(torch, model)
+    serve, vps = phase_serve(torch, model)
+    del model
+    train, step_ms = phase_train(torch)
 
+    launches = {**serve, "selective_scan_bwd": train["selective_scan_bwd"]}
     kernels = report.finish(launches)
     if {k["name"] for k in kernels} != set(launches):
         fail(f"kernels measured {sorted(r['name'] for r in kernels)} != built {sorted(launches)}")
     log(f"[serve] volumes_per_s {vps}")
+    log(f"[train] ms_per_step {step_ms}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

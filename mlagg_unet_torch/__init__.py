@@ -6,11 +6,12 @@ the numerical reference. This package imports ``torch`` and never ``jax``,
 layouts: NHWC activations in the models, ``(b, g, d, l)`` for the selective
 scan and ``(b, h, l, d)`` for attention.
 
-Entry points (``build_flagship``, ``VolumePredictor``) run on the GPU unless
-the caller passes ``device="cpu"``; without a GPU they raise.
+Entry points (``build_flagship``, ``VolumePredictor``, ``Trainer``) run on
+the GPU unless the caller passes ``device="cpu"``; without a GPU they raise.
 """
 from mlagg_unet_torch.device import resolve_device
 from mlagg_unet_torch.inference.sliding_window import VolumePredictor
 from mlagg_unet_torch.models.mlla_uper import build_flagship
+from mlagg_unet_torch.training.trainer import Trainer
 
-__all__ = ["resolve_device", "build_flagship", "VolumePredictor"]
+__all__ = ["resolve_device", "build_flagship", "VolumePredictor", "Trainer"]

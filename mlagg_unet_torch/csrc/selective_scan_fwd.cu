@@ -1,4 +1,4 @@
-// Selective scan (Mamba S6) forward for serving: K1 of the port.
+// Selective scan (Mamba S6) forward: K1 of the port.
 //
 // Replaces the Pallas kernels mlagg_unet_tpu/ops/selective_scan_pallas.py
 // `_fwd_kernel_v2` and `_fwd_kernel` (both launched by `_pallas_forward`).
@@ -7,8 +7,14 @@
 //     h_l     = exp(delta_l * A[g, d, n]) * h_{l-1} + delta_l * u_l * B_l[n]
 //     y_l     = sum_n C_l[n] * h_l[n] + D[g, d] * u_l
 // with fp32 state and fp32 y. reverse=1 walks l from L-1 down to 0 and writes
-// y at the natural positions. No chunk states are emitted: the serving path
-// has no backward.
+// y at the natural positions.
+//
+// For training, `states` (fp32, (batch, G, ceil(L / LT), Dd, 16)) receives h
+// at the scan-entry of every LT-step tile, tiles counted in scan order (a
+// reverse scan's tile i ends at L - i * LT, and its entry is its right
+// edge), as `_pallas_forward(..., with_states=True)` emits chunk start
+// states. The backward kernel (selective_scan_bwd.cu) recomputes h inside a
+// tile from them. With `states` null (serving) nothing else changes.
 //
 // What bounds it on the H100: at the flagship shapes (rows = 16 * 2,
 // d = 96, n = 16, L = 19040, bf16 in) it moves ~0.5 GB (u, delta, B, C in,
@@ -27,19 +33,11 @@
 // that the loads, exps and shuffles of later steps overlap the h chain.
 // Chunked or parallel-in-L designs are later work.
 #include "common.cuh"
+#include "selective_scan_common.cuh"
 
 namespace {
 
-constexpr int N = 16;   // states per channel = lanes per channel group
-constexpr int DC = 8;   // channels per CTA
-constexpr int LT = 64;  // steps staged per tile
-constexpr int THREADS = DC * N;
-constexpr int LP = LT + 1;  // padded row: B/C rows of 16 states hit 16 banks
-
-__device__ __forceinline__ float softplus_f(float x) {
-    // jax.nn.softplus == logaddexp(x, 0) == max(x, 0) + log1p(exp(-|x|))
-    return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
+using namespace scan;
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -47,7 +45,8 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
                 const float* __restrict__ A, const T* __restrict__ Bm,
                 const T* __restrict__ Cm, const float* __restrict__ Dv,
                 const float* __restrict__ delta_bias, float* __restrict__ y,
-                int G, int Dd, long long L, int softplus, int reverse) {
+                float* __restrict__ states, int G, int Dd, long long L,
+                int softplus, int reverse) {
     __shared__ float s_dt[DC][LP];
     __shared__ float s_du[DC][LP];
     __shared__ float s_u[DC][LP];
@@ -70,16 +69,10 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
 
     const long long n_tiles = (L + LT - 1) / LT;
     for (long long it = 0; it < n_tiles; ++it) {
-        long long t0;
         int len;
-        if (!reverse) {
-            t0 = it * LT;
-            len = (int)min((long long)LT, L - t0);
-        } else {
-            const long long end = L - it * LT;
-            t0 = end > LT ? end - LT : 0;
-            len = (int)(end - t0);
-        }
+        const long long t0 = tile_bounds(it, L, reverse, &len);
+        if (states && d < Dd)  // h at this tile's scan-entry
+            states[(((long long)row * n_tiles + it) * Dd + d) * N + n] = h;
 
         for (int i = tid; i < DC * LT; i += THREADS) {
             const int cc = i / LT, t = i % LT, dd = d0 + cc;
@@ -137,33 +130,35 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
 template <typename T>
 int launch(const void* u, const void* delta, const float* A, const void* B,
            const void* C, const float* D, const float* delta_bias, float* y,
-           int batch, int G, int Dd, long long L, int softplus, int reverse,
-           cudaStream_t stream) {
+           float* states, int batch, int G, int Dd, long long L, int softplus,
+           int reverse, cudaStream_t stream) {
     const dim3 grid((Dd + DC - 1) / DC, batch * G);
     scan_fwd_kernel<T><<<grid, THREADS, 0, stream>>>(
         static_cast<const T*>(u), static_cast<const T*>(delta), A,
         static_cast<const T*>(B), static_cast<const T*>(C), D, delta_bias, y,
-        G, Dd, L, softplus, reverse);
+        states, G, Dd, L, softplus, reverse);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // u, delta: (batch, G, Dd, L); A: (G, Dd, 16) fp32; B, C: (batch, G, 16, L);
-// D, delta_bias: (G, Dd) fp32 or null; y: (batch, G, Dd, L) fp32.
-// All contiguous. dtype: MLAGG_F32 or MLAGG_BF16 for u, delta, B, C.
+// D, delta_bias: (G, Dd) fp32 or null; y: (batch, G, Dd, L) fp32; states:
+// (batch, G, ceil(L / 64), Dd, 16) fp32 or null. All contiguous. dtype:
+// MLAGG_F32 or MLAGG_BF16 for u, delta, B, C.
 extern "C" int mlagg_scan_fwd(const void* u, const void* delta, const float* A,
                               const void* B, const void* C, const float* D,
-                              const float* delta_bias, float* y, int batch,
-                              int G, int Dd, int n_state, long long L,
-                              int softplus, int reverse, int dtype,
-                              void* stream) {
-    if (n_state != N) return (int)cudaErrorInvalidValue;
+                              const float* delta_bias, float* y, float* states,
+                              int batch, int G, int Dd, int n_state,
+                              long long L, int softplus, int reverse,
+                              int dtype, void* stream) {
+    if (n_state != scan::N) return (int)cudaErrorInvalidValue;
     if (batch * G > 65535) return (int)cudaErrorInvalidConfiguration;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == MLAGG_BF16)
         return launch<__nv_bfloat16>(u, delta, A, B, C, D, delta_bias, y,
-                                     batch, G, Dd, L, softplus, reverse, s);
-    return launch<float>(u, delta, A, B, C, D, delta_bias, y, batch, G, Dd, L,
-                         softplus, reverse, s);
+                                     states, batch, G, Dd, L, softplus,
+                                     reverse, s);
+    return launch<float>(u, delta, A, B, C, D, delta_bias, y, states, batch, G,
+                         Dd, L, softplus, reverse, s);
 }

@@ -11,9 +11,9 @@ the flipped kernel).
 Submodules are named after the flax scopes (``Conv_0``, ``GroupNorm_0``,
 ``Dense_0``...), so ``weights.jax_params_to_state_dict`` only changes layouts.
 Parameters are made empty and filled by ``init_parameters(module, generator)``
-with the JAX package's distributions. The port's modules are inference-only
-for now, so stochastic depth (DropPath), the identity at inference, is left
-out.
+with the JAX package's distributions. Stochastic depth (``DropPath``) draws
+its masks from a ``torch.Generator`` that the caller hands to the model's
+forward; it is the identity in ``eval()`` mode.
 """
 from __future__ import annotations
 
@@ -83,6 +83,33 @@ class _Affine(nn.Module):
         with torch.no_grad():
             self.weight.fill_(1.0)
             self.bias.zero_()
+
+
+# ---------------------------------------------------------------- stochastic depth
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (``layers.py:25-42``): in training mode
+    each sample of the batch is kept with probability ``1 - rate`` and
+    scaled by ``1 / (1 - rate)``, or zeroed. The identity in ``eval()`` mode
+    or at rate 0. The mask is drawn from ``generator``, which must lie on
+    x's device; training at a rate above 0 without one raises."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("DropPath in training mode needs a torch.Generator "
+                             "on the input's device")
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
 
 
 # ---------------------------------------------------------------- linear

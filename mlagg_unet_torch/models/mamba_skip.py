@@ -5,13 +5,14 @@ its non-interleaved branch) and ``VSSConvBlock`` / ``VSSConvLayer``
 (``:227-300``). The four scan directions run over the token sequences of all
 scales concatenated: two layouts, each scanned forward (directions 0/1) and
 in reverse over the reversed scale order (directions 2/3). The scan is
-``ops.selective_scan_cuda.selective_scan_fwd``: kernel K1 on the GPU, the
-plain chunked scan on the CPU; its output is fp32.
+``ops.selective_scan_cuda.selective_scan_fwd``: kernel K1 on the GPU (with
+K5 as its backward in training), the plain chunked scan on the CPU; its
+output is fp32.
 """
 from __future__ import annotations
 
 import math
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +23,7 @@ from mlagg_unet_torch.models.layers import (
     ConvolutionalGLU,
     Dense,
     DepthwiseConv,
+    DropPath,
     InstanceNorm,
     LayerNorm,
     lecun_normal_,
@@ -107,12 +109,16 @@ class SS2DSkip(nn.Module):
 class VSSConvBlock(nn.Module):
     """Channel-split mamba + conv skip block: the first ``hidden_dim``
     channels of every scale go through the shared multi-scale scan and a
-    per-scale ConvGLU, the rest through Conv3x3 + InstanceNorm + SiLU."""
+    per-scale ConvGLU, the rest through Conv3x3 + InstanceNorm + SiLU. In
+    training the scanned and ConvGLU branches drop at ``drop_path``
+    (``mamba_skip.py:262, 268``)."""
 
-    def __init__(self, feature_dims: Sequence[int], hidden_dim: int):
+    def __init__(self, feature_dims: Sequence[int], hidden_dim: int,
+                 drop_path: float = 0.0):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.n = len(feature_dims)
+        self.drop_path = DropPath(drop_path)
         self.ln_1 = LayerNorm(hidden_dim)
         self.self_attention = SS2DSkip(hidden_dim, stage_num=self.n)
         self.norm2 = LayerNorm(hidden_dim)
@@ -123,14 +129,16 @@ class VSSConvBlock(nn.Module):
             self.add_module(f"conv_branch{i}", Conv(cc, cc, 3))
             self.add_module(f"conv_norm{i}", InstanceNorm(cc))
 
-    def forward(self, inputs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def forward(self, inputs: Sequence[torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
         hd = self.hidden_dim
         m_branch = [x[..., :hd] for x in inputs]
         scanned = self.self_attention([self.ln_1(m) for m in m_branch])
+        dp = self.drop_path
         outs = []
         for i in range(self.n):
-            m = self.norm2(m_branch[i] + scanned[i])
-            m = m + getattr(self, f"mlp{i}")(m)
+            m = self.norm2(m_branch[i] + dp(scanned[i], generator))
+            m = m + dp(getattr(self, f"mlp{i}")(m), generator)
             c = getattr(self, f"conv_branch{i}")(inputs[i][..., hd:])
             c = F.silu(getattr(self, f"conv_norm{i}")(c))
             outs.append(torch.cat([m, c], dim=-1))
@@ -141,13 +149,14 @@ class VSSConvLayer(nn.Module):
     """A stack of VSSConvBlocks over the encoder scales."""
 
     def __init__(self, feature_dims: Sequence[int], hidden_dim: int,
-                 depth: int = 1):
+                 depth: int = 1, drop_path: float = 0.0):
         super().__init__()
         self.depth = depth
         for i in range(depth):
-            self.add_module(f"block{i}", VSSConvBlock(feature_dims, hidden_dim))
+            self.add_module(f"block{i}", VSSConvBlock(feature_dims, hidden_dim,
+                                                      drop_path))
 
-    def forward(self, xs):
+    def forward(self, xs, generator: Optional[torch.Generator] = None):
         for i in range(self.depth):
-            xs = getattr(self, f"block{i}")(xs)
+            xs = getattr(self, f"block{i}")(xs, generator)
         return xs

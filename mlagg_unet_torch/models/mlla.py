@@ -5,10 +5,11 @@ Counterparts of ``mlagg_unet_tpu/models/mlla.py``: ``AggregatedAttention``
 ``PatchEmbed`` and ``MLLAEncoder``. ``Attention`` (``sr_ratio == 1``) is not
 on the flagship's path and is not ported yet.
 
-The block front and tail run through ``ops.mlla_fused`` (kernels K2 and K3
-on the GPU, their unfused twins on the CPU) and the pooled branch through
-``ops.flash_attention`` (kernel K4). The port's blocks are inference-only:
-stochastic depth is the identity there.
+In ``eval()`` mode the block front and tail run through ``ops.mlla_fused``
+(kernels K2 and K3 on the GPU, their unfused twins on the CPU). In training
+mode they run unfused with stochastic depth, as ``mlla.py:338-341, 377-387``
+do (K2/K3 have no backward). The pooled branch runs through
+``ops.flash_attention`` (kernel K4) in both modes.
 
 Scale note, kept from the reference: the pooled branch pre-scales q by
 head_dim ** -0.5 and the attention call scales again, so its logits are
@@ -16,8 +17,9 @@ q.k / head_dim.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -25,6 +27,7 @@ from torch import nn
 from mlagg_unet_torch.models.layers import (
     Conv,
     Dense,
+    DropPath,
     DWConv2d,
     LayerNorm,
     PointwiseConv,
@@ -119,10 +122,10 @@ class _Mlp(nn.Module):
 class MLLABlock(nn.Module):
     """Mamba-like gated attention block: front (LN, gate, in-proj), dwconv +
     SiLU, the two attention halves, tail (gate-mul, out-proj, residual, LN,
-    MLP, residual)."""
+    MLP, residual), with stochastic depth on both residual branches."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 sr_ratio: int = 1):
+                 sr_ratio: int = 1, drop_path: float = 0.0):
         super().__init__()
         if sr_ratio == 1:
             raise NotImplementedError("MLLABlock with sr_ratio == 1 (plain "
@@ -138,34 +141,46 @@ class MLLABlock(nn.Module):
         self.out_proj = Dense(dim, dim)
         self.norm2 = LayerNorm(dim)
         self.mlp = _Mlp(dim, int(dim * mlp_ratio))
+        self.drop_path = DropPath(drop_path)
 
-    def forward(self, x):
-        a, h = mlla_front(x, self.norm1.weight, self.norm1.bias,
-                          self.act_proj.weight, self.act_proj.bias,
-                          self.in_proj.weight, self.in_proj.bias)
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        m = self.mlp
+        if self.training:
+            hn = self.norm1(x)
+            a, h = F.silu(self.act_proj(hn)), self.in_proj(hn)
+        else:
+            a, h = mlla_front(x, self.norm1.weight, self.norm1.bias,
+                              self.act_proj.weight, self.act_proj.bias,
+                              self.in_proj.weight, self.in_proj.bias)
         h = F.silu(self.dwc(h))
         h1, h2 = h.chunk(2, dim=-1)
         h = torch.cat([self.attn_local(h1), self.attn_pool(h2)], dim=-1)
-        m = self.mlp
-        return mlla_tail(h, a, x, self.out_proj.weight, self.out_proj.bias,
-                         self.norm2.weight, self.norm2.bias,
-                         m.Dense_0.weight, m.Dense_0.bias,
-                         m.Dense_1.weight, m.Dense_1.bias)
+        if not self.training:
+            return mlla_tail(h, a, x, self.out_proj.weight, self.out_proj.bias,
+                             self.norm2.weight, self.norm2.bias,
+                             m.Dense_0.weight, m.Dense_0.bias,
+                             m.Dense_1.weight, m.Dense_1.bias)
+        x = x + self.drop_path(self.out_proj(h * a), generator)
+        y = m.Dense_1(gelu(m.Dense_0(self.norm2(x))))
+        return x + self.drop_path(y, generator)
 
 
 class BasicLayer(nn.Module):
     """A stack of MLLABlocks for one stage."""
 
     def __init__(self, dim: int, depth: int, num_heads: int,
-                 mlp_ratio: float = 4.0, sr_ratio: int = 1):
+                 mlp_ratio: float = 4.0, sr_ratio: int = 1,
+                 drop_path: Sequence[float] = ()):
         super().__init__()
         self.depth = depth
+        rates = list(drop_path) or [0.0] * depth
         for i in range(depth):
-            self.add_module(f"block{i}", MLLABlock(dim, num_heads, mlp_ratio, sr_ratio))
+            self.add_module(f"block{i}", MLLABlock(dim, num_heads, mlp_ratio,
+                                                   sr_ratio, rates[i]))
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x)
+            x = getattr(self, f"block{i}")(x, generator)
         return x
 
 
@@ -203,29 +218,35 @@ class PatchEmbed(nn.Module):
 
 class MLLAEncoder(nn.Module):
     """4-stage MLLA encoder with MedNeXtDownBlock downsampling between
-    stages. Returns [input, stage0, ..., stage3]."""
+    stages. Returns [input, stage0, ..., stage3]. Block i of the whole stack
+    drops its residual branches at rate ``linspace(0, drop_path_rate,
+    sum(depths))[i]`` in training (``mlla.py:482``)."""
 
     def __init__(self, in_channels: int, patch_size: int = 2,
                  embed_dim: int = 96, depths: Sequence[int] = (2, 2, 2, 2),
                  num_heads: Sequence[int] = (2, 4, 8, 16),
                  mlp_ratio: float = 2.0,
-                 sr_ratio: Sequence[int] = (16, 8, 4, 2)):
+                 sr_ratio: Sequence[int] = (16, 8, 4, 2),
+                 drop_path_rate: float = 0.1):
         super().__init__()
         self.num_layers = len(depths)
         self.patch_embed = PatchEmbed(in_channels, patch_size, embed_dim)
+        dpr = [float(r) for r in np.linspace(0, drop_path_rate, sum(depths))]
         for i in range(self.num_layers):
             dim = embed_dim * 2 ** i
+            first = sum(depths[:i])
             self.add_module(f"layer{i}", BasicLayer(
-                dim, depths[i], num_heads[i], mlp_ratio, sr_ratio[i]))
+                dim, depths[i], num_heads[i], mlp_ratio, sr_ratio[i],
+                dpr[first:first + depths[i]]))
             if i < self.num_layers - 1:
                 self.add_module(f"down{i}", MedNeXtDownBlock(
                     dim, 2 * dim, exp_r=int(mlp_ratio), kernel_size=3, do_res=True))
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         outs = [x]
         h = self.patch_embed(x)
         for i in range(self.num_layers):
-            h = getattr(self, f"layer{i}")(h)
+            h = getattr(self, f"layer{i}")(h, generator)
             outs.append(h)
             if i < self.num_layers - 1:
                 h = getattr(self, f"down{i}")(h)

@@ -4,10 +4,15 @@ Counterpart of ``mlagg_unet_tpu/models/mlla_uper.py``: MLLA encoder (4
 stages) -> Multi-Scale Mamba Module over the 4 scales -> MedNeXt decoder with
 PatchExpand upsampling -> stem-resolution UNETR head -> 1 + 4 deep-supervision
 heads, returned as [full res, 1/2, 1/4, 1/8, 1/16].
+
+Stochastic depth follows the flagship's build: encoder blocks at
+``linspace(0, drop_path_rate, 8)``, the Multi-Scale Mamba skip at a fixed
+``skip_drop_path`` (0.1, ``mlla_uper.py:61``). It acts only in training mode
+and draws from the ``generator`` handed to ``forward``.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Union
+from typing import List, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -26,15 +31,17 @@ class MLLAUper(nn.Module):
                  num_heads: Sequence[int] = (2, 4, 8, 16),
                  mlp_ratio: float = 2.0,
                  sr_ratio: Sequence[int] = (16, 8, 4, 2),
-                 deep_supervision: bool = True):
+                 deep_supervision: bool = True, drop_path_rate: float = 0.1,
+                 skip_drop_path: float = 0.1):
         super().__init__()
         e = embed_dim
         exp_r = int(mlp_ratio)
         self.depths = tuple(depths)
         self.deep_supervision = deep_supervision
         self.mlla = MLLAEncoder(in_channels, patch_size, e, depths, num_heads,
-                                mlp_ratio, sr_ratio)
-        self.mambaskip = VSSConvLayer([e, 2 * e, 4 * e, 8 * e], e // 2, depth=1)
+                                mlp_ratio, sr_ratio, drop_path_rate)
+        self.mambaskip = VSSConvLayer([e, 2 * e, 4 * e, 8 * e], e // 2, depth=1,
+                                      drop_path=skip_drop_path)
         if deep_supervision:
             self.out_4 = OutBlock(8 * e, out_channels)
         for s, (c_in, c) in enumerate(((2 * e, e), (4 * e, 2 * e), (8 * e, 4 * e))):
@@ -49,9 +56,10 @@ class MLLAUper(nn.Module):
                                      upsample_kernel_size=2)
         self.out_0 = OutBlock(e // 2, out_channels)
 
-    def forward(self, x) -> Union[torch.Tensor, List[torch.Tensor]]:
-        hidden = self.mlla(x)
-        hidden = [hidden[0]] + list(self.mambaskip(hidden[1:]))
+    def forward(self, x, generator: Optional[torch.Generator] = None
+                ) -> Union[torch.Tensor, List[torch.Tensor]]:
+        hidden = self.mlla(x, generator)
+        hidden = [hidden[0]] + list(self.mambaskip(hidden[1:], generator))
         ds = {}
         if self.deep_supervision:
             ds[4] = self.out_4(hidden[4])
@@ -79,7 +87,7 @@ def build_flagship(num_classes: int = 4, in_channels: int = 1, *,
     """The flagship MLLAUper (``bench.py``'s config unless overridden), fp32,
     with weights drawn from ``torch.Generator().manual_seed(seed)``, in eval
     mode on ``device`` (the GPU unless the caller passes another; raises
-    without one)."""
+    without one). A trainer sets ``.train()``."""
     dev = resolve_device(device)
     model = MLLAUper(in_channels, num_classes, **{**FLAGSHIP, **overrides})
     init_parameters(model, torch.Generator().manual_seed(seed))

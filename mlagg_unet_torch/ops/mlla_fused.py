@@ -11,7 +11,9 @@ LN is the flax LayerNorm (eps 1e-6, fast variance), GELU the exact erf form.
 Weights are in torch's (out, in) layout. The plain twins are the unfused
 math of ``mlagg_unet_tpu/models/mlla.py:339-341`` and ``:377-388``; the
 wrappers run them on a CPU tensor and launch the kernels on a CUDA tensor,
-or raise.
+or raise. The kernels have no backward (nor do the JAX ones: training runs
+the block unfused), so on a CUDA tensor with grad enabled and an input that
+requires it the wrappers raise rather than drop the gradient.
 """
 from __future__ import annotations
 
@@ -51,6 +53,9 @@ _SMEM_FLOATS = 112 * 1024 // 4 - 64 * 33
 
 
 def _check(name, tensors, floats_per_token, ref):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel has no backward; run the "
+                           "block unfused (train mode) to differentiate it")
     if 8 * floats_per_token > _SMEM_FLOATS:
         raise ValueError(f"{name}: {floats_per_token} fp32 values per token "
                          "do not fit the kernel's shared memory")

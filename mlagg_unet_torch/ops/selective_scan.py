@@ -14,8 +14,17 @@ positions.
 
 ``selective_scan`` is the vectorised chunked form: a log-depth doubling scan
 inside each chunk and a loop over chunks for the carried state. It is the
-plain twin of the CUDA kernel (``selective_scan_cuda.py``) and the CPU path.
-``selective_scan_seq_ref`` is the step-by-step ground truth for tests.
+plain twin of the CUDA forward kernel (``selective_scan_cuda.py``) and the
+CPU path. ``selective_scan_seq_ref`` is the step-by-step ground truth for
+tests.
+
+``selective_scan_bwd_plain`` is the backward: the adjoint of the linear
+recurrence is the reversed recurrence ``g_t = gy_t C_t + a_{t+1} g_{t+1}``
+(``a_t = exp(delta_t A)``), run chunk by chunk from the scan's end with h
+recomputed per chunk from the chunk's saved start state, as the Pallas
+backward does (``selective_scan_pallas.py:30-36``). It builds no autograd
+graph, so its memory is a few chunk-sized tensors at any length. It is the
+plain twin of the CUDA backward kernel and the CPU backward.
 """
 from __future__ import annotations
 
@@ -64,34 +73,130 @@ def selective_scan_seq_ref(u, delta, A, B, C, D=None, delta_bias=None,
     return _add_d(y, u, D)
 
 
+def _linear_scan(a, bx, h0):
+    """h_k = a_k h_{k-1} + bx_k along axis -2 with h_{-1} = h0, for every k:
+    an inclusive doubling scan of (a, bx) under (a1, b1) . (a2, b2) =
+    (a1 a2, b1 a2 + b2). a, bx: (..., lc, n); h0: (..., 1, n)."""
+    lc = a.shape[-2]
+    k = 1
+    while k < lc:
+        bx = torch.cat([bx[..., :k, :], bx[..., k:, :] + a[..., k:, :] * bx[..., :-k, :]], dim=-2)
+        a = torch.cat([a[..., :k, :], a[..., k:, :] * a[..., :-k, :]], dim=-2)
+        k *= 2
+    return bx + a * h0
+
+
+def _chunk(u, dt, A, B, s, chunk_size):
+    """a = exp(dt A) and bx = dt u B over steps [s, s + chunk_size),
+    each (b, g, d, lc, n)."""
+    dtc = dt[..., s:s + chunk_size]                              # (b,g,d,lc)
+    a = torch.exp(dtc[..., None] * A[None, :, :, None, :])
+    bx = (dtc * u[..., s:s + chunk_size])[..., None] * \
+        B[..., s:s + chunk_size].transpose(-1, -2)[:, :, None]
+    return a, bx
+
+
+def _scan_chunks(u, dt, A, B, chunk_size):
+    """Walk the prepped forward-direction scan chunk by chunk: yields
+    (start, h at the chunk's entry (b, g, d, 1, n), h at every step of the
+    chunk (b, g, d, lc, n))."""
+    b, g, d, l = u.shape
+    h = u.new_zeros(b, g, d, 1, A.shape[-1])
+    for s in range(0, l, chunk_size):
+        hc = _linear_scan(*_chunk(u, dt, A, B, s, chunk_size), h)
+        yield s, h, hc
+        h = hc[..., -1:, :]
+
+
+def _flip_l(*ts):
+    return tuple(t.flip(-1) for t in ts)
+
+
 def selective_scan(u, delta, A, B, C, D=None, delta_bias=None,
                    delta_softplus: bool = False, chunk_size: int = 256,
                    reverse: bool = False) -> torch.Tensor:
     """Chunked scan: doubling scan within each chunk, state carried across
     chunks. Returns (b, g, d, l) fp32."""
     if reverse:
-        flip = lambda t: t.flip(-1)  # noqa: E731
-        return flip(selective_scan(flip(u), flip(delta), A, flip(B), flip(C),
-                                   D, delta_bias, delta_softplus, chunk_size))
+        u, delta, B, C = _flip_l(u, delta, B, C)
+        return selective_scan(u, delta, A, B, C, D, delta_bias, delta_softplus,
+                              chunk_size).flip(-1)
     u, delta, A, B, C = _prep(u, delta, A, B, C, delta_bias, delta_softplus)
+    ys = [torch.einsum("bgdln,bgnl->bgdl", hc, C[..., s:s + chunk_size])
+          for s, _, hc in _scan_chunks(u, delta, A, B, chunk_size)]
+    return _add_d(torch.cat(ys, dim=-1), u, D)
+
+
+def selective_scan_states(u, delta, A, B, C, delta_bias=None,
+                          delta_softplus: bool = False, every: int = 64,
+                          reverse: bool = False) -> torch.Tensor:
+    """The scan's state at the entry of each ``every``-step tile, in scan
+    order: fp32 (b, g, ceil(l / every), d, n). Tile i of a forward scan
+    starts at step i * every; a reverse scan's tiles are counted from the
+    right end, so tile i ends at l - i * every and its entry state is the one
+    at its right edge. The first tile's entry state is 0."""
+    if reverse:
+        u, delta, B, C = _flip_l(u, delta, B, C)
+    u, delta, A, B, C = _prep(u, delta, A, B, C, delta_bias, delta_softplus)
+    return torch.stack([h[..., 0, :] for _, h, _ in
+                        _scan_chunks(u, delta, A, B, every)], dim=2)
+
+
+@torch.no_grad()
+def selective_scan_bwd_plain(u, delta, A, B, C, D=None, delta_bias=None,
+                             delta_softplus: bool = False,
+                             reverse: bool = False, gy=None,
+                             chunk_size: int = 256):
+    """Gradients of ``selective_scan`` for the output gradient ``gy``
+    (b, g, d, l): (du, ddelta, dA, dB, dC, dD, ddelta_bias), each in its
+    input's dtype (dD, ddelta_bias None where D, delta_bias are None).
+    fp32 arithmetic, no autograd graph."""
+    if reverse:
+        u, delta, B, C, gy = _flip_l(u, delta, B, C, gy)
+        du, ddt, dA, dB, dC, dD, dbias = selective_scan_bwd_plain(
+            u, delta, A, B, C, D, delta_bias, delta_softplus, False, gy,
+            chunk_size)
+        du, ddt, dB, dC = _flip_l(du, ddt, dB, dC)
+        return du, ddt, dA, dB, dC, dD, dbias
+    dtypes = [None if t is None else t.dtype
+              for t in (u, delta, A, B, C, D, delta_bias)]
+    pre = delta.float()
+    if delta_bias is not None:
+        pre = pre + delta_bias.float()[None, :, :, None]
+    u32, dt, A32, B32, C32 = _prep(u, delta, A, B, C, delta_bias, delta_softplus)
+    gy = gy.float()
     b, g, d, l = u.shape
     n = A.shape[-1]
-    h = u.new_zeros(b, g, d, 1, n)
-    ys = []
-    for s in range(0, l, chunk_size):
-        dt = delta[..., s:s + chunk_size]                        # (b,g,d,lc)
-        a = torch.exp(dt[..., None] * A[None, :, :, None, :])    # (b,g,d,lc,n)
-        bx = (dt * u[..., s:s + chunk_size])[..., None] * \
-            B[..., s:s + chunk_size].transpose(-1, -2)[:, :, None]
-        lc = dt.shape[-1]
-        # inclusive doubling scan of (a, bx) under
-        # (a1, b1) . (a2, b2) = (a1 a2, b1 a2 + b2) along the step axis
-        k = 1
-        while k < lc:
-            bx = torch.cat([bx[..., :k, :], bx[..., k:, :] + a[..., k:, :] * bx[..., :-k, :]], dim=-2)
-            a = torch.cat([a[..., :k, :], a[..., k:, :] * a[..., :-k, :]], dim=-2)
-            k *= 2
-        hc = bx + a * h                                          # (b,g,d,lc,n)
-        h = hc[..., -1:, :]
-        ys.append(torch.einsum("bgdln,bgnl->bgdl", hc, C[..., s:s + chunk_size]))
-    return _add_d(torch.cat(ys, dim=-1), u, D)
+    starts = [(s, h) for s, h, _ in _scan_chunks(u32, dt, A32, B32, chunk_size)]
+    du, ddt = torch.empty_like(u32), torch.empty_like(u32)
+    dB, dC = torch.empty_like(B32), torch.empty_like(C32)
+    dA = A32.new_zeros(g, d, n)
+    a_carry = g_carry = u32.new_zeros(b, g, d, 1, n)  # the step after the chunk
+    for s, h0 in reversed(starts):
+        sl = slice(s, s + chunk_size)
+        a, bx = _chunk(u32, dt, A32, B32, s, chunk_size)
+        h = _linear_scan(a, bx, h0)                          # (b,g,d,lc,n)
+        h_prev = torch.cat([h0, h[..., :-1, :]], dim=-2)
+        # adjoint g_t = gy_t C_t + a_{t+1} g_{t+1}, solved right to left
+        G = gy[..., sl, None] * C32[..., sl].transpose(-1, -2)[:, :, None]
+        a_next = torch.cat([a[..., 1:, :], a_carry], dim=-2)
+        gc = _linear_scan(a_next.flip(-2), G.flip(-2), g_carry).flip(-2)
+        a_carry, g_carry = a[..., :1, :], gc[..., :1, :]
+        dda = gc * h_prev * a                                # d/d(delta A)
+        gB = torch.einsum("bgdln,bgnl->bgdl", gc, B32[..., sl])
+        dtc = dt[..., sl]
+        du[..., sl] = dtc * gB
+        dd = u32[..., sl] * gB + torch.einsum("bgdln,gdn->bgdl", dda, A32)
+        if delta_softplus:
+            dd = dd * torch.sigmoid(pre[..., sl])
+        ddt[..., sl] = dd
+        dB[..., sl] = torch.einsum("bgdln,bgdl->bgnl", gc, dtc * u32[..., sl])
+        dC[..., sl] = torch.einsum("bgdln,bgdl->bgnl", h, gy[..., sl])
+        dA += torch.einsum("bgdln,bgdl->gdn", dda, dtc)
+    dD = None
+    if D is not None:
+        du += D.float()[None, :, :, None] * gy
+        dD = (gy * u32).sum((0, 3))
+    dbias = None if delta_bias is None else ddt.sum((0, 3))
+    grads = (du, ddt, dA, dB, dC, dD, dbias)
+    return tuple(None if t is None else t.to(dt_) for t, dt_ in zip(grads, dtypes))

@@ -9,10 +9,24 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from flax.traverse_util import flatten_dict
 
 from mlagg_unet_torch.weights import jax_params_to_state_dict
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run the importing test module's torch ops on one CPU thread. Its ops
+    are tiny, and under the suite's parallel workers torch's intra-op
+    threads oversubscribe the cores: each op's thread barrier then waits on
+    descheduled threads (a tiny-flagship train step ran ~50x slower in a
+    full run than alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def random_jax_params(module, *inputs, seed: int = 0):

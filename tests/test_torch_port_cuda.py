@@ -4,7 +4,9 @@ Marked ``cuda`` and skipped without a card. The file imports no JAX, so it
 also runs on a machine that has none:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py``
 (``tests/conftest.py`` imports JAX). Tolerance: fp32 I/O, max|diff| <=
-1e-4 * max|ref| (only the order of fp32 sums differs).
+1e-4 * max|ref| (only the order of fp32 sums differs); the scan's gradients
+2e-4 * max|ref| each (``PARITY.md:70``: the adjoint sums over L in another
+order), 2e-2 with bf16 operands.
 """
 import numpy as np
 import pytest
@@ -13,8 +15,16 @@ import torch
 from mlagg_unet_torch.ops.flash_attention import attention_reference, flash_attention
 from mlagg_unet_torch.ops.mlla_fused import (
     mlla_front, mlla_front_plain, mlla_tail, mlla_tail_plain)
-from mlagg_unet_torch.ops.selective_scan import selective_scan
-from mlagg_unet_torch.ops.selective_scan_cuda import selective_scan_fwd
+from mlagg_unet_torch.ops.selective_scan import (
+    selective_scan,
+    selective_scan_bwd_plain,
+    selective_scan_states,
+)
+from mlagg_unet_torch.ops.selective_scan_cuda import (
+    selective_scan_bwd,
+    selective_scan_fwd,
+    selective_scan_fwd_states,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -34,10 +44,21 @@ def _rand(shape, dev, dtype, seed, scale=1.0):
     return (torch.randn(shape, generator=g) * scale).to(dev, dtype)
 
 
-def _close(got, ref):
+def _close(got, ref, rel=1e-4):
     torch.cuda.synchronize()
-    err = (got.float() - ref.float()).abs().max().item()
-    assert err <= 1e-4 * ref.float().abs().max().item(), err
+    err = (got.float().cpu() - ref.float().cpu()).abs().max().item()
+    assert err <= rel * ref.float().abs().max().item(), err
+
+
+def _scan_args(dev, dtype, b=3, g=2, d=40, n=16, l=1000, optionals=True):
+    """d and l not multiples of the CTA's 8 channels and 64-step tiles."""
+    u = _rand((b, g, d, l), dev, dtype, 0)
+    dl = _rand((b, g, d, l), dev, dtype, 1, 0.5)
+    B, C = _rand((b, g, n, l), dev, dtype, 2), _rand((b, g, n, l), dev, dtype, 3)
+    A = -torch.exp(_rand((g, d, n), dev, torch.float32, 4, 0.3))
+    D = _rand((g, d), dev, torch.float32, 5) if optionals else None
+    db = _rand((g, d), dev, torch.float32, 6, 0.1) if optionals else None
+    return [u, dl, A, B, C, D, db]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -53,6 +74,105 @@ def test_scan_kernel_matches_plain(cuda_device, dtype, reverse):
     y = selective_scan_fwd(u, dl, A, B, C, D, db, True, reverse)
     assert y.dtype == torch.float32
     _close(y, selective_scan(u, dl, A, B, C, D, db, True, reverse=reverse))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_scan_states_match_plain(cuda_device, reverse):
+    """K1 with states: y bit-equal to K1 without them, the states equal to
+    the plain scan's h at the tile entries."""
+    args = _scan_args(cuda_device, torch.float32)
+    y, states = selective_scan_fwd_states(*args, True, reverse)
+    assert torch.equal(y, selective_scan_fwd(*args, True, reverse))
+    u, dl, A, B, C, _, db = args
+    _close(states, selective_scan_states(u, dl, A, B, C, db, True, 64, reverse))
+
+
+@pytest.mark.parametrize("optionals", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_scan_bwd_kernel_matches_plain(cuda_device, dtype, reverse, optionals):
+    args = _scan_args(cuda_device, dtype, optionals=optionals)
+    gy = _rand(args[0].shape, cuda_device, torch.float32, 7)
+    _, states = selective_scan_fwd_states(*args, True, reverse)
+    got = selective_scan_bwd(*args, True, reverse, gy, states)
+    ref = selective_scan_bwd_plain(*args, True, reverse, gy)
+    rel = 2e-4 if dtype == torch.float32 else 2e-2
+    for name, g_, r_ in zip(("du", "ddelta", "dA", "dB", "dC", "dD", "dbias"), got, ref):
+        if r_ is None:
+            assert g_ is None, name
+            continue
+        assert g_.dtype == r_.dtype and g_.shape == r_.shape, name
+        _close(g_, r_, rel)
+
+
+def test_scan_autograd_on_card_matches_plain(cuda_device):
+    """Gradients through selective_scan_fwd on the card (K1 + K5) equal the
+    plain path's on the CPU: no gradient is lost."""
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        args = [t.to(dev).requires_grad_()
+                for t in _scan_args(cuda_device, torch.float32, l=300)]
+        y = selective_scan_fwd(*args, True, True)
+        (y * torch.linspace(-1, 1, y.shape[-1], device=dev)).sum().backward()
+        grads.append([t.grad for t in args])
+    for g_, r_ in zip(*grads):
+        assert g_ is not None
+        _close(g_, r_, 2e-4)
+
+
+def test_attention_autograd_on_card_matches_plain(cuda_device):
+    """K4's backward recomputes the plain attention: dq, dk, dv equal the
+    CPU's, on the strided head views the pooled branch hands it."""
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        qg = _rand((2, 300, 4, 2, 24), dev, torch.float32, 0, 0.2).requires_grad_()
+        kg = _rand((2, 56, 4, 2, 24), dev, torch.float32, 1).requires_grad_()
+        v = _rand((2, 56, 4, 48), dev, torch.float32, 2).requires_grad_()
+        out = flash_attention(qg[:, :, :, 1].transpose(1, 2),
+                              kg[:, :, :, 1].transpose(1, 2), v.transpose(1, 2), 0.2)
+        (out * out).sum().backward()
+        grads.append([qg.grad, kg.grad, v.grad])
+    for g_, r_ in zip(*grads):
+        _close(g_, r_)
+
+
+def test_mlla_kernels_raise_under_grad(cuda_device):
+    C = 32
+    x = torch.zeros(4, C, device=cuda_device)
+    w = torch.zeros(C, C, device=cuda_device, requires_grad=True)
+    b = torch.zeros(C, device=cuda_device)
+    w1, b1 = torch.zeros(2 * C, C, device=cuda_device), torch.zeros(2 * C, device=cuda_device)
+    w2 = torch.zeros(C, 2 * C, device=cuda_device)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mlla_front(x, b, b, w, b, w, b)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mlla_tail(x, x, x, w, b, b, b, w1, b1, w2, b)
+    with torch.no_grad():  # no gradient asked: the kernels run
+        mlla_front(x, b, b, w, b, w, b)
+        mlla_tail(x, x, x, w, b, b, b, w1, b1, w2, b)
+
+
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """A small flagship, fp32, drop path off: the loss and every parameter
+    gradient of one training batch on the card equal the CPU's."""
+    from mlagg_unet_torch import Trainer
+
+    tiny = dict(embed_dim=32, depths=(1, 1, 1, 1), num_heads=(2, 2, 4, 4),
+                sr_ratio=(8, 4, 2, 2), drop_path_rate=0.0, skip_drop_path=0.0)
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 64, 96, 1).astype(np.float32))
+    y = (x[..., 0] > 0.3).long() + (x[..., 0] > 1.0).long()
+    result = []
+    for dev in (cuda_device, "cpu"):
+        tr = Trainer(patch_size=(64, 96), batch_size=2, num_classes=3, seed=1,
+                     device=dev, compute_dtype=torch.float32, network_overrides=tiny)
+        loss = tr.forward_loss(x.to(tr.device), y.to(tr.device))
+        loss.backward()
+        result.append((loss.item(), {k: p.grad.cpu() for k, p in tr.network.named_parameters()}))
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = result
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    for k, r_ in g_cpu.items():
+        err = (g_gpu[k] - r_).abs().max().item()
+        assert err <= 1e-3 * r_.abs().max().item() + 1e-6, k
 
 
 @pytest.mark.parametrize("C,tokens", [(96, 1000), (192, 257), (768, 33)])

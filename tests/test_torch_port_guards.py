@@ -56,4 +56,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         port.build_flagship(3, **TINY)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port.VolumePredictor(torch.nn.Identity(), (32, 32), 3)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port.Trainer(patch_size=(64, 64), batch_size=1,
+                     network_overrides=dict(TINY))
     assert port.resolve_device("cpu") == torch.device("cpu")

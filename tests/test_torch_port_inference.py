@@ -8,7 +8,7 @@ from mlagg_unet_tpu.inference import sliding_window as jsw
 from mlagg_unet_tpu.models.mlla_uper import MLLAUper as JaxMLLAUper
 from mlagg_unet_torch.inference import sliding_window as tsw
 from mlagg_unet_torch.models.mlla_uper import MLLAUper
-from port_helpers import load_jax_params, random_jax_params
+from port_helpers import load_jax_params, one_torch_thread, random_jax_params  # noqa: F401
 
 TINY = dict(embed_dim=16, patch_size=2, depths=(1, 1, 1, 1), num_heads=(2, 2, 4, 4),
             mlp_ratio=2, sr_ratio=(8, 4, 2, 2))

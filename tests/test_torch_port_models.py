@@ -24,7 +24,8 @@ from mlagg_unet_torch.models import unetr_blocks as TUB
 from mlagg_unet_torch.models.layers import init_parameters
 from mlagg_unet_torch.models.mlla_uper import MLLAUper, build_flagship
 from mlagg_unet_torch.weights import state_dict_to_jax_params
-from port_helpers import assert_close, flat_params, load_jax_params, random_jax_params
+from port_helpers import (  # noqa: F401  (one_torch_thread: an autouse fixture)
+    assert_close, flat_params, load_jax_params, one_torch_thread, random_jax_params)
 
 T = torch.from_numpy
 TINY = dict(embed_dim=16, patch_size=2, depths=(1, 1, 1, 1), num_heads=(2, 2, 4, 4),

@@ -18,6 +18,7 @@ from mlagg_unet_tpu.models import layers as JL
 from mlagg_unet_tpu.ops import cross_scan as jcs
 from mlagg_unet_tpu.ops import local_attention as jla
 from mlagg_unet_tpu.ops.flash_attention import attention_reference as j_attention
+from mlagg_unet_tpu.ops.flash_attention import flash_attention as j_flash_attention
 from mlagg_unet_tpu.ops.mlla_fused import mlla_block_front_fused, mlla_block_tail_fused
 from mlagg_unet_tpu.ops.selective_scan import selective_scan_seq_ref as j_scan_ref
 from mlagg_unet_tpu.ops.selective_scan_pallas import selective_scan_pallas
@@ -26,9 +27,13 @@ from mlagg_unet_torch.ops import cross_scan as tcs
 from mlagg_unet_torch.ops import local_attention as tla
 from mlagg_unet_torch.ops.flash_attention import attention_reference, flash_attention
 from mlagg_unet_torch.ops.mlla_fused import mlla_front, mlla_tail
-from mlagg_unet_torch.ops.selective_scan import selective_scan, selective_scan_seq_ref
+from mlagg_unet_torch.ops.selective_scan import (
+    selective_scan,
+    selective_scan_bwd_plain,
+    selective_scan_seq_ref,
+)
 from mlagg_unet_torch.ops.selective_scan_cuda import selective_scan_fwd
-from port_helpers import assert_close, load_jax_params
+from port_helpers import assert_close, load_jax_params, one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 C_IN = 8
@@ -119,6 +124,68 @@ def test_scan_matches_pallas_interpret(reverse):
     y = selective_scan_fwd(*map(T, args), delta_softplus=True, reverse=reverse)
     assert y.dtype == torch.float32
     assert_close(y, ref)
+
+
+@pytest.mark.parametrize("optionals", [True, False])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_scan_gradients_match_pallas_interpret(reverse, optionals):
+    """All seven gradients through the port's autograd Function (the plain
+    forward and ``selective_scan_bwd_plain`` on the CPU) against jax.grad of
+    the Pallas scan's custom_vjp in interpret mode, over L = 300 (three
+    128-step Pallas chunks, several plain chunks). Without D and the bias,
+    softplus is off too, with positive deltas. Tolerance per gradient:
+    max|diff| <= 2e-4 * max|ref| (PARITY.md:70)."""
+    u, dl, A, B, C, D, db = _scan_inputs(seed=9, b=2, d=8, l=300)
+    if not optionals:
+        dl = np.abs(dl)
+    args = (u, dl, A, B, C) + ((D, db) if optionals else ())
+    gy = np.random.RandomState(10).randn(*u.shape).astype(np.float32)
+
+    def loss(*a):
+        y = selective_scan_pallas(*a, delta_softplus=optionals, chunk_size=128,
+                                  reverse=reverse)
+        return (y * gy).sum()
+
+    ref = jax.grad(loss, argnums=tuple(range(len(args))))(*map(jnp.asarray, args))
+    targs = [T(a).requires_grad_() for a in args]
+    y = selective_scan_fwd(*targs[:5], *(targs[5:] or (None, None)),
+                           delta_softplus=optionals, reverse=reverse)
+    (y * T(gy)).sum().backward()
+    for t, r in zip(targs, ref):  # du, ddelta, dA, dB, dC[, dD, dbias]
+        assert_close(t.grad, r, rel=2e-4, atol=0)
+
+
+def test_scan_bwd_plain_matches_autograd_of_step_reference():
+    """The plain backward at a chunk size that leaves a ragged last chunk,
+    against autograd through the step-by-step loop (fp32, 1e-4)."""
+    args = [T(a).requires_grad_() for a in _scan_inputs(seed=11, l=70)]
+    gy = T(np.random.RandomState(12).randn(2, 2, 8, 70).astype(np.float32))
+    for reverse in (False, True):
+        y = selective_scan_seq_ref(*args, delta_softplus=True, reverse=reverse)
+        ref = torch.autograd.grad(y, args, gy)
+        got = selective_scan_bwd_plain(*[a.detach() for a in args], True, reverse,
+                                       gy, chunk_size=16)
+        for g_, r_ in zip(got, ref):
+            assert_close(g_, r_.numpy(), atol=0)
+
+
+def test_attention_gradients_match_jax():
+    """dq, dk, dv of the port's attention on the CPU against the JAX
+    custom_vjp around the Pallas kernel (interpret mode), 1e-5 relative."""
+    rs = np.random.RandomState(13)
+    q = rs.randn(2, 3, 37, 8).astype(np.float32)
+    k = rs.randn(2, 3, 11, 8).astype(np.float32)
+    v = rs.randn(2, 3, 11, 16).astype(np.float32)
+    go = rs.randn(2, 3, 37, 16).astype(np.float32)
+
+    def loss(q_, k_, v_):
+        return (j_flash_attention(q_, k_, v_, 0.3, use_pallas=True) * go).sum()
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (T(a).requires_grad_() for a in (q, k, v))
+    (flash_attention(tq, tk, tv, 0.3) * T(go)).sum().backward()
+    for t, r in zip((tq, tk, tv), ref):
+        assert_close(t.grad, r, rel=1e-5, atol=0)
 
 
 def test_scan_without_optionals():
