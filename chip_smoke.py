@@ -16,13 +16,20 @@ failure exits non-zero:
    and timed with CUDA events (median of 20). K1 with its tile-entry states
    must give a y bit-equal to K1 without them and states equal to the plain
    scan's; K5 (scan backward) is also held against autograd through the
-   step-by-step scan at b = 2, L = 1024;
+   step-by-step scan at b = 2, L = 1024. K6 (fused local attention) at the
+   four stages' local halves; K7 and K8 (fused instance norm stats and
+   apply) at the UNETR head's (16, 256, 224, 48) in modes 0, 1 and 2 with
+   and without the activation, two runs bit-equal, and autograd through
+   them against autograd through the plain twin;
 4. model: the full-width flagship (``bench.py``'s config, seeded random
    weights) on one tile, fp32 on the card (kernels) against the CPU (plain
-   twins); then a bf16 forward at model batch 16;
+   twins); then a bf16 forward at model batch 16. The same weights in the
+   fused configuration (``fused_local_attn`` and ``fused_instance_norm``
+   on) against the default one on the card, fp32, and its bf16 forward;
 5. serve: ``VolumePredictor`` on ``bench.py``'s workload (8 volumes of
    1x10x320x260, mirror TTA over both in-plane axes, bf16), volumes/s and
-   peak memory; K1-K4 must each be launched in this phase;
+   peak memory, in the default configuration (K1-K4 must each be launched,
+   K6-K8 never) and then the fused one (K1-K4 and K6-K8 must each be);
 6. train: the ``nnUNetTrainer_MLAgg_2D_dt_MS`` recipe on the full-width
    flagship. One fp32 batch (batch 1, drop path off) on the card against a
    CPU copy of the network: the loss and every parameter gradient. Then 2
@@ -30,16 +37,19 @@ failure exits non-zero:
    path on, on one seeded synthetic batch whose label is a fixed function of
    the image: ms per step, images/s, peak memory, the first and last loss
    (the last must be lower), a profile of one step, and one validation
-   step. K1, K4 and K5 must each be launched in the timed steps, K2 and K3
-   never;
+   step. K1, K4 and K5 must each be launched in the timed steps, no other.
+   Then the same with ``fused_instance_norm`` on, its fp32 batch held
+   against the default network on the card: K1, K4, K5, K7 and K8 must
+   each be launched, K2, K3 and K6 never;
 7. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Kernel times in the JSON line are per flagship forward at model batch 16,
-the sum over the launches one forward makes (K1 2, K2 8, K3 8, K4 16), and
-for K5 per training step at batch 10 (2 launches, one per scan direction).
-A kernel's ``launches`` is its count in the serve run, K5's in the timed
-train run.
+the sum over the launches one forward makes (K1 2, K2 8, K3 8, K4 16, K6 8,
+K7 6, K8 4), and for K5 per training step at batch 10 (2 launches, one per
+scan direction). A kernel's ``launches`` is its count in the serve run that
+runs it (K1-K4 the default one, K6-K8 the fused one), K5's in the default
+timed train run.
 """
 from __future__ import annotations
 
@@ -68,6 +78,8 @@ SCAN_D, SCAN_N, SCAN_L = 96, 16, sum(STAGE_N)
 DEPTH = 2                                # blocks per stage
 
 # tolerances, relative to the reference output's max |value|
+SLEEP_CYCLES = 2_000_000                 # ~1 ms of SM clock ahead of each timed call
+
 TOL_FP32 = 1e-4    # fp32 I/O: only the order of fp32 sums differs
 TOL_BF16 = 2e-2    # bf16 I/O: one bf16 rounding of the output and of the
                    # plain twin's intermediates
@@ -86,8 +98,16 @@ TRAIN_STEPS, TRAIN_WARMUP = 10, 2
 SERVE_FIRST_VOLUMES_PER_S = 1.1404       # the serving slice's first run (PERF.md), H100 80GB HBM3 at 700 W
 SERVE_KERNELS = ("selective_scan_fwd", "mlla_front", "mlla_tail", "flash_attn_fwd")
 TRAIN_KERNELS = ("selective_scan_fwd", "flash_attn_fwd", "selective_scan_bwd")
+NORM_KERNELS = ("instance_norm_stats", "instance_norm_apply")
+FUSED_KERNELS = ("local_attn_fused",) + NORM_KERNELS   # the fused config's alone
 PORT_KERNEL_NAMES = ("scan_fwd_kernel", "scan_bwd_kernel", "front_kernel",
-                     "tail_kernel", "flash_fwd_kernel")
+                     "tail_kernel", "flash_fwd_kernel", "local_attn_kernel",
+                     "stats_partial_kernel", "stats_finalize_kernel", "apply_kernel")
+DEFAULT = dict(fused_local_attn=False, fused_instance_norm=False, fused_tail=True)
+FUSED = dict(fused_local_attn=True, fused_instance_norm=True, fused_tail=True)
+LOCAL_SHAPES = ((128, 112, 48, 1), (64, 56, 96, 2), (32, 28, 192, 4), (16, 14, 384, 8))
+NORM_C = 48                              # the UNETR head's width (embed 96 / 2)
+NORM_STATS, NORM_APPLY = 6, (2, 2)       # per forward: K7 launches; K8 mode 0, mode 2
 
 
 def fail(msg: str) -> None:
@@ -100,7 +120,10 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 2) -> float:
-    """Median over ``reps`` of one call's CUDA-event time."""
+    """Median over ``reps`` of one call's CUDA-event time. A device-side
+    sleep of ~1 ms ahead of each call holds the stream while the host
+    enqueues the call, so a short kernel's time is its own and not the
+    host's launch overhead (which the GPU would otherwise idle through)."""
     import torch
 
     for _ in range(warmup):
@@ -108,6 +131,7 @@ def time_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     events = []
     for _ in range(reps):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         s.record()
         fn()
         e.record()
@@ -366,11 +390,131 @@ def phase_scan_train(torch, report: Report) -> None:
                   g_, r_, TOL_SCAN_GRAD)
 
 
+def phase_fused_kernels(torch, report: Report) -> None:
+    """K6 at the four stages' local halves, K7 and K8 at the UNETR head."""
+    from mlagg_unet_torch.ops.fused_norm import (
+        fused_instance_norm, instance_norm_apply, instance_norm_apply_plain,
+        instance_norm_plain, instance_norm_stats, instance_norm_stats_plain)
+    from mlagg_unet_torch.ops.mlla_attn_fused import (
+        local_aggregated_attention_fused, local_attention_fused_plain)
+
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(2)
+
+    def T(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+
+    # ---- K6 fused local attention: the local half of each block, 2 per stage
+    lam = torch.tensor(0.37, device=dev)
+    for H, W, ch, nh in LOCAL_SHAPES:
+        hd = ch // nh // 2
+        log(f"[kernels] K6 local_attn_fused ({BM}, {H}, {W}, {ch}) nh={nh}")
+        raw = (rs.randn(BM, H, W, ch) * 0.5, rs.randn(ch, ch) / math.sqrt(ch),
+               0.1 * rs.randn(ch), rs.randn(2 * ch, ch) / math.sqrt(ch),
+               0.1 * rs.randn(2 * ch), 1 + 0.2 * rs.randn(2 * hd),
+               rs.randn(ch, 1, 3, 3) / 3, 0.1 * rs.randn(ch))
+        for dtype, tag, tol in ((torch.float32, "fp32", TOL_FP32),
+                                (torch.bfloat16, "bf16", TOL_BF16)):
+            args = (*(T(a, dtype) for a in raw), lam, nh)
+            err = check(f"K6 {tag} ch={ch}", local_aggregated_attention_fused(*args),
+                        local_attention_fused_plain(*args), tol)
+            if tag != "bf16":
+                continue
+            ms = time_ms(lambda: local_aggregated_attention_fused(*args))
+            pms = time_ms(lambda: local_attention_fused_plain(*args), reps=5, warmup=1)
+            log(f"  K6 bf16 ch={ch}: {ms:.3f} ms, plain {pms:.3f} ms (x{DEPTH} per forward)")
+            tok = BM * H * W
+            # x read once, the output written once, the weights read once
+            nbytes = (2 * tok * ch + 3 * ch * ch + 14 * ch + 2 * hd) * 2
+            # q, k, v projections; per head and token 9 taps of the two
+            # branches' logits, the combine and the LePE over 2 hd channels
+            flops = 6 * tok * ch * ch + tok * nh * 9 * 3 * 2 * (2 * hd)
+            report.add("local_attn_fused", "mlagg_unet_torch/csrc/mlla_local_attn.cu",
+                       "mlagg_unet_tpu/ops/mlla_attn_fused.py:46",
+                       max_abs_err=err, ms=DEPTH * ms, plain_ms=DEPTH * pms,
+                       bytes=DEPTH * nbytes, flops=DEPTH * flops)
+        del args
+
+    # ---- K7 / K8 fused instance norm at the UNETR head: (16, 256, 224, 48)
+    shape = (BM, *TILE, NORM_C)
+    log(f"[kernels] K7/K8 instance norm {shape}")
+    raw_x, raw_r = rs.randn(*shape) * 2 + 0.5, rs.randn(*shape) - 0.3
+    vec = [T(1 + 0.2 * rs.randn(NORM_C)), T(0.1 * rs.randn(NORM_C)),
+           T(1 + 0.2 * rs.randn(NORM_C)), T(0.1 * rs.randn(NORM_C))]
+
+    def modes(r):
+        return ((0, {}), (1, dict(residual=r)),
+                (2, dict(residual=r, res_scale=vec[2], res_bias=vec[3])))
+
+    for dtype, tag, tol in ((torch.float32, "fp32", TOL_FP32),
+                            (torch.bfloat16, "bf16", TOL_BF16)):
+        x, r = T(raw_x, dtype), T(raw_r, dtype)
+        x3, r3 = x.view(BM, -1, NORM_C), r.view(BM, -1, NORM_C)
+        st = instance_norm_stats(x3)
+        e7 = check(f"K7 {tag} stats", st, instance_norm_stats_plain(x3), TOL_FP32)
+        rst = instance_norm_stats(r3)
+        e8 = 0.0
+        for mode, kw in modes(r):
+            for act in (False, True):
+                got = fused_instance_norm(x, *vec[:2], act=act, **kw)
+                again = fused_instance_norm(x, *vec[:2], act=act, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    fail(f"K7+K8 {tag} mode={mode} act={act}: two runs differ")
+                e8 = max(e8, check(f"K7+K8 {tag} mode={mode} act={act} (bit-equal twice)",
+                                   got, instance_norm_plain(x, *vec[:2], act=act, **kw), tol))
+        if tag == "fp32":
+            for mode, kw in modes(r):   # autograd on the card: K7 + K8 forward
+                leaves = [t.clone().requires_grad_() for t in (x, *vec[:2], *kw.values())]
+                go = T(rs.randn(*shape))
+                grads = []
+                for fn in (fused_instance_norm, instance_norm_plain):
+                    out = fn(*leaves[:3], act=True, **dict(zip(kw, leaves[3:])))
+                    grads.append(torch.autograd.grad(out, leaves, go))
+                for i, (g_, r_) in enumerate(zip(*grads)):
+                    check(f"K7+K8 autograd mode={mode} grad {i}", g_, r_, TOL_FP32)
+            continue
+        a0 = (x3, st, *vec[:2])
+        a2 = (x3, st, *vec[:2], r3, rst, *vec[2:])
+        e8 = max(e8, check("K8 bf16 mode 2 alone", instance_norm_apply(*a2, act=True),
+                           instance_norm_apply_plain(*a2, act=True), tol))
+        t7 = time_ms(lambda: instance_norm_stats(x3))
+        p7 = time_ms(lambda: instance_norm_stats_plain(x3))
+        t8 = [time_ms(lambda: instance_norm_apply(*a, act=True)) for a in (a0, a2)]
+        p8 = [time_ms(lambda: instance_norm_apply_plain(*a, act=True)) for a in (a0, a2)]
+        xp = x.permute(0, 3, 1, 2)
+        w16, b16 = vec[0].to(dtype), vec[1].to(dtype)
+        lib = time_ms(lambda: torch.nn.functional.instance_norm(xp, weight=w16, bias=b16,
+                                                                eps=1e-5))
+        log(f"  K7 bf16: {t7:.3f} ms, plain {p7:.3f} ms (x{NORM_STATS} per forward); "
+            f"K8 bf16 mode 0 / 2: {t8[0]:.3f} / {t8[1]:.3f} ms, plain {p8[0]:.3f} / "
+            f"{p8[1]:.3f} ms (x{NORM_APPLY[0]} / x{NORM_APPLY[1]}); "
+            f"F.instance_norm {lib:.3f} ms (x{NORM_STATS})")
+        el = x.numel()
+        report.add("instance_norm_stats", "mlagg_unet_torch/csrc/fused_norm.cu",
+                   "mlagg_unet_tpu/ops/fused_norm.py:68", kind="fp32",
+                   max_abs_err=e7, ms=NORM_STATS * t7, plain_ms=NORM_STATS * p7,
+                   bytes=NORM_STATS * (el * 2 + BM * 2 * NORM_C * 4),
+                   flops=NORM_STATS * 3 * el)
+        # mode 0 reads x and writes y; mode 2 also reads the residual; ~8
+        # operations per element and normalised tensor
+        n0, n2 = NORM_APPLY
+        report.add("instance_norm_apply", "mlagg_unet_torch/csrc/fused_norm.cu",
+                   "mlagg_unet_tpu/ops/fused_norm.py:88", kind="fp32",
+                   max_abs_err=e8, ms=n0 * t8[0] + n2 * t8[1],
+                   plain_ms=n0 * p8[0] + n2 * p8[1],
+                   # six F.instance_norm calls, stats included: the library's
+                   # cost of the forward's six normalisations (compare K7 + K8)
+                   library_ms=NORM_STATS * lib,
+                   bytes=(n0 * 2 + n2 * 3) * el * 2, flops=(n0 * 8 + n2 * 17) * el)
+    del x, r, x3, r3
+
+
 def phase_model(torch):
     from mlagg_unet_torch import build_flagship
 
     log("[model] full-width flagship, one 256x224 tile, fp32 card vs CPU")
-    model = build_flagship(num_classes=4, seed=0, device="cuda")
+    model = build_flagship(num_classes=4, seed=0, device="cuda", **DEFAULT)
     nparams = sum(p.numel() for p in model.parameters())
     log(f"  params: {nparams}")
     x = np.random.RandomState(0).randn(1, *TILE, 1).astype(np.float32)
@@ -401,6 +545,41 @@ def phase_model(torch):
     return model
 
 
+def phase_model_fused(torch, model):
+    """The same seeded weights in the fused configuration: fp32 on the card
+    against the default configuration on the card, then a bf16 forward."""
+    from mlagg_unet_torch import build_flagship
+
+    log("[model] fused configuration (fused_local_attn, fused_instance_norm), "
+        "one tile, fp32, against the default configuration on the card")
+    fused = build_flagship(num_classes=4, seed=0, device="cuda", **FUSED)
+    x = torch.from_numpy(np.random.RandomState(0).randn(1, *TILE, 1)
+                         .astype(np.float32)).cuda()
+    with torch.inference_mode():
+        got, ref = fused(x), model(x)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if g.shape != r.shape or not torch.isfinite(g).all():
+            fail(f"fused output {i}: shape {tuple(g.shape)} vs {tuple(r.shape)} or not finite")
+        check(f"fused vs default output {i} {tuple(g.shape)}", g, r, TOL_MODEL)
+    with torch.inference_mode():
+        xb = torch.from_numpy(np.random.RandomState(1).rand(BM, *TILE, 1)
+                              .astype(np.float32)).cuda().bfloat16()
+        f16, d16 = copy.deepcopy(fused).bfloat16(), copy.deepcopy(model).bfloat16()
+        for o in f16(xb):
+            if o.dtype != torch.bfloat16 or not torch.isfinite(o).all():
+                fail(f"fused bf16 batch-{BM} output: {o.dtype}, "
+                     f"finite={bool(torch.isfinite(o).all())}")
+        # in turns, on one card: default, fused, fused, default
+        d_ms = [time_ms(lambda: d16(xb), reps=5, warmup=1)]
+        f_ms = [time_ms(lambda: f16(xb), reps=5, warmup=1) for _ in range(2)]
+        d_ms.append(time_ms(lambda: d16(xb), reps=5, warmup=1))
+    log(f"  bf16 forward at model batch {BM}: fused {f_ms[0]:.2f} / {f_ms[1]:.2f} ms, "
+        f"default {d_ms[0]:.2f} / {d_ms[1]:.2f} ms (medians of 5; default, fused, "
+        f"fused, default)")
+    del f16, d16
+    return fused
+
+
 def profile(torch, label, fn) -> None:
     """Device time by kernel over one call of ``fn`` (which ends in a sync),
     the port's kernels against the rest, and the device's busy share of the
@@ -427,11 +606,12 @@ def profile(torch, label, fn) -> None:
         log(f"    {t:9.2f} ms {100 * t / busy_ms:5.1f}% x{count:<5d} {key[:100]}")
 
 
-def phase_serve(torch, model):
+def phase_serve(torch, model, label, required, forbidden=()):
     from mlagg_unet_torch import VolumePredictor
     from mlagg_unet_torch.ops import _ext
 
-    log("[serve] VolumePredictor, 8 volumes of 1x10x320x260, mirror (0, 1), bf16")
+    log(f"[serve] {label} configuration: VolumePredictor, 8 volumes of 1x10x320x260, "
+        "mirror (0, 1), bf16")
     rng = np.random.RandomState(0)
     volumes = [rng.rand(1, 10, 320, 260).astype(np.float32) for _ in range(8)]
     pred = VolumePredictor(model, TILE, 4, mirror_axes=(0, 1), tile_batch_size=4,
@@ -460,10 +640,13 @@ def phase_serve(torch, model):
         f"measured {SERVE_FIRST_VOLUMES_PER_S} on an H100 80GB HBM3 at 700 W), peak memory "
         f"{peak:.2f} GiB, model batch {pred.model_batch}")
     log(f"  launches in the serve run: {launches}")
-    for name in SERVE_KERNELS:
+    for name in required:
         if launches[name] <= 0:
-            fail(f"kernel {name} was not launched on the serving path")
-    profile(torch, "one volume", lambda: pred(volumes[1]))   # returns on the host
+            fail(f"kernel {name} was not launched on the {label} serving path")
+    for name in forbidden:
+        if launches[name] != 0:
+            fail(f"kernel {name} was launched on the {label} serving path")
+    profile(torch, f"one volume ({label})", lambda: pred(volumes[1]))  # returns on the host
     return launches, vps
 
 
@@ -489,40 +672,61 @@ def train_grads(trainer, network, x, y):
     return loss.item(), {k: p.grad.float().cpu() for k, p in network.named_parameters()}
 
 
-def phase_train(torch):
+def compare_grads(torch, label, l_got, g_got, l_ref, g_ref) -> None:
+    d = abs(l_got - l_ref) / abs(l_ref)
+    log(f"  loss {label}: {l_got:.7f} vs {l_ref:.7f}: rel {d:.3e} (tol {TOL_TRAIN_LOSS:g})")
+    if not d <= TOL_TRAIN_LOSS:
+        fail(f"fp32 training loss {label}: rel {d:.3e}")
+    worst = (0.0, "")
+    for k, r in g_ref.items():
+        g = g_got[k]
+        if not torch.isfinite(g).all():
+            fail(f"gradient {k} not finite ({label})")
+        err = (g - r).abs().max().item()
+        bound = TOL_TRAIN_GRAD * r.abs().max().item() + 1e-6
+        if not err <= bound:
+            fail(f"gradient {k} ({label}): max |diff| {err:.3e} > {bound:.3e}")
+        worst = max(worst, (err / bound, k))
+    log(f"  {len(g_ref)} parameter gradients within {TOL_TRAIN_GRAD:g} x max|ref| + 1e-6; "
+        f"closest to its bound: {worst[1]} at {worst[0]:.3f} of it")
+
+
+def phase_train(torch, fused_in: bool = False):
+    """The default configuration (fp32 batch held against the CPU), or with
+    ``fused_instance_norm`` (fp32 batch held against the default network on
+    the card, the same seeded weights); then the timed bf16 steps."""
     from mlagg_unet_torch import Trainer
     from mlagg_unet_torch.ops import _ext
 
     name = "nnUNetTrainer_MLAgg_2D_dt_MS"
-    log(f"[train] {name}, full-width flagship, fp32 batch 1 (drop path off), card vs CPU")
+    label = "fused_instance_norm" if fused_in else "default"
+    config = dict(DEFAULT, fused_instance_norm=fused_in)
+    no_drop = dict(drop_path_rate=0.0, skip_drop_path=0.0)
+    required = TRAIN_KERNELS + (NORM_KERNELS if fused_in else ())
+    log(f"[train] {label} configuration: {name}, full-width flagship, fp32 batch 1 "
+        f"(drop path off), card vs {'default on the card' if fused_in else 'CPU'}")
     tr = Trainer(name, TILE, 1, 1, 4, seed=0, device="cuda", compute_dtype=torch.float32,
-                 network_overrides=dict(drop_path_rate=0.0, skip_drop_path=0.0))
+                 network_overrides=dict(no_drop, **config))
     x, y = synthetic_batch(torch, 1, seed=1)
-    cpu_net = copy.deepcopy(tr.network).cpu()
-    l_gpu, g_gpu = train_grads(tr, tr.network, x.cuda(), y.cuda())
+    l_got, g_got = train_grads(tr, tr.network, x.cuda(), y.cuda())
     t0 = time.perf_counter()
-    l_cpu, g_cpu = train_grads(tr, cpu_net, x, y)
-    log(f"  CPU forward + backward: {time.perf_counter() - t0:.1f} s")
-    d = abs(l_gpu - l_cpu) / abs(l_cpu)
-    log(f"  loss card {l_gpu:.7f} CPU {l_cpu:.7f}: rel {d:.3e} (tol {TOL_TRAIN_LOSS:g})")
-    if not d <= TOL_TRAIN_LOSS:
-        fail(f"fp32 training loss card vs CPU: rel {d:.3e}")
-    worst = (0.0, "")
-    for k, r in g_cpu.items():
-        g = g_gpu[k]
-        if not torch.isfinite(g).all():
-            fail(f"gradient {k} not finite on the card")
-        err = (g - r).abs().max().item()
-        bound = TOL_TRAIN_GRAD * r.abs().max().item() + 1e-6
-        if not err <= bound:
-            fail(f"gradient {k}: max |card - CPU| {err:.3e} > {bound:.3e}")
-        worst = max(worst, (err / bound, k))
-    log(f"  {len(g_cpu)} parameter gradients within {TOL_TRAIN_GRAD:g} x max|CPU| + 1e-6; "
-        f"closest to its bound: {worst[1]} at {worst[0]:.3f} of it")
-    del tr, cpu_net, g_gpu, g_cpu
+    if fused_in:
+        ref = Trainer(name, TILE, 1, 1, 4, seed=0, device="cuda",
+                      compute_dtype=torch.float32,
+                      network_overrides=dict(no_drop, **DEFAULT))
+        l_ref, g_ref = train_grads(ref, ref.network, x.cuda(), y.cuda())
+        del ref
+    else:
+        cpu_net = copy.deepcopy(tr.network).cpu()
+        l_ref, g_ref = train_grads(tr, cpu_net, x, y)
+        log(f"  CPU forward + backward: {time.perf_counter() - t0:.1f} s")
+        del cpu_net
+    compare_grads(torch, "card vs " + ("default" if fused_in else "CPU"), l_got, g_got, l_ref, g_ref)
+    del tr, g_got, g_ref
 
-    log(f"[train] bf16 steps at batch {TRAIN_BATCH}, {TILE[0]}x{TILE[1]}, drop path on")
-    tr = Trainer(name, TILE, TRAIN_BATCH, 1, 4, seed=0, device="cuda")
+    log(f"[train] {label}: bf16 steps at batch {TRAIN_BATCH}, {TILE[0]}x{TILE[1]}, drop path on")
+    tr = Trainer(name, TILE, TRAIN_BATCH, 1, 4, seed=0, device="cuda",
+                 network_overrides=config)
     x, y = (t.cuda() for t in synthetic_batch(torch, TRAIN_BATCH, seed=2))
     warm = tr.run_steps([(x, y)] * TRAIN_WARMUP)
     torch.cuda.synchronize()
@@ -540,14 +744,14 @@ def phase_train(torch):
     log(f"  losses: first {losses[0]:.5f}, last {losses[-1]:.5f}; all {['%.5f' % v for v in losses]}")
     log(f"  launches in the {TRAIN_STEPS} timed steps: {launches}")
     if not losses[-1] < losses[0]:
-        fail(f"training loss did not fall: first {losses[0]}, last {losses[-1]}")
-    for k in TRAIN_KERNELS:
+        fail(f"training loss did not fall ({label}): first {losses[0]}, last {losses[-1]}")
+    for k in required:
         if launches[k] <= 0:
-            fail(f"kernel {k} was not launched on the training path")
-    for k in set(launches) - set(TRAIN_KERNELS):
+            fail(f"kernel {k} was not launched on the {label} training path")
+    for k in set(launches) - set(required):
         if launches[k] != 0:
-            fail(f"kernel {k} (no backward) was launched on the training path")
-    profile(torch, "one train step",
+            fail(f"kernel {k} (no backward) was launched on the {label} training path")
+    profile(torch, f"one train step ({label})",
             lambda: (tr.train_step(x, y), torch.cuda.synchronize()))
     loss, tp, fp, fn = tr.val_step(x, y)
     dice = (2 * tp / (2 * tp + fp + fn).clamp(min=1)).tolist()
@@ -559,6 +763,7 @@ def phase_train(torch):
 def main() -> None:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
     if not (REPO / "mlagg_unet_torch" / "csrc").is_dir():
@@ -575,26 +780,44 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     from mlagg_unet_torch.ops import _ext
-    from mlagg_unet_torch.ops import flash_attention, mlla_fused, selective_scan_cuda  # noqa: F401
+    from mlagg_unet_torch.ops import (  # noqa: F401  (registers every kernel)
+        flash_attention, fused_norm, mlla_attn_fused, mlla_fused, selective_scan_cuda)
 
     secs = _ext.build_all()
     log(f"[build] {len(_ext.ALL_KERNELS)} kernels from "
         f"{len({id(k.lib) for k in _ext.ALL_KERNELS})} sources in {secs:.1f} s")
 
+    def done(phase):
+        log(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s")
+
     report = Report()
     phase_kernels(torch, report)
     phase_scan_train(torch, report)
+    phase_fused_kernels(torch, report)
+    done("kernels")
     model = phase_model(torch)
-    serve, vps = phase_serve(torch, model)
+    fused = phase_model_fused(torch, model)
+    done("model")
+    serve, vps = phase_serve(torch, model, "default", SERVE_KERNELS, FUSED_KERNELS)
     del model
+    serve_f, vps_f = phase_serve(torch, fused, "fused", SERVE_KERNELS + FUSED_KERNELS)
+    del fused
+    done("serve")
     train, step_ms = phase_train(torch)
+    done("train (default)")
+    train_f, step_ms_f = phase_train(torch, fused_in=True)
+    done("train (fused_instance_norm)")
 
-    launches = {**serve, "selective_scan_bwd": train["selective_scan_bwd"]}
+    launches = {**serve, "selective_scan_bwd": train["selective_scan_bwd"],
+                **{k: serve_f[k] for k in FUSED_KERNELS}}
     kernels = report.finish(launches)
     if {k["name"] for k in kernels} != set(launches):
         fail(f"kernels measured {sorted(r['name'] for r in kernels)} != built {sorted(launches)}")
-    log(f"[serve] volumes_per_s {vps}")
-    log(f"[train] ms_per_step {step_ms}")
+    log(f"[serve] volumes_per_s default {vps} fused {vps_f}")
+    log(f"[train] ms_per_step default {step_ms} fused_instance_norm {step_ms_f}")
+    log(f"[train] fused_instance_norm launches per step: K7 "
+        f"{train_f['instance_norm_stats'] / TRAIN_STEPS:g}, K8 "
+        f"{train_f['instance_norm_apply'] / TRAIN_STEPS:g}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

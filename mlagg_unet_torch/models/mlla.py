@@ -5,11 +5,15 @@ Counterparts of ``mlagg_unet_tpu/models/mlla.py``: ``AggregatedAttention``
 ``PatchEmbed`` and ``MLLAEncoder``. ``Attention`` (``sr_ratio == 1``) is not
 on the flagship's path and is not ported yet.
 
-In ``eval()`` mode the block front and tail run through ``ops.mlla_fused``
-(kernels K2 and K3 on the GPU, their unfused twins on the CPU). In training
-mode they run unfused with stochastic depth, as ``mlla.py:338-341, 377-387``
-do (K2/K3 have no backward). The pooled branch runs through
-``ops.flash_attention`` (kernel K4) in both modes.
+In ``eval()`` mode, with ``fused_tail`` set, the block front and tail run
+through ``ops.mlla_fused`` (kernels K2 and K3 on the GPU, their unfused twins
+on the CPU); with ``fused_local_attn`` set, the local attention half runs
+through ``ops.mlla_attn_fused`` (kernel K6). In training mode all of them run
+unfused, the block with stochastic depth, as ``mlla.py:205-216, 338-341,
+377-387`` do (K2, K3 and K6 have no backward). The pooled branch runs through
+``ops.flash_attention`` (kernel K4) in both modes. ``None`` for a switch
+reads the JAX package's variable at construction: ``MLAGG_FUSED_TAIL != "0"``
+(on by default), ``MLAGG_FUSED_LOCAL_ATTN == "1"`` (off by default).
 
 Scale note, kept from the reference: the pooled branch pre-scales q by
 head_dim ** -0.5 and the attention call scales again, so its logits are
@@ -41,7 +45,11 @@ from mlagg_unet_torch.ops.local_attention import (
     local_window_attention_apply,
     local_window_attention_logits,
 )
-from mlagg_unet_torch.ops.mlla_fused import mlla_front, mlla_tail
+from mlagg_unet_torch.ops.mlla_attn_fused import (
+    fused_local_attn_enabled,
+    local_aggregated_attention_fused,
+)
+from mlagg_unet_torch.ops.mlla_fused import fused_tail_enabled, mlla_front, mlla_tail
 
 WINDOW = 3          # local attention window
 LAMBDA_INIT = 0.8   # DiffAttn lambda_init
@@ -54,9 +62,10 @@ class AggregatedAttention(nn.Module):
     num_heads heads of 2 * head_dim."""
 
     def __init__(self, dim: int, num_heads: int, local: bool = True,
-                 sr_ratio: int = 1):
+                 sr_ratio: int = 1, fused_local_attn: Optional[bool] = None):
         super().__init__()
         self.nh, self.local, self.sr_ratio = num_heads, local, sr_ratio
+        self.fused = local and fused_local_attn_enabled(fused_local_attn)
         self.head_dim = hd = dim // num_heads // 2
         for name in ("lambda_q1", "lambda_k1", "lambda_q2", "lambda_k2"):
             setattr(self, name, nn.Parameter(torch.empty(hd)))
@@ -83,6 +92,11 @@ class AggregatedAttention(nn.Module):
         nh, hd = self.nh, self.head_dim
         scale = hd ** -0.5
         lam = self.lambda_full()
+        if self.fused and not self.training:
+            return local_aggregated_attention_fused(
+                x, self.q.weight, self.q.bias, self.kv.weight, self.kv.bias,
+                self.subln.weight, self.lepe.Conv_0.weight, self.lepe.Conv_0.bias,
+                lam, nh, LAMBDA_INIT)
         q = self.q(x) * scale
         k, v = self.kv(x).chunk(2, dim=-1)
         if self.local:
@@ -125,8 +139,11 @@ class MLLABlock(nn.Module):
     MLP, residual), with stochastic depth on both residual branches."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 sr_ratio: int = 1, drop_path: float = 0.0):
+                 sr_ratio: int = 1, drop_path: float = 0.0,
+                 fused_local_attn: Optional[bool] = None,
+                 fused_tail: Optional[bool] = None):
         super().__init__()
+        self.fused_tail = fused_tail_enabled(fused_tail)
         if sr_ratio == 1:
             raise NotImplementedError("MLLABlock with sr_ratio == 1 (plain "
                                       "Attention) is not ported yet")
@@ -135,7 +152,8 @@ class MLLABlock(nn.Module):
         self.in_proj = Dense(dim, dim)
         self.dwc = DWConv2d(dim)
         self.attn_local = AggregatedAttention(dim // 2, num_heads // 2,
-                                              local=True, sr_ratio=sr_ratio)
+                                              local=True, sr_ratio=sr_ratio,
+                                              fused_local_attn=fused_local_attn)
         self.attn_pool = AggregatedAttention(dim // 2, num_heads // 2,
                                              local=False, sr_ratio=sr_ratio)
         self.out_proj = Dense(dim, dim)
@@ -145,7 +163,8 @@ class MLLABlock(nn.Module):
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         m = self.mlp
-        if self.training:
+        fused = self.fused_tail and not self.training
+        if not fused:
             hn = self.norm1(x)
             a, h = F.silu(self.act_proj(hn)), self.in_proj(hn)
         else:
@@ -155,7 +174,7 @@ class MLLABlock(nn.Module):
         h = F.silu(self.dwc(h))
         h1, h2 = h.chunk(2, dim=-1)
         h = torch.cat([self.attn_local(h1), self.attn_pool(h2)], dim=-1)
-        if not self.training:
+        if fused:
             return mlla_tail(h, a, x, self.out_proj.weight, self.out_proj.bias,
                              self.norm2.weight, self.norm2.bias,
                              m.Dense_0.weight, m.Dense_0.bias,
@@ -170,13 +189,16 @@ class BasicLayer(nn.Module):
 
     def __init__(self, dim: int, depth: int, num_heads: int,
                  mlp_ratio: float = 4.0, sr_ratio: int = 1,
-                 drop_path: Sequence[float] = ()):
+                 drop_path: Sequence[float] = (),
+                 fused_local_attn: Optional[bool] = None,
+                 fused_tail: Optional[bool] = None):
         super().__init__()
         self.depth = depth
         rates = list(drop_path) or [0.0] * depth
         for i in range(depth):
             self.add_module(f"block{i}", MLLABlock(dim, num_heads, mlp_ratio,
-                                                   sr_ratio, rates[i]))
+                                                   sr_ratio, rates[i],
+                                                   fused_local_attn, fused_tail))
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         for i in range(self.depth):
@@ -227,7 +249,9 @@ class MLLAEncoder(nn.Module):
                  num_heads: Sequence[int] = (2, 4, 8, 16),
                  mlp_ratio: float = 2.0,
                  sr_ratio: Sequence[int] = (16, 8, 4, 2),
-                 drop_path_rate: float = 0.1):
+                 drop_path_rate: float = 0.1,
+                 fused_local_attn: Optional[bool] = None,
+                 fused_tail: Optional[bool] = None):
         super().__init__()
         self.num_layers = len(depths)
         self.patch_embed = PatchEmbed(in_channels, patch_size, embed_dim)
@@ -237,7 +261,7 @@ class MLLAEncoder(nn.Module):
             first = sum(depths[:i])
             self.add_module(f"layer{i}", BasicLayer(
                 dim, depths[i], num_heads[i], mlp_ratio, sr_ratio[i],
-                dpr[first:first + depths[i]]))
+                dpr[first:first + depths[i]], fused_local_attn, fused_tail))
             if i < self.num_layers - 1:
                 self.add_module(f"down{i}", MedNeXtDownBlock(
                     dim, 2 * dim, exp_r=int(mlp_ratio), kernel_size=3, do_res=True))

@@ -9,6 +9,14 @@ Stochastic depth follows the flagship's build: encoder blocks at
 ``linspace(0, drop_path_rate, 8)``, the Multi-Scale Mamba skip at a fixed
 ``skip_drop_path`` (0.1, ``mlla_uper.py:61``). It acts only in training mode
 and draws from the ``generator`` handed to ``forward``.
+
+Three switches pick the fused paths, each ``None`` (the JAX package's
+variable, read once at construction) or a bool: ``fused_local_attn`` (the
+local attention half through K6 in ``eval()``; ``MLAGG_FUSED_LOCAL_ATTN ==
+"1"``, off by default), ``fused_instance_norm`` (the UNETR head's
+InstanceNorm chains through K7 and K8, in training too; ``MLAGG_FUSED_IN ==
+"1"``, off by default) and ``fused_tail`` (the MLLA block front and tail
+through K2 and K3 in ``eval()``; ``MLAGG_FUSED_TAIL != "0"``, on by default).
 """
 from __future__ import annotations
 
@@ -23,6 +31,9 @@ from mlagg_unet_torch.models.mamba_skip import VSSConvLayer
 from mlagg_unet_torch.models.mednext import MedNeXtBlock, OutBlock, PatchExpand
 from mlagg_unet_torch.models.mlla import MLLAEncoder
 from mlagg_unet_torch.models.unetr_blocks import UnetrBasicBlock, UnetrUpBlock
+from mlagg_unet_torch.ops.fused_norm import fused_norms_enabled
+from mlagg_unet_torch.ops.mlla_attn_fused import fused_local_attn_enabled
+from mlagg_unet_torch.ops.mlla_fused import fused_tail_enabled
 
 
 class MLLAUper(nn.Module):
@@ -32,14 +43,21 @@ class MLLAUper(nn.Module):
                  mlp_ratio: float = 2.0,
                  sr_ratio: Sequence[int] = (16, 8, 4, 2),
                  deep_supervision: bool = True, drop_path_rate: float = 0.1,
-                 skip_drop_path: float = 0.1):
+                 skip_drop_path: float = 0.1,
+                 fused_local_attn: Optional[bool] = None,
+                 fused_instance_norm: Optional[bool] = None,
+                 fused_tail: Optional[bool] = None):
         super().__init__()
+        fused_local_attn = fused_local_attn_enabled(fused_local_attn)
+        fused_instance_norm = fused_norms_enabled(fused_instance_norm)
+        fused_tail = fused_tail_enabled(fused_tail)
         e = embed_dim
         exp_r = int(mlp_ratio)
         self.depths = tuple(depths)
         self.deep_supervision = deep_supervision
         self.mlla = MLLAEncoder(in_channels, patch_size, e, depths, num_heads,
-                                mlp_ratio, sr_ratio, drop_path_rate)
+                                mlp_ratio, sr_ratio, drop_path_rate,
+                                fused_local_attn, fused_tail)
         self.mambaskip = VSSConvLayer([e, 2 * e, 4 * e, 8 * e], e // 2, depth=1,
                                       drop_path=skip_drop_path)
         if deep_supervision:
@@ -51,9 +69,11 @@ class MLLAUper(nn.Module):
                     c, c, exp_r=exp_r, kernel_size=3, do_res=True))
             if deep_supervision:
                 self.add_module(f"out_{s + 1}", OutBlock(c, out_channels))
-        self.encoder0 = UnetrBasicBlock(in_channels, e // 2, kernel_size=3)
+        self.encoder0 = UnetrBasicBlock(in_channels, e // 2, kernel_size=3,
+                                        fused_instance_norm=fused_instance_norm)
         self.decoder0 = UnetrUpBlock(e, e // 2, e // 2, kernel_size=3,
-                                     upsample_kernel_size=2)
+                                     upsample_kernel_size=2,
+                                     fused_instance_norm=fused_instance_norm)
         self.out_0 = OutBlock(e // 2, out_channels)
 
     def forward(self, x, generator: Optional[torch.Generator] = None
@@ -83,12 +103,18 @@ FLAGSHIP = dict(embed_dim=96, patch_size=2, depths=(2, 2, 2, 2),
 
 def build_flagship(num_classes: int = 4, in_channels: int = 1, *,
                    seed: int = 0, device: DeviceLike = "cuda",
+                   fused_local_attn: Optional[bool] = None,
+                   fused_instance_norm: Optional[bool] = None,
+                   fused_tail: Optional[bool] = None,
                    **overrides) -> MLLAUper:
     """The flagship MLLAUper (``bench.py``'s config unless overridden), fp32,
     with weights drawn from ``torch.Generator().manual_seed(seed)``, in eval
     mode on ``device`` (the GPU unless the caller passes another; raises
-    without one). A trainer sets ``.train()``."""
+    without one). A trainer sets ``.train()``. The fused switches are
+    ``MLLAUper``'s; the same seed gives the same weights in every config."""
     dev = resolve_device(device)
-    model = MLLAUper(in_channels, num_classes, **{**FLAGSHIP, **overrides})
+    model = MLLAUper(in_channels, num_classes, **{**FLAGSHIP, **overrides},
+                     fused_local_attn=fused_local_attn,
+                     fused_instance_norm=fused_instance_norm, fused_tail=fused_tail)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

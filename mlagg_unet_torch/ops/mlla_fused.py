@@ -14,10 +14,13 @@ wrappers run them on a CPU tensor and launch the kernels on a CUDA tensor,
 or raise. The kernels have no backward (nor do the JAX ones: training runs
 the block unfused), so on a CUDA tensor with grad enabled and an input that
 requires it the wrappers raise rather than drop the gradient.
+``MLLABlock`` takes them in ``eval()`` when ``fused_tail_enabled`` (the JAX
+package's switch ``MLAGG_FUSED_TAIL``, on unless it is "0").
 """
 from __future__ import annotations
 
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +36,14 @@ _LIB = _ext.KernelLib("mlla_fused.cu", {
 })
 FRONT = _ext.Kernel("mlla_front", _LIB, "mlagg_mlla_front")
 TAIL = _ext.Kernel("mlla_tail", _LIB, "mlagg_mlla_tail")
+
+
+def fused_tail_enabled(flag: Optional[bool] = None) -> bool:
+    """``flag``, or where it is None the JAX package's switch:
+    ``MLAGG_FUSED_TAIL != "0"`` (on by default)."""
+    if flag is not None:
+        return bool(flag)
+    return os.environ.get("MLAGG_FUSED_TAIL", "1") != "0"
 
 
 def mlla_front_plain(x, ln_w, ln_b, wa, ba, wi, bi, eps: float = 1e-6):

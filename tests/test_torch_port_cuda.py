@@ -6,13 +6,20 @@ also runs on a machine that has none:
 (``tests/conftest.py`` imports JAX). Tolerance: fp32 I/O, max|diff| <=
 1e-4 * max|ref| (only the order of fp32 sums differs); the scan's gradients
 2e-4 * max|ref| each (``PARITY.md:70``: the adjoint sums over L in another
-order), 2e-2 with bf16 operands.
+order), 2e-2 with bf16 operands; the fused local attention and instance
+norm 2e-2 with bf16 I/O (one bf16 rounding of the output and of the twin's
+intermediates).
 """
 import numpy as np
 import pytest
 import torch
 
 from mlagg_unet_torch.ops.flash_attention import attention_reference, flash_attention
+from mlagg_unet_torch.ops.fused_norm import fused_instance_norm, instance_norm_plain
+from mlagg_unet_torch.ops.mlla_attn_fused import (
+    local_aggregated_attention_fused,
+    local_attention_fused_plain,
+)
 from mlagg_unet_torch.ops.mlla_fused import (
     mlla_front, mlla_front_plain, mlla_tail, mlla_tail_plain)
 from mlagg_unet_torch.ops.selective_scan import (
@@ -244,3 +251,114 @@ def test_model_on_card_matches_cpu(cuda_device):
     for g_, c_ in zip(gpu, cpu):
         err = (g_.cpu() - c_).abs().max().item()
         assert err <= 1e-3 * c_.abs().max().item(), err
+
+
+def _local_args(dev, dtype, B, H, W, ch, nh, seed=0):
+    """Weights in torch's layouts, lam as a device fp32 scalar."""
+    hd = ch // nh // 2
+    x = _rand((B, H, W, ch), dev, dtype, seed, 0.5)
+    params = (_rand((ch, ch), dev, dtype, seed + 1, ch ** -0.5),
+              _rand((ch,), dev, dtype, seed + 2, 0.1),
+              _rand((2 * ch, ch), dev, dtype, seed + 3, ch ** -0.5),
+              _rand((2 * ch,), dev, dtype, seed + 4, 0.1),
+              (1 + _rand((2 * hd,), dev, torch.float32, seed + 5, 0.2)).to(dtype),
+              _rand((ch, 1, 3, 3), dev, dtype, seed + 6, 1 / 3),
+              _rand((ch,), dev, dtype, seed + 7, 0.1))
+    lam = torch.tensor(0.37, device=dev)
+    return x, params, lam, nh
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,ch,nh", [(2, 13, 11, 48, 1), (3, 8, 7, 96, 2),
+                                         (2, 16, 14, 384, 8), (1, 5, 1, 192, 4)])
+def test_local_attn_kernel_matches_plain(cuda_device, dtype, B, H, W, ch, nh):
+    """K6 at odd maps (and a one-column one), every stage width, fp32 and bf16."""
+    x, params, lam, nh = _local_args(cuda_device, dtype, B, H, W, ch, nh)
+    got = local_aggregated_attention_fused(x, *params, lam, nh)
+    assert got.dtype == dtype and got.shape == x.shape
+    _close(got, local_attention_fused_plain(x, *params, lam, nh),
+           1e-4 if dtype == torch.float32 else 2e-2)
+
+
+def test_local_attn_kernel_takes_a_channel_slice(cuda_device):
+    """The block hands K6 the first half of a (B, H, W, 2 ch) map."""
+    x, params, lam, nh = _local_args(cuda_device, torch.float32, 2, 9, 10, 96, 2)
+    wide = torch.cat([x, torch.randn_like(x)], dim=-1)
+    half = wide[..., :96]
+    assert not half.is_contiguous()
+    _close(local_aggregated_attention_fused(half, *params, lam, nh),
+           local_attention_fused_plain(x, *params, lam, nh))
+
+
+def test_local_attn_kernel_raises_under_grad(cuda_device):
+    x, params, lam, nh = _local_args(cuda_device, torch.float32, 1, 4, 4, 48, 1)
+    params[0].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        local_aggregated_attention_fused(x, *params, lam, nh)
+    with torch.no_grad():
+        local_aggregated_attention_fused(x, *params, lam, nh)
+        with pytest.raises(ValueError):  # head_dim 20 is not built
+            local_aggregated_attention_fused(
+                torch.zeros(1, 4, 4, 40, device=cuda_device), *params, lam, 1)
+
+
+def _norm_args(dev, dtype, mode, shape, seed=0):
+    C = shape[-1]
+    x = (_rand(shape, dev, torch.float32, seed, 2.0) + 0.5).to(dtype)
+    s = 1 + _rand((C,), dev, torch.float32, seed + 1, 0.2)
+    b = _rand((C,), dev, torch.float32, seed + 2, 0.1)
+    kw = {}
+    if mode:
+        kw["residual"] = _rand(shape, dev, dtype, seed + 3)
+    if mode == 2:
+        kw["res_scale"] = 1 + _rand((C,), dev, torch.float32, seed + 4, 0.2)
+        kw["res_bias"] = _rand((C,), dev, torch.float32, seed + 5, 0.1)
+    return x, s, b, kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", [False, True])
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("shape", [(3, 37, 29, 48), (2, 9, 7, 5)], ids=["vector", "scalar"])
+def test_instance_norm_kernels_match_plain(cuda_device, shape, mode, act, dtype):
+    """K7 + K8 in every mode, with 16-byte vectors along C (C = 48) and on the
+    scalar path (C = 5); two runs give the same bits."""
+    x, s, b, kw = _norm_args(cuda_device, dtype, mode, shape)
+    got = fused_instance_norm(x, s, b, act=act, **kw)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, fused_instance_norm(x, s, b, act=act, **kw))
+    _close(got, instance_norm_plain(x, s, b, act=act, **kw),
+           1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_instance_norm_autograd_on_card_matches_plain(cuda_device, mode):
+    """K7 + K8 forward under autograd on the card; every gradient equals the
+    CPU's (the backward recomputes the plain twin)."""
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        x, s, b, kw = _norm_args(cuda_device, torch.float32, mode, (2, 20, 12, 48), seed=mode)
+        leaves = [t.to(dev).requires_grad_() for t in (x, s, b, *kw.values())]
+        out = fused_instance_norm(*leaves[:3], act=True, **dict(zip(kw, leaves[3:])))
+        (out * torch.linspace(-1, 1, out.shape[-1], device=dev)).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for g_, r_ in zip(*grads):
+        _close(g_, r_)
+
+
+def test_fused_model_on_card_matches_default(cuda_device):
+    """A small flagship in the fused config (K1-K4, K6-K8) against the
+    default config on the card, same seed, fp32, eval."""
+    from mlagg_unet_torch import build_flagship
+
+    tiny = dict(embed_dim=96, depths=(1, 1, 1, 1), num_heads=(2, 4, 8, 16),
+                sr_ratio=(8, 4, 2, 2))
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 64, 96, 1).astype(np.float32))
+    outs = []
+    for fused in (False, True):
+        model = build_flagship(3, device=cuda_device, seed=1, fused_local_attn=fused,
+                               fused_instance_norm=fused, **tiny)
+        with torch.inference_mode():
+            outs.append(model(x.to(cuda_device)))
+    for g_, r_ in zip(*outs):
+        _close(g_, r_, 1e-3)
