@@ -16,11 +16,15 @@ failure exits non-zero:
    and timed with CUDA events (median of 20). K1 with its tile-entry states
    must give a y bit-equal to K1 without them and states equal to the plain
    scan's; K5 (scan backward) is also held against autograd through the
-   step-by-step scan at b = 2, L = 1024. K6 (fused local attention) at the
-   four stages' local halves; K7 and K8 (fused instance norm stats and
-   apply) at the UNETR head's (16, 256, 224, 48) in modes 0, 1 and 2 with
-   and without the activation, two runs bit-equal, and autograd through
-   them against autograd through the plain twin;
+   step-by-step scan at b = 2, L = 1024. K4 (pooled-branch attention) on
+   both head-group views at the four stage shapes and at edge shapes (lq
+   not a multiple of 64, lk > 64 with a ragged last key block, head dims 8
+   to 128, b * h > 65535), its bf16 tensor-core kernel two runs bit-equal,
+   beside SDPA and a PyTorch copy of the same strided bytes. K6 (fused
+   local attention) at the four stages' local halves; K7 and K8 (fused
+   instance norm stats and apply) at the UNETR head's (16, 256, 224, 48) in
+   modes 0, 1 and 2 with and without the activation, two runs bit-equal, and
+   autograd through them against autograd through the plain twin;
 4. model: the full-width flagship (``bench.py``'s config, seeded random
    weights) on one tile, fp32 on the card (kernels) against the CPU (plain
    twins); then a bf16 forward at model batch 16. The same weights in the
@@ -29,7 +33,9 @@ failure exits non-zero:
 5. serve: ``VolumePredictor`` on ``bench.py``'s workload (8 volumes of
    1x10x320x260, mirror TTA over both in-plane axes, bf16), volumes/s and
    peak memory, in the default configuration (K1-K4 must each be launched,
-   K6-K8 never) and then the fused one (K1-K4 and K6-K8 must each be);
+   K6-K8 never) and then the fused one (K1-K4 and K6-K8 must each be); a
+   profile of one volume in each: device time by kernel and each port
+   kernel's total;
 6. train: the ``nnUNetTrainer_MLAgg_2D_dt_MS`` recipe on the full-width
    flagship. One fp32 batch (batch 1, drop path off) on the card against a
    CPU copy of the network: the loss and every parameter gradient. Then 2
@@ -56,6 +62,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -101,10 +108,16 @@ TRAIN_KERNELS = ("selective_scan_fwd", "flash_attn_fwd", "selective_scan_bwd")
 NORM_KERNELS = ("instance_norm_stats", "instance_norm_apply")
 FUSED_KERNELS = ("local_attn_fused",) + NORM_KERNELS   # the fused config's alone
 PORT_KERNEL_NAMES = ("scan_fwd_kernel", "scan_bwd_kernel", "front_kernel",
-                     "tail_kernel", "flash_fwd_kernel", "local_attn_kernel",
+                     "tail_kernel", "flash_fwd_mma_kernel", "flash_fwd_fp32_kernel",
+                     "local_attn_kernel",
                      "stats_partial_kernel", "stats_finalize_kernel", "apply_kernel")
 DEFAULT = dict(fused_local_attn=False, fused_instance_norm=False, fused_tail=True)
 FUSED = dict(fused_local_attn=True, fused_instance_norm=True, fused_tail=True)
+# K4 edge shapes (b, h, lq, lk, dk, dv): lq not a multiple of 64, lk > 64 with
+# a ragged last key block, the widest and narrowest head dims, b * h > 65535
+ATTN_EDGES = ((2, 3, 1000, 56, 24, 48), (2, 3, 33, 56, 24, 48), (2, 3, 130, 200, 32, 32),
+              (2, 3, 1000, 130, 24, 48), (2, 3, 256, 64, 128, 128), (2, 3, 100, 20, 8, 16),
+              (2, 35000, 10, 12, 8, 16))
 LOCAL_SHAPES = ((128, 112, 48, 1), (64, 56, 96, 2), (32, 28, 192, 4), (16, 14, 384, 8))
 NORM_C = 48                              # the UNETR head's width (embed 96 / 2)
 NORM_STATS, NORM_APPLY = 6, (2, 2)       # per forward: K7 launches; K8 mode 0, mode 2
@@ -277,7 +290,9 @@ def phase_kernels(torch, report: Report) -> None:
                            bytes=DEPTH * nbytes, flops=DEPTH * flops)
         del raw, t
 
-    # ---- K4 attention on the pooled branch: 2 calls per block
+    # ---- K4 attention on the pooled branch: 2 calls per block, one per head group
+    tiny = torch.zeros(1, device=dev)
+    log(f"[kernels] timing floor: one 1-element add {time_ms(lambda: tiny.add_(1)):.4f} ms")
     for C, N, nh in zip(STAGE_C, STAGE_N, POOL_HEADS):
         hd, P = HEAD_DIM, POOL_LK
         scale = hd ** -0.5
@@ -287,12 +302,13 @@ def phase_kernels(torch, report: Report) -> None:
         rv = rs.randn(BM, P, nh, 2 * hd)
         for dtype, tag, tol in ((torch.float32, "fp32", TOL_FP32),
                                 (torch.bfloat16, "bf16", TOL_BF16)):
-            # the strided head views the model hands the kernel
-            q = T(rq, dtype)[:, :, :, 0].transpose(1, 2)
-            k = T(rk, dtype)[:, :, :, 0].transpose(1, 2)
-            v = T(rv, dtype).transpose(1, 2)
-            err = check(f"K4 {tag} nh={nh}", flash_attention(q, k, v, scale),
-                        attention_reference(q, k, v, scale), tol)
+            qg, kg, v = T(rq, dtype), T(rk, dtype), T(rv, dtype).transpose(1, 2)
+            err = 0.0
+            for group in (0, 1):
+                # the strided head views the model hands the kernel
+                q, k = qg[:, :, :, group].transpose(1, 2), kg[:, :, :, group].transpose(1, 2)
+                err = max(err, check_attention(torch, f"K4 {tag} nh={nh} group {group}",
+                                               q, k, v, scale, tol))
             if tag != "bf16":
                 continue
             calls = 2 * DEPTH
@@ -300,7 +316,12 @@ def phase_kernels(torch, report: Report) -> None:
             pms = time_ms(lambda: attention_reference(q, k, v, scale))
             lms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, scale=scale))
-            log(f"  K4 bf16 nh={nh}: {ms:.3f} ms, plain {pms:.3f} ms, sdpa {lms:.3f} ms (x{calls} per forward)")
+            # the same bytes moved by PyTorch: q's strided view read, twice its
+            # size written (the output's bytes), no math
+            out = torch.empty(BM, nh, N, 2, hd, device=dev, dtype=dtype)
+            cms = time_ms(lambda: out.copy_(q.unsqueeze(3).expand(BM, nh, N, 2, hd)))
+            log(f"  K4 bf16 nh={nh}: {ms:.4f} ms, plain {pms:.4f} ms, sdpa {lms:.4f} ms, "
+                f"copy of the same bytes {cms:.4f} ms (x{calls} per forward)")
             nbytes = (q.numel() + k.numel() + v.numel() + BM * nh * N * 2 * hd) * 2
             flops = 2 * BM * nh * N * P * (hd + 2 * hd)
             report.add("flash_attn_fwd", "mlagg_unet_torch/csrc/flash_attn_fwd.cu",
@@ -308,6 +329,29 @@ def phase_kernels(torch, report: Report) -> None:
                        max_abs_err=err, ms=calls * ms, plain_ms=calls * pms,
                        library_ms=calls * lms, bytes=calls * nbytes,
                        flops=calls * flops)
+        del rq, qg, out
+    for b, h, lq, lk, dk, dv in ATTN_EDGES:
+        for dtype, tag, tol in ((torch.float32, "fp32", TOL_FP32),
+                                (torch.bfloat16, "bf16", TOL_BF16)):
+            q = T(rs.randn(b, h, lq, dk) * dk ** -0.5, dtype)
+            k, v = T(rs.randn(b, h, lk, dk), dtype), T(rs.randn(b, h, lk, dv), dtype)
+            check_attention(torch, f"K4 {tag} edge b={b} h={h} lq={lq} lk={lk} dk={dk} dv={dv}",
+                            q, k, v, 0.3, tol)
+
+
+def check_attention(torch, label, q, k, v, scale, tol) -> float:
+    """K4 against its plain twin; in bf16 (the tensor-core kernel) also two
+    runs bit-equal."""
+    from mlagg_unet_torch.ops.flash_attention import attention_reference, flash_attention
+
+    got = flash_attention(q, k, v, scale)
+    if q.dtype == torch.bfloat16:
+        again = flash_attention(q, k, v, scale)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"{label}: two runs differ")
+        label += " (bit-equal twice)"
+    return check(label, got, attention_reference(q, k, v, scale), tol)
 
 
 def phase_scan_train(torch, report: Report) -> None:
@@ -580,6 +624,13 @@ def phase_model_fused(torch, model):
     return fused
 
 
+def is_port_kernel(key: str, name: str) -> bool:
+    """Whether a profiler key is the port's kernel ``name``: every port
+    kernel is in an anonymous namespace (a bare substring also matches
+    PyTorch's own kernels, e.g. ``apply_kernel``)."""
+    return re.match(rf"void \(anonymous namespace\)::{name}[<(]", key) is not None
+
+
 def profile(torch, label, fn) -> None:
     """Device time by kernel over one call of ``fn`` (which ends in a sync),
     the port's kernels against the rest, and the device's busy share of the
@@ -598,12 +649,16 @@ def profile(torch, label, fn) -> None:
         log("  profile: no device time recorded (not measured)")
         return
     busy_ms = sum(t for _, t, _ in dev)
-    ours = sum(t for k, t, _ in dev if any(n in k for n in PORT_KERNEL_NAMES))
+    ours = sum(t for k, t, _ in dev if any(is_port_kernel(k, n) for n in PORT_KERNEL_NAMES))
     log(f"  profile of {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%), {sum(c for *_, c in dev)} device ops; "
         f"port kernels {ours:.1f} ms ({100 * ours / busy_ms:.1f}% of busy)")
     for key, t, count in sorted(dev, key=lambda r: -r[1])[:15]:
         log(f"    {t:9.2f} ms {100 * t / busy_ms:5.1f}% x{count:<5d} {key[:100]}")
+    for name in PORT_KERNEL_NAMES:   # each port kernel, all its instantiations
+        t, count = (sum(r[i] for r in dev if is_port_kernel(r[0], name)) for i in (1, 2))
+        if count:
+            log(f"    port {name}: {t:.2f} ms ({100 * t / busy_ms:.1f}% of busy) x{count}")
 
 
 def phase_serve(torch, model, label, required, forbidden=()):

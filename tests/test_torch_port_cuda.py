@@ -6,9 +6,10 @@ also runs on a machine that has none:
 (``tests/conftest.py`` imports JAX). Tolerance: fp32 I/O, max|diff| <=
 1e-4 * max|ref| (only the order of fp32 sums differs); the scan's gradients
 2e-4 * max|ref| each (``PARITY.md:70``: the adjoint sums over L in another
-order), 2e-2 with bf16 operands; the fused local attention and instance
-norm 2e-2 with bf16 I/O (one bf16 rounding of the output and of the twin's
-intermediates).
+order), 2e-2 with bf16 operands; the attention (K4), the fused local
+attention and instance norm 2e-2 with bf16 I/O (one bf16 rounding of the
+output and of the twin's intermediates; K4 rounds the unnormalised
+probabilities where the twin rounds the normalised ones).
 """
 import numpy as np
 import pytest
@@ -127,20 +128,22 @@ def test_scan_autograd_on_card_matches_plain(cuda_device):
         _close(g_, r_, 2e-4)
 
 
-def test_attention_autograd_on_card_matches_plain(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_autograd_on_card_matches_plain(cuda_device, dtype):
     """K4's backward recomputes the plain attention: dq, dk, dv equal the
-    CPU's, on the strided head views the pooled branch hands it."""
+    CPU's, on the strided head views the pooled branch hands it (bf16: the
+    forward is the mma kernel, the CPU's the twin)."""
     grads = []
     for dev in (cuda_device, torch.device("cpu")):
-        qg = _rand((2, 300, 4, 2, 24), dev, torch.float32, 0, 0.2).requires_grad_()
-        kg = _rand((2, 56, 4, 2, 24), dev, torch.float32, 1).requires_grad_()
-        v = _rand((2, 56, 4, 48), dev, torch.float32, 2).requires_grad_()
+        qg = _rand((2, 300, 4, 2, 24), dev, dtype, 0, 0.2).requires_grad_()
+        kg = _rand((2, 56, 4, 2, 24), dev, dtype, 1).requires_grad_()
+        v = _rand((2, 56, 4, 48), dev, dtype, 2).requires_grad_()
         out = flash_attention(qg[:, :, :, 1].transpose(1, 2),
                               kg[:, :, :, 1].transpose(1, 2), v.transpose(1, 2), 0.2)
-        (out * out).sum().backward()
+        (out.float() ** 2).sum().backward()
         grads.append([qg.grad, kg.grad, v.grad])
     for g_, r_ in zip(*grads):
-        _close(g_, r_)
+        _close(g_, r_, _attn_tol(dtype))
 
 
 def test_mlla_kernels_raise_under_grad(cuda_device):
@@ -202,21 +205,58 @@ def test_mlla_kernels_match_plain(cuda_device, C, tokens):
     _close(mlla_tail(*ta), mlla_tail_plain(*ta))
 
 
-@pytest.mark.parametrize("lq,lk,dk,dv", [(1000, 56, 24, 48), (130, 200, 32, 32)])
-def test_attention_kernel_matches_plain(cuda_device, lq, lk, dk, dv):
-    q = _rand((2, 3, lq, dk), cuda_device, torch.float32, 0, dk ** -0.5)
-    k = _rand((2, 3, lk, dk), cuda_device, torch.float32, 1)
-    v = _rand((2, 3, lk, dv), cuda_device, torch.float32, 2)
-    _close(flash_attention(q, k, v, 0.2), attention_reference(q, k, v, 0.2))
+def _attn_tol(dtype):
+    return 1e-4 if dtype == torch.float32 else 2e-2
 
 
-def test_attention_kernel_takes_strided_head_views(cuda_device):
-    """The pooled branch hands the kernel q and k as views of (B, N, nh, 2, hd)."""
-    qg = _rand((2, 300, 4, 2, 24), cuda_device, torch.float32, 0, 0.2)
-    kg = _rand((2, 56, 4, 2, 24), cuda_device, torch.float32, 1)
-    v = _rand((2, 56, 4, 48), cuda_device, torch.float32, 2).transpose(1, 2)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,lk,dk,dv", [
+    (1000, 56, 24, 48),   # lq not a multiple of the 64-row tile
+    (33, 56, 24, 48),     # less than one tile
+    (130, 200, 32, 32),   # four key blocks, the last of 8 keys
+    (1000, 130, 24, 48),  # three key blocks, the last of 2 keys
+    (256, 64, 128, 128),  # the widest head dims
+    (100, 20, 8, 16),     # the narrowest the mma tiles pad
+])
+def test_attention_kernel_matches_plain(cuda_device, dtype, lq, lk, dk, dv):
+    q = _rand((2, 3, lq, dk), cuda_device, dtype, 0, dk ** -0.5)
+    k = _rand((2, 3, lk, dk), cuda_device, dtype, 1)
+    v = _rand((2, 3, lk, dv), cuda_device, dtype, 2)
+    got = flash_attention(q, k, v, 0.2)
+    assert got.dtype == dtype and got.shape == (2, 3, lq, dv)
+    _close(got, attention_reference(q, k, v, 0.2), _attn_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [0, 1])
+@pytest.mark.parametrize("b,n,nh", [(2, 300, 4), (16, 14336, 1)], ids=["small", "stage0"])
+def test_attention_kernel_takes_strided_head_views(cuda_device, b, n, nh, group, dtype):
+    """The pooled branch hands the kernel q and k as views of (B, N, nh, 2, hd),
+    group 1 starting 24 elements in, and v as a view of (B, 56, nh, 48)."""
+    qg = _rand((b, n, nh, 2, 24), cuda_device, dtype, 0, 0.2)
+    kg = _rand((b, 56, nh, 2, 24), cuda_device, dtype, 1)
+    v = _rand((b, 56, nh, 48), cuda_device, dtype, 2).transpose(1, 2)
+    q, k = qg[:, :, :, group].transpose(1, 2), kg[:, :, :, group].transpose(1, 2)
+    _close(flash_attention(q, k, v, 0.2), attention_reference(q, k, v, 0.2), _attn_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_takes_more_than_65535_heads(cuda_device, dtype):
+    """b * h = 70,000 on the 1-D grid."""
+    q = _rand((2, 35000, 10, 8), cuda_device, dtype, 0, 0.3)
+    k = _rand((2, 35000, 12, 8), cuda_device, dtype, 1)
+    v = _rand((2, 35000, 12, 16), cuda_device, dtype, 2)
+    _close(flash_attention(q, k, v, 0.3), attention_reference(q, k, v, 0.3), _attn_tol(dtype))
+
+
+def test_attention_kernel_bf16_runs_bit_equal(cuda_device):
+    """No atomics, a fixed reduction order: two runs give the same bits."""
+    qg = _rand((4, 3584, 2, 2, 24), cuda_device, torch.bfloat16, 0, 0.2)
+    kg = _rand((4, 56, 2, 2, 24), cuda_device, torch.bfloat16, 1)
+    v = _rand((4, 56, 2, 48), cuda_device, torch.bfloat16, 2).transpose(1, 2)
     q, k = qg[:, :, :, 1].transpose(1, 2), kg[:, :, :, 1].transpose(1, 2)
-    _close(flash_attention(q, k, v, 0.2), attention_reference(q, k, v, 0.2))
+    first = flash_attention(q, k, v, 0.2)
+    assert torch.equal(first, flash_attention(q, k, v, 0.2))
 
 
 def test_wrappers_raise_on_what_kernels_do_not_take(cuda_device):

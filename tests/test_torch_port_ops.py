@@ -235,6 +235,29 @@ def test_attention_reference_dk_ne_dv():
     assert_close(flash_attention(T(q), T(k), T(v), 0.3), ref)  # CPU -> plain twin
 
 
+@pytest.mark.parametrize("group", [0, 1])
+def test_attention_reference_bf16_matches_jax(group):
+    """The bf16 twin (the card's K4 is held against it) against JAX's
+    attention_reference in bf16 on the pooled branch's head-group views;
+    1e-2 of max|ref|: both round p to bf16 and accumulate in fp32, in
+    another order."""
+    rs = np.random.RandomState(7 + group)
+    B, N, nh, hd, P = 2, 96, 2, 24, 56
+    q = (rs.randn(B, N, nh, 2, hd) * hd ** -0.5).astype(np.float32)
+    k = rs.randn(B, P, nh, 2, hd).astype(np.float32)
+    v = rs.randn(B, P, nh, 2 * hd).astype(np.float32)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    ref = j_attention(jq[:, :, :, group].transpose(0, 2, 1, 3),
+                      jk[:, :, :, group].transpose(0, 2, 1, 3), jv.transpose(0, 2, 1, 3), 0.3)
+    tq, tk, tv = (T(a).bfloat16() for a in (q, k, v))
+    args = (tq[:, :, :, group].transpose(1, 2), tk[:, :, :, group].transpose(1, 2),
+            tv.transpose(1, 2), 0.3)
+    ref = np.asarray(ref.astype(jnp.float32))
+    for got in (attention_reference(*args), flash_attention(*args)):  # CPU -> the twin
+        assert got.dtype == torch.bfloat16
+        assert_close(got.float(), ref, rel=1e-2, atol=0)
+
+
 def _mlla_weights(C, rs):
     Hd = 2 * C
     w = lambda *s: (rs.randn(*s) / np.sqrt(s[0])).astype(np.float32)  # noqa: E731
