@@ -20,7 +20,11 @@ failure exits non-zero:
    both head-group views at the four stage shapes and at edge shapes (lq
    not a multiple of 64, lk > 64 with a ragged last key block, head dims 8
    to 128, b * h > 65535), its bf16 tensor-core kernel two runs bit-equal,
-   beside SDPA and a PyTorch copy of the same strided bytes. K6 (fused
+   beside SDPA and a PyTorch copy of the same strided bytes. K3 (MLLA
+   block tail) in bf16, its tensor-core kernel, against the bf16 twin and
+   the twin that rounds where the kernel rounds, two runs bit-equal, timed
+   per stage beside cuBLAS doing its three products alone (K2 beside its
+   two). K6 (fused
    local attention) at the four stages' local halves; K7 and K8 (fused
    instance norm stats and apply) at the UNETR head's (16, 256, 224, 48) in
    modes 0, 1 and 2 with and without the activation, two runs bit-equal, and
@@ -35,7 +39,8 @@ failure exits non-zero:
    peak memory, in the default configuration (K1-K4 must each be launched,
    K6-K8 never) and then the fused one (K1-K4 and K6-K8 must each be); a
    profile of one volume in each: device time by kernel and each port
-   kernel's total;
+   kernel's total, where K3 must be the tensor-core ``tail_mma_kernel`` 80
+   times (8 per forward, 10 forwards) and the scalar ``tail_kernel`` never;
 6. train: the ``nnUNetTrainer_MLAgg_2D_dt_MS`` recipe on the full-width
    flagship. One fp32 batch (batch 1, drop path off) on the card against a
    CPU copy of the network: the loss and every parameter gradient. Then 2
@@ -53,9 +58,11 @@ failure exits non-zero:
 Kernel times in the JSON line are per flagship forward at model batch 16,
 the sum over the launches one forward makes (K1 2, K2 8, K3 8, K4 16, K6 8,
 K7 6, K8 4), and for K5 per training step at batch 10 (2 launches, one per
-scan direction). A kernel's ``launches`` is its count in the serve run that
-runs it (K1-K4 the default one, K6-K8 the fused one), K5's in the default
-timed train run.
+scan direction). ``library_ms`` is SDPA for K4, six ``F.instance_norm``
+calls for K7 + K8, and for K2 and K3 "GEMMs alone": cuBLAS doing the
+kernel's two or three products in bf16 with no LN, GELU or residuals. A
+kernel's ``launches`` is its count in the serve run that runs it (K1-K4 the
+default one, K6-K8 the fused one), K5's in the default timed train run.
 """
 from __future__ import annotations
 
@@ -90,6 +97,9 @@ SLEEP_CYCLES = 2_000_000                 # ~1 ms of SM clock ahead of each timed
 TOL_FP32 = 1e-4    # fp32 I/O: only the order of fp32 sums differs
 TOL_BF16 = 2e-2    # bf16 I/O: one bf16 rounding of the output and of the
                    # plain twin's intermediates
+TOL_K3_OPERANDS = 4e-3  # K3 bf16 against the twin rounding where it rounds: half
+                        # a bf16 ulp of the output plus the odd operand rounded
+                        # the other way after sums in another order
 TOL_SCAN = 1e-4    # the scan's output is fp32 for either input type
 TOL_MODEL = 1e-3   # fp32 flagship card vs CPU: ~40 layers of re-ordered fp32
                    # sums, __expf in the scan, renormalised by LN/GroupNorm
@@ -108,7 +118,8 @@ TRAIN_KERNELS = ("selective_scan_fwd", "flash_attn_fwd", "selective_scan_bwd")
 NORM_KERNELS = ("instance_norm_stats", "instance_norm_apply")
 FUSED_KERNELS = ("local_attn_fused",) + NORM_KERNELS   # the fused config's alone
 PORT_KERNEL_NAMES = ("scan_fwd_kernel", "scan_bwd_kernel", "front_kernel",
-                     "tail_kernel", "flash_fwd_mma_kernel", "flash_fwd_fp32_kernel",
+                     "tail_kernel", "tail_mma_kernel", "flash_fwd_mma_kernel",
+                     "flash_fwd_fp32_kernel",
                      "local_attn_kernel",
                      "stats_partial_kernel", "stats_finalize_kernel", "apply_kernel")
 DEFAULT = dict(fused_local_attn=False, fused_instance_norm=False, fused_tail=True)
@@ -121,6 +132,7 @@ ATTN_EDGES = ((2, 3, 1000, 56, 24, 48), (2, 3, 33, 56, 24, 48), (2, 3, 130, 200,
 LOCAL_SHAPES = ((128, 112, 48, 1), (64, 56, 96, 2), (32, 28, 192, 4), (16, 14, 384, 8))
 NORM_C = 48                              # the UNETR head's width (embed 96 / 2)
 NORM_STATS, NORM_APPLY = 6, (2, 2)       # per forward: K7 launches; K8 mode 0, mode 2
+FORWARDS_PER_VOLUME = 10                 # 10 slices x 4 tiles x 4 mirrors / model batch 16
 
 
 def fail(msg: str) -> None:
@@ -204,7 +216,8 @@ def check(label, got, ref, tol) -> float:
 def phase_kernels(torch, report: Report) -> None:
     from mlagg_unet_torch.ops.flash_attention import attention_reference, flash_attention
     from mlagg_unet_torch.ops.mlla_fused import (
-        mlla_front, mlla_front_plain, mlla_tail, mlla_tail_plain)
+        mlla_front, mlla_front_plain, mlla_tail, mlla_tail_bf16_operands_plain,
+        mlla_tail_plain)
     from mlagg_unet_torch.ops.selective_scan import selective_scan_seq_ref
     from mlagg_unet_torch.ops.selective_scan_cuda import scan_fwd_plain, selective_scan_fwd
 
@@ -270,9 +283,25 @@ def phase_kernels(torch, report: Report) -> None:
             got, ref = mlla_front(*fa), mlla_front_plain(*fa)
             e_f = max(check(f"K2 {tag} C={C} a", got[0], ref[0], tol),
                       check(f"K2 {tag} C={C} h", got[1], ref[1], tol))
-            e_t = check(f"K3 {tag} C={C}", mlla_tail(*ta), mlla_tail_plain(*ta), tol)
+            got = mlla_tail(*ta)
+            e_t = check(f"K3 {tag} C={C}", got, mlla_tail_plain(*ta), tol)
             if tag != "bf16":
                 continue
+            again = mlla_tail(*ta)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"K3 bf16 C={C}: two runs differ")
+            e_t = max(e_t, check(f"K3 bf16 C={C} vs the twin rounding where the kernel does "
+                                 "(bit-equal twice)", got,
+                                 mlla_tail_bf16_operands_plain(*ta), TOL_K3_OPERANDS))
+            del got, again
+            # the yardstick: cuBLAS doing the same products alone (no LN,
+            # GELU, biases or residuals), on inputs of the same shapes
+            lin = torch.nn.functional.linear
+            zin = T(rs.randn(M, Hd), dtype)
+            gemms = {"mlla_front": lambda: (lin(t["x"], t["wa"]), lin(t["x"], t["wi"])),
+                     "mlla_tail": lambda: (lin(t["h"], t["wo"]), lin(t["s"], t["w1"]),
+                                           lin(zin, t["w2"]))}
             isz = 2
             for name, fn, pfn, args, err, nbytes, flops, rep in (
                     ("mlla_front", mlla_front, mlla_front_plain, fa, e_f,
@@ -284,10 +313,13 @@ def phase_kernels(torch, report: Report) -> None:
                      "mlagg_unet_tpu/ops/mlla_fused.py:48")):
                 ms = time_ms(lambda: fn(*args))
                 pms = time_ms(lambda: pfn(*args))
-                log(f"  {name} bf16 C={C}: {ms:.3f} ms, plain {pms:.3f} ms (x{DEPTH} per forward)")
+                gms = time_ms(gemms[name])
+                log(f"  {name} bf16 C={C}: {ms:.4f} ms, plain {pms:.4f} ms, GEMMs alone "
+                    f"{gms:.4f} ms (x{DEPTH} per forward)")
                 report.add(name, "mlagg_unet_torch/csrc/mlla_fused.cu", rep,
                            max_abs_err=err, ms=DEPTH * ms, plain_ms=DEPTH * pms,
-                           bytes=DEPTH * nbytes, flops=DEPTH * flops)
+                           library_ms=DEPTH * gms, bytes=DEPTH * nbytes, flops=DEPTH * flops)
+            del zin
         del raw, t
 
     # ---- K4 attention on the pooled branch: 2 calls per block, one per head group
@@ -631,10 +663,12 @@ def is_port_kernel(key: str, name: str) -> bool:
     return re.match(rf"void \(anonymous namespace\)::{name}[<(]", key) is not None
 
 
-def profile(torch, label, fn) -> None:
+def profile(torch, label, fn) -> dict:
     """Device time by kernel over one call of ``fn`` (which ends in a sync),
     the port's kernels against the rest, and the device's busy share of the
-    wall time (torch.profiler, whose own host overhead is in the wall time)."""
+    wall time (torch.profiler, whose own host overhead is in the wall time).
+    Returns each port kernel's launch count in the trace (None: no device
+    time recorded)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as trace
 
@@ -647,7 +681,7 @@ def profile(torch, label, fn) -> None:
            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not dev:
         log("  profile: no device time recorded (not measured)")
-        return
+        return None
     busy_ms = sum(t for _, t, _ in dev)
     ours = sum(t for k, t, _ in dev if any(is_port_kernel(k, n) for n in PORT_KERNEL_NAMES))
     log(f"  profile of {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
@@ -655,10 +689,13 @@ def profile(torch, label, fn) -> None:
         f"port kernels {ours:.1f} ms ({100 * ours / busy_ms:.1f}% of busy)")
     for key, t, count in sorted(dev, key=lambda r: -r[1])[:15]:
         log(f"    {t:9.2f} ms {100 * t / busy_ms:5.1f}% x{count:<5d} {key[:100]}")
+    counts = {}
     for name in PORT_KERNEL_NAMES:   # each port kernel, all its instantiations
         t, count = (sum(r[i] for r in dev if is_port_kernel(r[0], name)) for i in (1, 2))
+        counts[name] = count
         if count:
             log(f"    port {name}: {t:.2f} ms ({100 * t / busy_ms:.1f}% of busy) x{count}")
+    return counts
 
 
 def phase_serve(torch, model, label, required, forbidden=()):
@@ -701,7 +738,14 @@ def phase_serve(torch, model, label, required, forbidden=()):
     for name in forbidden:
         if launches[name] != 0:
             fail(f"kernel {name} was launched on the {label} serving path")
-    profile(torch, f"one volume ({label})", lambda: pred(volumes[1]))  # returns on the host
+    counts = profile(torch, f"one volume ({label})", lambda: pred(volumes[1]))  # returns on the host
+    # bf16 serving runs K3 as the tensor-core kernel, 8 per forward
+    want = DEPTH * len(STAGE_C) * FORWARDS_PER_VOLUME
+    if counts is None or counts["tail_mma_kernel"] != want or counts["tail_kernel"] != 0:
+        fail(f"{label} serve profile: K3 ran as tail_mma_kernel "
+             f"{counts and counts['tail_mma_kernel']} times (want {want}) and as the scalar "
+             f"tail_kernel {counts and counts['tail_kernel']} times (want 0)")
+    log(f"  profile: tail_mma_kernel x{want}, tail_kernel x0, as required")
     return launches, vps
 
 

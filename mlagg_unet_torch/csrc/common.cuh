@@ -38,6 +38,23 @@ __device__ __forceinline__ float warp_max(float v) {
     return v;
 }
 
+// Dynamic shared memory for a launch of `kernel`: a launcher asks for it only
+// after this gate, which checks the device's opt-in limit and lifts the 48 KB
+// default where needed.
+template <typename K>
+int set_smem(K kernel, size_t bytes) {
+    int dev = 0, optin = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return (int)e;
+    if (bytes > (size_t)optin) return (int)cudaErrorInvalidConfiguration;
+    if (bytes > 48 * 1024)
+        return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+    return 0;
+}
+
 extern "C" const char* mlagg_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -2,7 +2,7 @@
 //
 // Replace the Pallas kernels mlagg_unet_tpu/ops/mlla_fused.py `_front_kernel`
 // (mlla_block_front_fused) and `_tail_kernel` (mlla_block_tail_fused).
-// Token-pointwise, fp32 arithmetic whatever the I/O type:
+// Token-pointwise:
 //   front: y = LN(x); a = silu(y Wa^T + ba); h = y Wi^T + bi
 //   tail:  x2 = s + (h * a) Wo^T + bo; out = x2 + gelu(LN(x2) W1^T + b1) W2^T + b2
 // LN is the flax LayerNorm (fast variance E[x^2] - E[x]^2, eps passed in),
@@ -11,20 +11,61 @@
 // What bounds it on the H100: per token the tail does 2 * 5 C^2 FLOPs against
 // 8 C bytes of bf16 I/O (the front 2 * 2 C^2 against 6 C bytes), i.e. 60-480
 // FLOP/byte at C = 96..768. In fp32 FMA (67 TFLOP/s, 20 FLOP/byte at
-// 3.35 TB/s) both kernels are bound by arithmetic; with bf16 tensor cores
-// they would be bound by bytes.
+// 3.35 TB/s) both are bound by arithmetic; on bf16 tensor cores (295
+// FLOP/byte) by bytes at C <= 384 and by arithmetic at C = 768.
 //
-// What the design does about it: one CTA of 256 threads per tile of T tokens
-// keeps every intermediate (LN output, x2, the MLP hidden z) in fp32 shared
-// memory, so device memory sees the inputs once and the outputs once, as in
-// the Pallas kernel. T is picked from C so that the tail's x2, LN output and z
-// (4 C floats per token) fit ~100 KB (T = 64 at C = 96, 8 at C = 768). The
+// Three kernels:
+//
+// front_kernel and tail_kernel (fp32 arithmetic, either I/O type; K2 always,
+// K3 for fp32 I/O): one CTA of 256 threads per tile of T tokens keeps every
+// intermediate (LN output, x2, the MLP hidden z) in fp32 shared memory, so
+// device memory sees the inputs once and the outputs once, as in the Pallas
+// kernel. T is picked from C so that the tail's x2, LN output and z (4 C
+// floats per token) fit ~100 KB (T = 64 at C = 96, 8 at C = 768). The
 // products stream K-slices of the weight through shared memory and run as
-// fp32 FMA, each warp owning T/8 tokens and each lane two output columns
-// 32 apart, so that activations are warp broadcasts and weight reads are
-// conflict-free. Ragged token counts are masked, not padded. bf16 mma.sync
-// tiles are later work.
+// fp32 FMA, each warp owning T/8 tokens and each lane two output columns 32
+// apart, so that activations are warp broadcasts and weight reads are
+// conflict-free. The tail keeps this kernel for fp32 I/O: bf16 tensor cores
+// would break its 1e-4 agreement with the fp32 twin.
+//
+// tail_mma_kernel (K3 for bf16 I/O). What the design does about the bound:
+// - Tensor cores: the three products run as mma.sync m16n8k16 with bf16
+//   operands on ldmatrix fragments and fp32 accumulators. The kernel rounds
+//   to bf16 only the three A operands, h * a, LN(x2) and GELU(z), each
+//   computed in fp32 (the weights arrive in bf16). x2, the LN statistics and
+//   every epilogue (biases, residuals, GELU) stay in fp32. The bf16 plain
+//   twin rounds there too and also rounds x2 and every product's output, so
+//   the kernel is no further than the twin from the all-fp32 Pallas kernel;
+//   ops/mlla_fused.py::mlla_tail_bf16_operands_plain rounds exactly where the
+//   kernel does.
+// - Weights amortised over 64 tokens per CTA (32 at C = 768), where the fp32
+//   kernel had 8 at C = 768: the hidden dimension is chunked (128 wide, 256
+//   at C = 768), so z is never whole: acc += GELU(y W1[c]^T + b1[c]) W2[:, c]^T
+//   chunk by chunk, and acc, the (tokens x C) output tile, lives in registers
+//   from its start, x2 + b2, to its end. Shared memory holds per token only C
+//   bf16 values (h * a, then LN(x2), then the output) and one chunk of z in
+//   bf16. 8 warps: 2 along tokens x 4 along the C columns; the LN statistics
+//   of a row are summed from the 4 column warps' partials in a fixed order.
+//   At C = 768 and 3584 tokens (model batch 16, the last stage) the grid is
+//   112 CTAs of 32 tokens, one per SM (190 KB of shared memory each): one
+//   wave on 112 of the 132 SMs. Fewer tokens per CTA would fill the card but
+//   read the weights from L2 more often (5 C^2 bf16 = 5.9 MB per CTA); more
+//   do not fit the registers (the 32 x 768 fp32 tile is 96 a thread).
+// - Streamed weights: every product's weight goes through one ring in shared
+//   memory as K-slices of 32 columns (Wo, then per chunk the W1 rows and the
+//   W2 columns), with 16-byte cp.async, across product boundaries too. The
+//   ring has 4 slots up to C = 192 (2 CTAs per SM), 3 up to 384 and 2 at 768,
+//   as many as shared memory leaves room for, so 1 to 3 slices load while one
+//   multiplies; one barrier per slice both publishes the slice and frees the
+//   slot of the one before. Slot rows are 5 16-byte chunks apart (odd), so
+//   ldmatrix is conflict-free; the copy loops index with shifts, no division.
+// - Ragged token counts are masked (rows past M read as zero and are not
+//   written), not padded. No atomics: two runs give the same bits.
+// The launch (tokens per CTA, hidden chunk, shared memory, grid) is planned by
+// mlagg_unet_torch/ops/mlla_fused.py::tail_launch_plan and checked here
+// against tail_mma_shape / tail_mma_smem_bytes.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -181,6 +222,315 @@ tail_kernel(const T* __restrict__ h, const T* __restrict__ a,
     });
 }
 
+// ------------------------------------------------------------------ bf16 mma tail
+
+using bf16 = __nv_bfloat16;
+
+constexpr int MMA_THREADS = 256;  // 8 warps: 2 along tokens x 4 along columns
+constexpr int BK = 32;            // K columns of a weight slice
+constexpr int SLD = BK + 8;       // slot row stride: 5 16-byte chunks (odd), so the 8
+                                  // rows of an ldmatrix matrix hit distinct banks
+
+// The instantiations: for C up to W, MT m16 tiles of tokens per warp (tokens
+// per CTA = 32 MT), W / 32 n8 tiles of C per warp at most, NZ n8 tiles of a
+// hidden chunk per warp (chunk = 32 NZ), RING slots of the weight ring (as
+// many as the shared memory of the CTAs an SM holds leaves room for).
+// (mirrored by ops/mlla_fused.py::tail_launch_plan)
+#define MLAGG_TAIL_SHAPES(X) \
+    X(96, 2, 4, 4)           \
+    X(192, 2, 4, 4)          \
+    X(384, 2, 4, 3)          \
+    X(768, 1, 8, 2)
+
+struct TailShape {
+    int mt, nt, nz, ring;
+};
+
+// 0 where C is not taken: not a multiple of 32, or wider than the table.
+__host__ __device__ inline TailShape tail_mma_shape(int C) {
+    if (C < 32 || C % 32) return TailShape{0, 0, 0, 0};
+#define X(W, MT, NZ, RING) \
+    if (C <= W) return TailShape{MT, W / 32, NZ, RING};
+    MLAGG_TAIL_SHAPES(X)
+#undef X
+    return TailShape{0, 0, 0, 0};
+}
+
+// sA (tm x (C + 8) bf16) | sZ (tm x (hc + 8) bf16) | ring slots of
+// max(C, hc) x SLD bf16 | LN partial sums (tm x 4 x 2 fp32). Each region
+// starts 16-byte aligned. (mirrored by tail_launch_plan)
+__host__ __device__ inline size_t tail_mma_smem_bytes(int tm, int C, int hc, int ring) {
+    const int wrows = C > hc ? C : hc;
+    return ((size_t)tm * (C + 8) + (size_t)tm * (hc + 8) + (size_t)ring * wrows * SLD) * 2 +
+           (size_t)tm * 8 * sizeof(float);
+}
+
+// acc[m][n] += A[arow0 + 16 m .., acol0 .. acol0 + 32] * B[brow0 + 8 n .., 0 .. 32]^T for
+// n < nt: A row-major bf16 in shared memory (row stride lda), B one weight
+// slice (rows are output features, SLD apart). Two k16 steps; B's ldmatrix.x4
+// gives both steps' fragments of one n8 tile.
+template <int MT, int NTILES>
+__device__ __forceinline__ void mma_slice(float (&acc)[MT][NTILES][4], const bf16* sA, int lda,
+                                          int arow0, int acol0, const bf16* slot, int brow0,
+                                          int nt) {
+    const int lane = threadIdx.x & 31;
+    uint32_t af[2][MT][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+            ldsm_x4(af[ks][m], smem_u32(sA + (arow0 + m * 16 + (lane & 15)) * lda + acol0 +
+                                        ks * 16 + (lane >> 4) * 8));
+#pragma unroll
+    for (int n = 0; n < NTILES; ++n) {
+        if (n >= nt) continue;
+        uint32_t bf[4];
+        ldsm_x4(bf, smem_u32(slot + (brow0 + n * 8 + (lane & 7)) * SLD + (lane >> 3) * 8));
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+            mma16816(acc[m][n], af[0][m], bf[0], bf[1]);
+            mma16816(acc[m][n], af[1][m], bf[2], bf[3]);
+        }
+    }
+}
+
+template <int MT, int NT, int NZ, int RING>
+__global__ void __launch_bounds__(MMA_THREADS, MT * (NT + NZ) <= 20 ? 2 : 1)
+tail_mma_kernel(const bf16* __restrict__ h, const bf16* __restrict__ a,
+                const bf16* __restrict__ s, const bf16* __restrict__ wo,
+                const bf16* __restrict__ bo, const bf16* __restrict__ lw,
+                const bf16* __restrict__ lb, const bf16* __restrict__ w1,
+                const bf16* __restrict__ b1, const bf16* __restrict__ w2,
+                const bf16* __restrict__ b2, bf16* __restrict__ out, long long M, int C,
+                int Hd, float eps) {
+    constexpr int TM = 32 * MT, HC = 32 * NZ;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int lda = C + 8, ldz = HC + 8, wrows = max(C, HC);
+    bf16* sA = reinterpret_cast<bf16*>(smem_raw);  // h * a, then LN(x2), then the output
+    bf16* sZ = sA + TM * lda;                       // GELU(z) of one hidden chunk
+    bf16* sW = sZ + TM * ldz;                       // the weight ring
+    float* sStat = reinterpret_cast<float*>(sW + RING * wrows * SLD);  // [row][warp col][2]
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int wn = warp & 3, g = lane >> 2, t4 = lane & 3;
+    const int row0 = (warp >> 2) * (TM / 2);  // this warp's first token of the tile
+    const int nt = C / 32, ccol0 = wn * (C / 4);
+    const long long m0 = (long long)blockIdx.x * TM;
+    const int rows = (int)min((long long)TM, M - m0);
+    const int ks_c = C / BK, nchunks = (Hd + HC - 1) / HC;
+
+    // ---- the weight ring: slices in the order the products use them
+    int phase = 0, chunk = 0, kk = 0;  // next slice to issue: phase 0 Wo, 1 W1, 2 W2
+    auto issue = [&](int slot) {
+        if (phase == 1 && chunk == nchunks) {  // nothing left: an empty group
+            cp_async_commit();
+            return;
+        }
+        const bf16* src;
+        int ld, nr;
+        const int c0 = chunk * HC, cw = min(HC, Hd - c0);
+        if (phase == 0) {
+            src = wo + kk * BK, ld = C, nr = C;
+        } else if (phase == 1) {
+            src = w1 + (size_t)c0 * C + kk * BK, ld = C, nr = cw;
+        } else {
+            src = w2 + c0 + kk * BK, ld = Hd, nr = C;
+        }
+        bf16* dst = sW + slot * wrows * SLD;
+        for (int i = tid; i < nr * 4; i += MMA_THREADS) {
+            const int r = i >> 2, c = (i & 3) * 8;
+            cp_async16(smem_u32(dst + r * SLD + c), src + (size_t)r * ld + c, true);
+        }
+        cp_async_commit();
+        ++kk;
+        if (phase == 0 && kk == ks_c) {
+            phase = 1, kk = 0;
+        } else if (phase == 1 && kk == ks_c) {
+            phase = 2, kk = 0;
+        } else if (phase == 2 && kk == cw / BK) {
+            phase = 1, kk = 0, ++chunk;
+        }
+    };
+    int used = 0;  // slices consumed
+    // Slice `used`, once this thread's copies of it have landed (wait) and
+    // every thread's have (barrier). Past the barrier every thread is done
+    // with the slice before it, so that slice's slot takes the slice RING - 1
+    // ahead: one barrier per slice, RING - 1 slices in flight. The barrier
+    // also publishes what the threads wrote into sA or sZ before it.
+    auto acquire = [&]() -> const bf16* {
+        cp_async_wait<RING - 2>();
+        __syncthreads();
+        issue((used + RING - 1) % RING);
+        return sW + (used++ % RING) * wrows * SLD;
+    };
+#pragma unroll
+    for (int i = 0; i < RING - 1; ++i) issue(i);
+
+    // ---- h * a in fp32, rounded to bf16 once: the first A operand. The
+    // tile's 16-byte chunks (r, c) are walked from each thread's first one,
+    // all of a thread's loads issued before any is used.
+    const int cchunks = C / 8;
+    const int wr0 = tid / cchunks, wc0 = tid - wr0 * cchunks;
+    const int dr = MMA_THREADS / cchunks, dc = MMA_THREADS - dr * cchunks;
+    {
+        constexpr int LOADS = (TM * NT * 4 + MMA_THREADS - 1) / MMA_THREADS;  // >= a thread's chunks
+        uint4 hv[LOADS], av[LOADS];
+#pragma unroll
+        for (int j = 0, r = wr0, c = wc0; j < LOADS; ++j) {
+            hv[j] = av[j] = make_uint4(0, 0, 0, 0);
+            if (r < rows) {
+                hv[j] = *reinterpret_cast<const uint4*>(h + (m0 + r) * C + c * 8);
+                av[j] = *reinterpret_cast<const uint4*>(a + (m0 + r) * C + c * 8);
+            }
+            r += dr, c += dc;
+            if (c >= cchunks) c -= cchunks, ++r;
+        }
+#pragma unroll
+        for (int j = 0, r = wr0, c = wc0; j < LOADS; ++j) {
+            if (r < TM) {
+                const __nv_bfloat162* hp = reinterpret_cast<const __nv_bfloat162*>(&hv[j]);
+                const __nv_bfloat162* ap = reinterpret_cast<const __nv_bfloat162*>(&av[j]);
+                uint4 pv;
+                uint32_t* pp = reinterpret_cast<uint32_t*>(&pv);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float2 hf = __bfloat1622float2(hp[e]), af = __bfloat1622float2(ap[e]);
+                    pp[e] = pack_bf16(hf.x * af.x, hf.y * af.y);
+                }
+                *reinterpret_cast<uint4*>(sA + r * lda + c * 8) = pv;
+            }
+            r += dr, c += dc;
+            if (c >= cchunks) c -= cchunks, ++r;
+        }
+    }
+
+    // ---- x2 = s + (h * a) Wo^T + bo, in the accumulator tile
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n) acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.f;
+    for (int k = 0; k < ks_c; ++k)
+        mma_slice<MT, NT>(acc, sA, lda, row0, k * BK, acquire(), ccol0, nt);
+    float ps[MT][2], pq[MT][2];  // per row (m, half): partial sum and sum of squares
+#pragma unroll
+    for (int m = 0; m < MT; ++m) ps[m][0] = ps[m][1] = pq[m][0] = pq[m][1] = 0.f;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+            if (n >= nt) continue;
+            const int col = ccol0 + n * 8 + 2 * t4;
+            const float bo0 = to_f32(bo[col]), bo1 = to_f32(bo[col + 1]);
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+                const int r = row0 + m * 16 + hf * 8 + g;
+                float2 sv = make_float2(0.f, 0.f);
+                if (r < rows)
+                    sv = __bfloat1622float2(
+                        *reinterpret_cast<const __nv_bfloat162*>(s + (m0 + r) * C + col));
+                const float x0 = acc[m][n][2 * hf] + bo0 + sv.x;
+                const float x1 = acc[m][n][2 * hf + 1] + bo1 + sv.y;
+                acc[m][n][2 * hf] = x0;
+                acc[m][n][2 * hf + 1] = x1;
+                ps[m][hf] += x0 + x1;
+                pq[m][hf] = fmaf(x0, x0, fmaf(x1, x1, pq[m][hf]));
+            }
+        }
+    // ---- LN statistics: the quad's sum, then the 4 column warps' in order
+    // (the barrier also ends every read of h * a in sA)
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+            const float sm = quad_sum(ps[m][hf]), sq = quad_sum(pq[m][hf]);
+            if (t4 == 0) {
+                float* st = sStat + ((row0 + m * 16 + hf * 8 + g) * 4 + wn) * 2;
+                st[0] = sm;
+                st[1] = sq;
+            }
+        }
+    __syncthreads();
+    const float inv_c = 1.f / C;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+            const int r = row0 + m * 16 + hf * 8 + g;
+            const float* st = sStat + r * 8;
+            const float mu = (((st[0] + st[2]) + st[4]) + st[6]) * inv_c;
+            const float var = fmaxf((((st[1] + st[3]) + st[5]) + st[7]) * inv_c - mu * mu, 0.f);
+            const float rs = rsqrtf(var + eps);
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+                if (n >= nt) continue;
+                const int col = ccol0 + n * 8 + 2 * t4;
+                const float y0 = (acc[m][n][2 * hf] - mu) * rs * to_f32(lw[col]) + to_f32(lb[col]);
+                const float y1 =
+                    (acc[m][n][2 * hf + 1] - mu) * rs * to_f32(lw[col + 1]) + to_f32(lb[col + 1]);
+                // LN(x2) rounded to bf16 once: the second A operand
+                *reinterpret_cast<uint32_t*>(sA + r * lda + col) = pack_bf16(y0, y1);
+                // the output's accumulator starts at x2 + b2
+                acc[m][n][2 * hf] += to_f32(b2[col]);
+                acc[m][n][2 * hf + 1] += to_f32(b2[col + 1]);
+            }
+        }
+
+    // ---- the MLP, one hidden chunk at a time
+    for (int c = 0; c < nchunks; ++c) {
+        const int c0 = c * HC, cw = min(HC, Hd - c0), nz = cw / 32, zcol0 = wn * (cw / 4);
+        float zacc[MT][NZ][4];
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int n = 0; n < NZ; ++n)
+                zacc[m][n][0] = zacc[m][n][1] = zacc[m][n][2] = zacc[m][n][3] = 0.f;
+        for (int k = 0; k < ks_c; ++k)
+            mma_slice<MT, NZ>(zacc, sA, lda, row0, k * BK, acquire(), zcol0, nz);
+        // GELU(z + b1) rounded to bf16 once: the third A operand (sZ is free:
+        // this chunk's acquire barriers came after every read of the last)
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int n = 0; n < NZ; ++n) {
+                if (n >= nz) continue;
+                const int col = zcol0 + n * 8 + 2 * t4;
+                const float bb0 = to_f32(b1[c0 + col]), bb1 = to_f32(b1[c0 + col + 1]);
+#pragma unroll
+                for (int hf = 0; hf < 2; ++hf) {
+                    const int r = row0 + m * 16 + hf * 8 + g;
+                    *reinterpret_cast<uint32_t*>(sZ + r * ldz + col) =
+                        pack_bf16(gelu_f(zacc[m][n][2 * hf] + bb0),
+                                  gelu_f(zacc[m][n][2 * hf + 1] + bb1));
+                }
+            }
+        for (int k = 0; k < nz; ++k)
+            mma_slice<MT, NT>(acc, sZ, ldz, row0, k * BK, acquire(), ccol0, nt);
+    }
+    cp_async_wait<0>();
+
+    // ---- the output: staged in sA as bf16 (free: the last chunk's W2
+    // barriers came after every read of LN(x2)), then 16-byte stores
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+            if (n >= nt) continue;
+            const int col = ccol0 + n * 8 + 2 * t4;
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf)
+                *reinterpret_cast<uint32_t*>(sA + (row0 + m * 16 + hf * 8 + g) * lda + col) =
+                    pack_bf16(acc[m][n][2 * hf], acc[m][n][2 * hf + 1]);
+        }
+    __syncthreads();
+    for (int r = wr0, c = wc0; r < rows;) {
+        *reinterpret_cast<uint4*>(out + (m0 + r) * C + c * 8) =
+            *reinterpret_cast<const uint4*>(sA + r * lda + c * 8);
+        r += dr, c += dc;
+        if (c >= cchunks) c -= cchunks, ++r;
+    }
+}
+
 // Tokens per warp: the largest of 16, 8, 4, 2, 1 whose buffers fit the
 // budget; 0 when even one token per warp does not fit.
 int pick_tm(int floats_per_token) {
@@ -218,20 +568,35 @@ int front_launch(const void* x, const void* lw, const void* lb, const void* wa,
     return (int)cudaGetLastError();
 }
 
-template <typename T, int TM>
-int tail_launch(const void* h, const void* a, const void* s, const void* wo,
-                const void* bo, const void* lw, const void* lb, const void* w1,
-                const void* b1, const void* w2, const void* b2, void* out,
-                long long M, int C, int Hd, float eps, cudaStream_t st) {
+template <int TM>
+int tail_launch(const void* h, const void* a, const void* s, const void* wo, const void* bo,
+                const void* lw, const void* lb, const void* w1, const void* b1, const void* w2,
+                const void* b2, void* out, long long M, int C, int Hd, float eps,
+                cudaStream_t st) {
     dim3 grid;
     size_t bytes;
-    auto kern = tail_kernel<T, TM>;
+    auto kern = tail_kernel<float, TM>;
     const int e = launch_cfg(kern, M, TM, 2 * C + Hd, st, grid, bytes);
     if (e) return e;
     kern<<<grid, THREADS, bytes, st>>>(
-        (const T*)h, (const T*)a, (const T*)s, (const T*)wo, (const T*)bo,
-        (const T*)lw, (const T*)lb, (const T*)w1, (const T*)b1, (const T*)w2,
-        (const T*)b2, (T*)out, M, C, Hd, eps);
+        (const float*)h, (const float*)a, (const float*)s, (const float*)wo, (const float*)bo,
+        (const float*)lw, (const float*)lb, (const float*)w1, (const float*)b1,
+        (const float*)w2, (const float*)b2, (float*)out, M, C, Hd, eps);
+    return (int)cudaGetLastError();
+}
+
+template <int MT, int NT, int NZ, int RING>
+int tail_mma_launch(const void* h, const void* a, const void* s, const void* wo, const void* bo,
+                    const void* lw, const void* lb, const void* w1, const void* b1,
+                    const void* w2, const void* b2, void* out, long long M, int C, int Hd,
+                    float eps, size_t bytes, long long grid, cudaStream_t st) {
+    auto kern = tail_mma_kernel<MT, NT, NZ, RING>;
+    const int e = set_smem(kern, bytes);
+    if (e) return e;
+    kern<<<(unsigned)grid, MMA_THREADS, bytes, st>>>(
+        (const bf16*)h, (const bf16*)a, (const bf16*)s, (const bf16*)wo, (const bf16*)bo,
+        (const bf16*)lw, (const bf16*)lb, (const bf16*)w1, (const bf16*)b1, (const bf16*)w2,
+        (const bf16*)b2, (bf16*)out, M, C, Hd, eps);
     return (int)cudaGetLastError();
 }
 
@@ -267,21 +632,46 @@ extern "C" int mlagg_mlla_front(const void* x, const void* lw, const void* lb,
 }
 
 // h, a, s, out: (M, C); wo: (C, C); w1: (Hd, C); w2: (C, Hd), all (out, in);
-// biases and ln weight/bias 1-D. All contiguous, all of one dtype.
+// biases and ln weight/bias 1-D. All contiguous, all of one dtype. The launch
+// (tokens per CTA, hidden chunk, shared-memory bytes, grid) comes from
+// mlagg_unet_torch/ops/mlla_fused.py::tail_launch_plan and is checked here:
+// bf16 launches tail_mma_kernel (C a multiple of 32 up to 768, Hd a multiple
+// of 32, 16-byte aligned token rows and weights), fp32 tail_kernel.
 extern "C" int mlagg_mlla_tail(const void* h, const void* a, const void* s,
                                const void* wo, const void* bo, const void* lw,
                                const void* lb, const void* w1, const void* b1,
                                const void* w2, const void* b2, void* out,
-                               long long M, int C, int Hd, float eps,
-                               int dtype, void* stream) {
-    const int tm = pick_tm(2 * C + Hd);
+                               long long M, int C, int Hd, float eps, int dtype,
+                               int tokens_per_cta, int hidden_chunk, long long smem_bytes,
+                               long long grid, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (M < 1 || C < 1 || Hd < 1 || tokens_per_cta < 1 || grid != (M + tokens_per_cta - 1) / tokens_per_cta ||
+        grid > 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
     if (dtype == MLAGG_BF16) {
-#define CALL(TM) tail_launch<__nv_bfloat16, TM>(h, a, s, wo, bo, lw, lb, w1, b1, w2, b2, out, M, C, Hd, eps, st)
-        MLAGG_DISPATCH_TM(tm, CALL)
-#undef CALL
+        const TailShape sh = tail_mma_shape(C);
+        const int tm = 32 * sh.mt, hc = 32 * sh.nz;
+        if (!sh.mt || Hd % 32 || tokens_per_cta != tm || hidden_chunk != hc ||
+            smem_bytes != (long long)tail_mma_smem_bytes(tm, C, hc, sh.ring))
+            return (int)cudaErrorInvalidValue;
+        const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+        if (!aligned(h) || !aligned(a) || !aligned(s) || !aligned(out) || !aligned(wo) ||
+            !aligned(w1) || !aligned(w2))
+            return (int)cudaErrorMisalignedAddress;
+#define X(W, MT, NZ, RING)                                                                \
+    if (C <= W)                                                                           \
+        return tail_mma_launch<MT, W / 32, NZ, RING>(h, a, s, wo, bo, lw, lb, w1, b1, w2, b2, \
+                                                     out, M, C, Hd, eps, (size_t)smem_bytes,  \
+                                                     grid, st);
+        MLAGG_TAIL_SHAPES(X)
+#undef X
+        return (int)cudaErrorInvalidValue;
     }
-#define CALL(TM) tail_launch<float, TM>(h, a, s, wo, bo, lw, lb, w1, b1, w2, b2, out, M, C, Hd, eps, st)
+    const int tm = pick_tm(2 * C + Hd);
+    const size_t bytes = ((size_t)WARPS * tm * (2 * C + Hd) + BO * WLD) * sizeof(float);
+    if (tokens_per_cta != WARPS * tm || hidden_chunk != Hd || smem_bytes != (long long)bytes)
+        return (int)cudaErrorInvalidValue;
+#define CALL(TM) tail_launch<TM>(h, a, s, wo, bo, lw, lb, w1, b1, w2, b2, out, M, C, Hd, eps, st)
     MLAGG_DISPATCH_TM(tm, CALL)
 #undef CALL
 }

@@ -2,7 +2,7 @@
 
 Replace the Pallas kernels ``_front_kernel`` (``mlla_block_front_fused``) and
 ``_tail_kernel`` (``mlla_block_tail_fused``) of
-``mlagg_unet_tpu/ops/mlla_fused.py``. Token-pointwise, fp32 arithmetic:
+``mlagg_unet_tpu/ops/mlla_fused.py``. Token-pointwise:
 
     front: y = LN(x); a = silu(y Wa + ba); h = y Wi + bi
     tail:  x2 = s + (h * a) Wo + bo; out = x2 + gelu(LN(x2) W1 + b1) W2 + b2
@@ -16,11 +16,19 @@ the block unfused), so on a CUDA tensor with grad enabled and an input that
 requires it the wrappers raise rather than drop the gradient.
 ``MLLABlock`` takes them in ``eval()`` when ``fused_tail_enabled`` (the JAX
 package's switch ``MLAGG_FUSED_TAIL``, on unless it is "0").
+
+K2 computes in fp32 FMA for either I/O type. K3 is two kernels, picked by
+``tail_launch_plan`` from the type: fp32 I/O launches the scalar
+``tail_kernel`` (fp32 arithmetic, as K2), bf16 I/O ``tail_mma_kernel``
+(tensor-core ``mma.sync`` with bf16 operands and fp32 accumulators, weights
+streamed through a ``cp.async`` ring, the MLP hidden in chunks).
+``mlla_tail_bf16_operands_plain`` rounds to bf16 exactly where that kernel
+does.
 """
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,8 +39,9 @@ from mlagg_unet_torch.ops import _ext
 _LIB = _ext.KernelLib("mlla_fused.cu", {
     "mlagg_mlla_front": [_ext.VP] * 9 + [_ext.I64, _ext.I32, _ext.F32_ARG,
                                          _ext.I32, _ext.VP],
-    "mlagg_mlla_tail": [_ext.VP] * 12 + [_ext.I64, _ext.I32, _ext.I32,
-                                         _ext.F32_ARG, _ext.I32, _ext.VP],
+    "mlagg_mlla_tail": [_ext.VP] * 12 + [_ext.I64, _ext.I32, _ext.I32, _ext.F32_ARG,
+                                         _ext.I32, _ext.I32, _ext.I32, _ext.I64,
+                                         _ext.I64, _ext.VP],
 })
 FRONT = _ext.Kernel("mlla_front", _LIB, "mlagg_mlla_front")
 TAIL = _ext.Kernel("mlla_tail", _LIB, "mlagg_mlla_tail")
@@ -58,18 +67,43 @@ def mlla_tail_plain(h, a, s, wo, bo, ln_w, ln_b, w1, b1, w2, b2,
     return x2 + F.linear(z, w2, b2)
 
 
+def mlla_tail_bf16_operands_plain(h, a, s, wo, bo, ln_w, ln_b, w1, b1, w2, b2,
+                                  eps: float = 1e-6):
+    """The tail in fp32, rounded to bf16 exactly where ``tail_mma_kernel``
+    rounds: the three A operands of its products (h * a, LN(x2), GELU(z))
+    and the weights, its B operands (no-ops for bf16 weights). x2, the LN
+    statistics, the biases and residuals stay fp32. Returns fp32: the
+    kernel's final rounding to bf16 is its own."""
+    def r(t):
+        return t.float().to(torch.bfloat16).float()
+
+    x2 = s.float() + F.linear(r(h.float() * a.float()), r(wo)) + bo.float()
+    y = layer_norm(x2, ln_w.float(), ln_b.float(), eps)
+    z = gelu(F.linear(r(y), r(w1)) + b1.float())
+    return x2 + F.linear(r(z), r(w2)) + b2.float()
+
+
 # mirrors pick_tm in the CUDA source: one token per warp (8 per CTA) of fp32
 # buffers plus the staged weight slice must fit 112 KB of shared memory
-_SMEM_FLOATS = 112 * 1024 // 4 - 64 * 33
+_SMEM_BUDGET = 112 * 1024
+_WSLICE_FLOATS = 64 * 33
+_SMEM_FLOATS = _SMEM_BUDGET // 4 - _WSLICE_FLOATS
+_MAX_GRID = 2 ** 31 - 1
 
 
-def _check(name, tensors, floats_per_token, ref):
+class TailPlan(NamedTuple):
+    kernel: str           # "tail_mma_kernel" (bf16) or "tail_kernel" (fp32)
+    tokens_per_cta: int
+    hidden_chunk: int     # hidden units of one MLP chunk (fp32: all of Hd)
+    smem_bytes: int       # dynamic shared memory of one CTA
+    grid: int             # CTAs: one per tile of tokens_per_cta tokens
+    waves: int            # rounds of the grid over the SMs at the design's CTAs per SM
+
+
+def _check_operands(name, tensors, ref):
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{name}: the kernel has no backward; run the "
                            "block unfused (train mode) to differentiate it")
-    if 8 * floats_per_token > _SMEM_FLOATS:
-        raise ValueError(f"{name}: {floats_per_token} fp32 values per token "
-                         "do not fit the kernel's shared memory")
     if ref.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: dtype {ref.dtype} not supported")
     for t in tensors:
@@ -78,6 +112,76 @@ def _check(name, tensors, floats_per_token, ref):
                              f"{ref.device}, got {t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
+
+
+def _check(name, tensors, floats_per_token, ref):
+    _check_operands(name, tensors, ref)
+    if 8 * floats_per_token > _SMEM_FLOATS:
+        raise ValueError(f"{name}: {floats_per_token} fp32 values per token "
+                         "do not fit the kernel's shared memory")
+
+
+# tail_mma_kernel's instantiations: for C up to the first number, m16 tiles
+# of tokens per warp, n8 tiles of a hidden chunk per warp, slots of the
+# weight ring of 32-column weight slices (mirrors MLAGG_TAIL_SHAPES in
+# csrc/mlla_fused.cu)
+_MMA_SHAPES = ((96, 2, 4, 4), (192, 2, 4, 4), (384, 2, 4, 3), (768, 1, 8, 2))
+
+
+def tail_launch_plan(M: int, C: int, Hd: int, dtype, num_sms: int,
+                     operands=()) -> TailPlan:
+    """K3's kernel and launch for M tokens of width C, hidden Hd, I/O type
+    ``dtype``; raises on what the kernels do not take, including, for the
+    given ``operands``, a grad request, mixed dtypes or devices, and
+    non-contiguous or (bf16) not 16-byte aligned tensors. Works on tensors of
+    any device (the CPU tests call it); the C launcher
+    ``mlagg_mlla_tail`` in ``csrc/mlla_fused.cu`` checks the same numbers.
+
+    bf16 launches ``tail_mma_kernel``, which takes C a multiple of 32 from 32
+    to 768 and Hd a multiple of 32: every MLLA width of the repo (C = 96 * 2^i
+    up to 768, Hd = 2 C). 64 tokens per CTA with 128-wide hidden chunks and
+    a weight ring of 4 slots up to C = 192 (two CTAs per SM), 3 slots up to
+    384; 32 tokens with 256-wide chunks and 2 slots at C = 768 (its
+    accumulator tile of 32 x 768 fp32 is 96 registers a thread). fp32
+    launches the scalar ``tail_kernel`` with the most tokens whose 2 C + Hd
+    fp32 values fit 112 KB.
+    """
+    name = "mlla_tail"
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: dtype {dtype} not supported")
+    if operands:
+        _check_operands(name, operands, operands[2])
+        if operands[2].dtype != dtype:
+            raise ValueError(f"{name}: operands are {operands[2].dtype}, plan is for {dtype}")
+    if M < 0 or C < 1 or Hd < 1:
+        raise ValueError(f"{name}: M={M}, C={C}, Hd={Hd}")
+    if dtype == torch.bfloat16:
+        shape = next((r for r in _MMA_SHAPES if C <= r[0]), None)
+        if C % 32 or shape is None or Hd % 32:
+            raise ValueError(f"{name}: the bf16 kernel takes C a multiple of 32 up to 768 "
+                             f"and Hd a multiple of 32, got C={C}, Hd={Hd}")
+        for i, t in enumerate(operands):
+            if i in (0, 1, 2, 3, 7, 9) and t.data_ptr() % 16:
+                raise ValueError(f"{name}: the bf16 kernel's token rows and weights "
+                                 "must start 16-byte aligned")
+        widest, mt, nz, ring = shape
+        tm, hc = 32 * mt, 32 * nz
+        smem = 2 * (tm * (C + 8) + tm * (hc + 8) + ring * max(C, hc) * 40) + tm * 8 * 4
+        # CTAs per SM the kernel's launch bounds are built for
+        kernel, per_sm = "tail_mma_kernel", 2 if mt * (widest // 32 + nz) <= 20 else 1
+    else:
+        per_token = 2 * C + Hd
+        tm = next((8 * t for t in (16, 8, 4, 2, 1)
+                   if (8 * t * per_token + _WSLICE_FLOATS) * 4 <= _SMEM_BUDGET), 0)
+        if not tm:
+            raise ValueError(f"{name}: {per_token} fp32 values per token "
+                             "do not fit the kernel's shared memory")
+        hc, smem = Hd, (tm * per_token + _WSLICE_FLOATS) * 4
+        kernel, per_sm = "tail_kernel", 1
+    grid = -(-M // tm)
+    if grid > _MAX_GRID:
+        raise ValueError(f"{name}: {grid} CTAs exceed the grid's {_MAX_GRID}")
+    return TailPlan(kernel, tm, hc, smem, grid, -(-grid // (per_sm * num_sms)))
 
 
 def mlla_front(x, ln_w, ln_b, wa, ba, wi, bi, eps: float = 1e-6
@@ -112,13 +216,15 @@ def mlla_tail(h, a, s, wo, bo, ln_w, ln_b, w1, b1, w2, b2,
         raise ValueError(f"mlla_tail: weights {tuple(wo.shape)}, "
                          f"{tuple(w1.shape)}, {tuple(w2.shape)} for C={C}")
     h2d, a2d, s2d = (t.reshape(-1, C) for t in (h, a, s))
-    _check("mlla_tail", (h2d, a2d, s2d, wo, bo, ln_w, ln_b, w1, b1, w2, b2),
-           2 * C + Hd, s)
+    ops = (h2d, a2d, s2d, wo, bo, ln_w, ln_b, w1, b1, w2, b2)
+    plan = tail_launch_plan(s2d.shape[0], C, Hd, s.dtype,
+                            torch.cuda.get_device_properties(s.device).multi_processor_count,
+                            ops)
     out = torch.empty_like(s2d)
-    TAIL.launch(*map(_ext.ptr, (h2d, a2d, s2d, wo, bo, ln_w, ln_b, w1, b1, w2,
-                                b2, out)),
-                s2d.shape[0], C, Hd, float(eps), _dtype_code(s),
-                _ext.stream_ptr(s.device))
+    if plan.grid:
+        TAIL.launch(*map(_ext.ptr, ops + (out,)), s2d.shape[0], C, Hd, float(eps),
+                    _dtype_code(s), plan.tokens_per_cta, plan.hidden_chunk,
+                    plan.smem_bytes, plan.grid, _ext.stream_ptr(s.device))
     return out.view(s.shape)
 
 

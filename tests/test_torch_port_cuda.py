@@ -9,7 +9,12 @@ also runs on a machine that has none:
 order), 2e-2 with bf16 operands; the attention (K4), the fused local
 attention and instance norm 2e-2 with bf16 I/O (one bf16 rounding of the
 output and of the twin's intermediates; K4 rounds the unnormalised
-probabilities where the twin rounds the normalised ones).
+probabilities where the twin rounds the normalised ones). K3's bf16
+tensor-core kernel: 2e-2 against the bf16 twin (which rounds x2 and every
+product's output), 4e-3 against ``mlla_tail_bf16_operands_plain``, which
+rounds where the kernel does: half a bf16 ulp of the output (<= 2^-9 of a
+value) plus the odd operand rounded the other way after sums in another
+order.
 """
 import numpy as np
 import pytest
@@ -22,7 +27,7 @@ from mlagg_unet_torch.ops.mlla_attn_fused import (
     local_attention_fused_plain,
 )
 from mlagg_unet_torch.ops.mlla_fused import (
-    mlla_front, mlla_front_plain, mlla_tail, mlla_tail_plain)
+    mlla_front, mlla_front_plain, mlla_tail, mlla_tail_bf16_operands_plain, mlla_tail_plain)
 from mlagg_unet_torch.ops.selective_scan import (
     selective_scan,
     selective_scan_bwd_plain,
@@ -146,13 +151,16 @@ def test_attention_autograd_on_card_matches_plain(cuda_device, dtype):
         _close(g_, r_, _attn_tol(dtype))
 
 
-def test_mlla_kernels_raise_under_grad(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlla_kernels_raise_under_grad(cuda_device, dtype):
+    """bf16: the tail's tensor-core kernel raises too (C = 32, its narrowest)."""
     C = 32
-    x = torch.zeros(4, C, device=cuda_device)
-    w = torch.zeros(C, C, device=cuda_device, requires_grad=True)
-    b = torch.zeros(C, device=cuda_device)
-    w1, b1 = torch.zeros(2 * C, C, device=cuda_device), torch.zeros(2 * C, device=cuda_device)
-    w2 = torch.zeros(C, 2 * C, device=cuda_device)
+    x = torch.zeros(4, C, device=cuda_device, dtype=dtype)
+    w = torch.zeros(C, C, device=cuda_device, dtype=dtype, requires_grad=True)
+    b = torch.zeros(C, device=cuda_device, dtype=dtype)
+    w1 = torch.zeros(2 * C, C, device=cuda_device, dtype=dtype)
+    b1 = torch.zeros(2 * C, device=cuda_device, dtype=dtype)
+    w2 = torch.zeros(C, 2 * C, device=cuda_device, dtype=dtype)
     with pytest.raises(RuntimeError, match="no backward"):
         mlla_front(x, b, b, w, b, w, b)
     with pytest.raises(RuntimeError, match="no backward"):
@@ -185,24 +193,35 @@ def test_train_step_on_card_matches_cpu(cuda_device):
         assert err <= 1e-3 * r_.abs().max().item() + 1e-6, k
 
 
-@pytest.mark.parametrize("C,tokens", [(96, 1000), (192, 257), (768, 33)])
-def test_mlla_kernels_match_plain(cuda_device, C, tokens):
+@pytest.mark.parametrize("dtype,C,tokens", [
+    (torch.float32, 96, 1000), (torch.float32, 192, 257), (torch.float32, 768, 33),
+    (torch.bfloat16, 96, 1000), (torch.bfloat16, 192, 257), (torch.bfloat16, 384, 33),
+    (torch.bfloat16, 768, 3584 + 5),
+    (torch.bfloat16, 32, 77), (torch.bfloat16, 736, 40)])  # narrower than their instantiations
+def test_mlla_kernels_match_plain(cuda_device, dtype, C, tokens):
     """Every stage width, token counts that are not a multiple of the CTA's
-    token tile."""
+    token tile. bf16: K3's tensor-core kernel against both twins, two runs
+    bit-equal."""
     def w(n_out, n_in, seed):  # (out, in), variance 1 / n_in
-        return _rand((n_out, n_in), cuda_device, torch.float32, seed, n_in ** -0.5)
+        return _rand((n_out, n_in), cuda_device, dtype, seed, n_in ** -0.5)
 
     def b(n, seed):
-        return _rand((n,), cuda_device, torch.float32, seed, 0.1)
+        return _rand((n,), cuda_device, dtype, seed, 0.1)
 
-    x, h, a = (_rand((tokens, C), cuda_device, torch.float32, i) for i in range(3))
+    x, h, a = (_rand((tokens, C), cuda_device, dtype, i) for i in range(3))
     lw, lb = 1 + b(C, 10), b(C, 11)
     fa = (x, lw, lb, w(C, C, 20), b(C, 12), w(C, C, 21), b(C, 13))
     ta = (h, a, x, w(C, C, 22), b(C, 14), lw, lb, w(2 * C, C, 23), b(2 * C, 15),
           w(C, 2 * C, 24), b(C, 16))
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
     for got, ref in zip(mlla_front(*fa), mlla_front_plain(*fa)):
-        _close(got, ref)
-    _close(mlla_tail(*ta), mlla_tail_plain(*ta))
+        _close(got, ref, rel)
+    got = mlla_tail(*ta)
+    assert got.dtype == dtype and got.shape == (tokens, C)
+    _close(got, mlla_tail_plain(*ta), rel)
+    if dtype == torch.bfloat16:
+        _close(got, mlla_tail_bf16_operands_plain(*ta), 4e-3)
+        assert torch.equal(got, mlla_tail(*ta))
 
 
 def _attn_tol(dtype):
@@ -270,6 +289,10 @@ def test_wrappers_raise_on_what_kernels_do_not_take(cuda_device):
     bias = torch.zeros(32, device=cuda_device)
     with pytest.raises(ValueError):  # mixed dtypes
         mlla_front(x, bias, bias, w, bias, w, bias.double())
+    z16 = lambda *shape: torch.zeros(*shape, device=cuda_device, dtype=torch.bfloat16)  # noqa: E731
+    with pytest.raises(ValueError):  # bf16 tail: Hd = 48 is not a multiple of 32
+        mlla_tail(z16(4, 8, 32), z16(4, 8, 32), z16(4, 8, 32), z16(32, 32), z16(32), z16(32),
+                  z16(32), z16(48, 32), z16(48), z16(32, 48), z16(32))
     u = torch.zeros(1, 1, 4, 10, device=cuda_device)
     with pytest.raises(ValueError):  # 8 states: the kernel takes 16
         selective_scan_fwd(u, u, torch.zeros(1, 4, 8, device=cuda_device),
