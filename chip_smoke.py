@@ -20,11 +20,11 @@ failure exits non-zero:
    both head-group views at the four stage shapes and at edge shapes (lq
    not a multiple of 64, lk > 64 with a ragged last key block, head dims 8
    to 128, b * h > 65535), its bf16 tensor-core kernel two runs bit-equal,
-   beside SDPA and a PyTorch copy of the same strided bytes. K3 (MLLA
-   block tail) in bf16, its tensor-core kernel, against the bf16 twin and
-   the twin that rounds where the kernel rounds, two runs bit-equal, timed
-   per stage beside cuBLAS doing its three products alone (K2 beside its
-   two). K6 (fused
+   beside SDPA and a PyTorch copy of the same strided bytes. K2 and K3
+   (MLLA block front and tail) in bf16, their tensor-core kernels, against
+   the bf16 twins and the twins that round where the kernels round, two
+   runs bit-equal, timed per stage beside cuBLAS doing their two or three
+   products alone. K6 (fused
    local attention) at the four stages' local halves; K7 and K8 (fused
    instance norm stats and apply) at the UNETR head's (16, 256, 224, 48) in
    modes 0, 1 and 2 with and without the activation, two runs bit-equal, and
@@ -39,8 +39,10 @@ failure exits non-zero:
    peak memory, in the default configuration (K1-K4 must each be launched,
    K6-K8 never) and then the fused one (K1-K4 and K6-K8 must each be); a
    profile of one volume in each: device time by kernel and each port
-   kernel's total, where K3 must be the tensor-core ``tail_mma_kernel`` 80
-   times (8 per forward, 10 forwards) and the scalar ``tail_kernel`` never;
+   kernel's total, where K2 and K3 must be the tensor-core
+   ``front_mma_kernel`` and ``tail_mma_kernel`` 80 times each (8 per
+   forward, 10 forwards) and the scalar ``front_kernel`` and ``tail_kernel``
+   never;
 6. train: the ``nnUNetTrainer_MLAgg_2D_dt_MS`` recipe on the full-width
    flagship. One fp32 batch (batch 1, drop path off) on the card against a
    CPU copy of the network: the loss and every parameter gradient. Then 2
@@ -100,6 +102,9 @@ TOL_BF16 = 2e-2    # bf16 I/O: one bf16 rounding of the output and of the
 TOL_K3_OPERANDS = 4e-3  # K3 bf16 against the twin rounding where it rounds: half
                         # a bf16 ulp of the output plus the odd operand rounded
                         # the other way after sums in another order
+TOL_K2_OPERANDS = 4e-3  # K2 bf16 against the twin rounding where it rounds: the
+                        # same (half an ulp of a or h, an element of y rounded
+                        # the other way after LN sums in another order)
 TOL_SCAN = 1e-4    # the scan's output is fp32 for either input type
 TOL_MODEL = 1e-3   # fp32 flagship card vs CPU: ~40 layers of re-ordered fp32
                    # sums, __expf in the scan, renormalised by LN/GroupNorm
@@ -118,7 +123,7 @@ TRAIN_KERNELS = ("selective_scan_fwd", "flash_attn_fwd", "selective_scan_bwd")
 NORM_KERNELS = ("instance_norm_stats", "instance_norm_apply")
 FUSED_KERNELS = ("local_attn_fused",) + NORM_KERNELS   # the fused config's alone
 PORT_KERNEL_NAMES = ("scan_fwd_kernel", "scan_bwd_kernel", "front_kernel",
-                     "tail_kernel", "tail_mma_kernel", "flash_fwd_mma_kernel",
+                     "front_mma_kernel", "tail_kernel", "tail_mma_kernel", "flash_fwd_mma_kernel",
                      "flash_fwd_fp32_kernel",
                      "local_attn_kernel",
                      "stats_partial_kernel", "stats_finalize_kernel", "apply_kernel")
@@ -216,8 +221,8 @@ def check(label, got, ref, tol) -> float:
 def phase_kernels(torch, report: Report) -> None:
     from mlagg_unet_torch.ops.flash_attention import attention_reference, flash_attention
     from mlagg_unet_torch.ops.mlla_fused import (
-        mlla_front, mlla_front_plain, mlla_tail, mlla_tail_bf16_operands_plain,
-        mlla_tail_plain)
+        mlla_front, mlla_front_bf16_operands_plain, mlla_front_plain, mlla_tail,
+        mlla_tail_bf16_operands_plain, mlla_tail_plain)
     from mlagg_unet_torch.ops.selective_scan import selective_scan_seq_ref
     from mlagg_unet_torch.ops.selective_scan_cuda import scan_fwd_plain, selective_scan_fwd
 
@@ -280,21 +285,26 @@ def phase_kernels(torch, report: Report) -> None:
             fa = (t["x"], t["lw"], t["lb"], t["wa"], t["ba"], t["wi"], t["bi"])
             ta = (t["h"], t["a"], t["s"], t["wo"], t["bo"], t["lw"], t["lb"],
                   t["w1"], t["b1"], t["w2"], t["b2"])
-            got, ref = mlla_front(*fa), mlla_front_plain(*fa)
-            e_f = max(check(f"K2 {tag} C={C} a", got[0], ref[0], tol),
-                      check(f"K2 {tag} C={C} h", got[1], ref[1], tol))
-            got = mlla_tail(*ta)
-            e_t = check(f"K3 {tag} C={C}", got, mlla_tail_plain(*ta), tol)
+            got_f, ref = mlla_front(*fa), mlla_front_plain(*fa)
+            e_f = max(check(f"K2 {tag} C={C} a", got_f[0], ref[0], tol),
+                      check(f"K2 {tag} C={C} h", got_f[1], ref[1], tol))
+            got_t = mlla_tail(*ta)
+            e_t = check(f"K3 {tag} C={C}", got_t, mlla_tail_plain(*ta), tol)
             if tag != "bf16":
                 continue
-            again = mlla_tail(*ta)
+            again_f, again_t = mlla_front(*fa), mlla_tail(*ta)
             torch.cuda.synchronize()
-            if not torch.equal(got, again):
+            if not all(torch.equal(g, a) for g, a in zip(got_f, again_f)):
+                fail(f"K2 bf16 C={C}: two runs differ")
+            if not torch.equal(got_t, again_t):
                 fail(f"K3 bf16 C={C}: two runs differ")
+            e_f = max(e_f, *(check(f"K2 bf16 C={C} {nm} vs the twin rounding where the kernel "
+                                   "does (bit-equal twice)", g, r, TOL_K2_OPERANDS)
+                             for nm, g, r in zip("ah", got_f, mlla_front_bf16_operands_plain(*fa))))
             e_t = max(e_t, check(f"K3 bf16 C={C} vs the twin rounding where the kernel does "
-                                 "(bit-equal twice)", got,
+                                 "(bit-equal twice)", got_t,
                                  mlla_tail_bf16_operands_plain(*ta), TOL_K3_OPERANDS))
-            del got, again
+            del got_f, got_t, again_f, again_t
             # the yardstick: cuBLAS doing the same products alone (no LN,
             # GELU, biases or residuals), on inputs of the same shapes
             lin = torch.nn.functional.linear
@@ -739,13 +749,16 @@ def phase_serve(torch, model, label, required, forbidden=()):
         if launches[name] != 0:
             fail(f"kernel {name} was launched on the {label} serving path")
     counts = profile(torch, f"one volume ({label})", lambda: pred(volumes[1]))  # returns on the host
-    # bf16 serving runs K3 as the tensor-core kernel, 8 per forward
+    # bf16 serving runs K2 and K3 as the tensor-core kernels, 8 each per forward
     want = DEPTH * len(STAGE_C) * FORWARDS_PER_VOLUME
-    if counts is None or counts["tail_mma_kernel"] != want or counts["tail_kernel"] != 0:
-        fail(f"{label} serve profile: K3 ran as tail_mma_kernel "
-             f"{counts and counts['tail_mma_kernel']} times (want {want}) and as the scalar "
-             f"tail_kernel {counts and counts['tail_kernel']} times (want 0)")
-    log(f"  profile: tail_mma_kernel x{want}, tail_kernel x0, as required")
+    for k, mma, scalar in (("K2", "front_mma_kernel", "front_kernel"),
+                           ("K3", "tail_mma_kernel", "tail_kernel")):
+        if counts is None or counts[mma] != want or counts[scalar] != 0:
+            fail(f"{label} serve profile: {k} ran as {mma} {counts and counts[mma]} times "
+                 f"(want {want}) and as the scalar {scalar} {counts and counts[scalar]} "
+                 "times (want 0)")
+    log(f"  profile: front_mma_kernel and tail_mma_kernel x{want}, front_kernel and "
+        "tail_kernel x0, as required")
     return launches, vps
 
 

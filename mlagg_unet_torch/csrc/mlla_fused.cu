@@ -14,19 +14,61 @@
 // 3.35 TB/s) both are bound by arithmetic; on bf16 tensor cores (295
 // FLOP/byte) by bytes at C <= 384 and by arithmetic at C = 768.
 //
-// Three kernels:
+// Four kernels:
 //
-// front_kernel and tail_kernel (fp32 arithmetic, either I/O type; K2 always,
-// K3 for fp32 I/O): one CTA of 256 threads per tile of T tokens keeps every
-// intermediate (LN output, x2, the MLP hidden z) in fp32 shared memory, so
-// device memory sees the inputs once and the outputs once, as in the Pallas
-// kernel. T is picked from C so that the tail's x2, LN output and z (4 C
-// floats per token) fit ~100 KB (T = 64 at C = 96, 8 at C = 768). The
-// products stream K-slices of the weight through shared memory and run as
-// fp32 FMA, each warp owning T/8 tokens and each lane two output columns 32
-// apart, so that activations are warp broadcasts and weight reads are
-// conflict-free. The tail keeps this kernel for fp32 I/O: bf16 tensor cores
-// would break its 1e-4 agreement with the fp32 twin.
+// front_kernel and tail_kernel (K2 and K3 for fp32 I/O, fp32 arithmetic): one
+// CTA of 256 threads per tile of T tokens keeps every intermediate (LN
+// output, x2, the MLP hidden z) in fp32 shared memory, so device memory sees
+// the inputs once and the outputs once, as in the Pallas kernel. T is picked
+// from C so that the tail's x2, LN output and z (4 C floats per token) fit
+// ~100 KB (T = 64 at C = 96, 8 at C = 768). The products stream K-slices of
+// the weight through shared memory and run as fp32 FMA, each warp owning T/8
+// tokens and each lane two output columns 32 apart, so that activations are
+// warp broadcasts and weight reads are conflict-free. fp32 I/O keeps these
+// kernels: bf16 tensor cores would break their 1e-4 agreement with the fp32
+// twins.
+//
+// front_mma_kernel (K2 for bf16 I/O). Its bytes, 6 C per token, bound it at
+// every flagship width but C = 768 (4 C^2 FLOPs a token: 8.5 GFLOP a launch
+// at every stage, 8.6 us at 989 TFLOP/s). As fp32 FMA it took 16x that
+// bound, staging each weight element as fp32 with a division per element
+// and two barriers per 64 x 32 slice. What the design does about the bound:
+// - Tensor cores: [Wa; Wi] is one product of width 2 C, on Hopper's wgmma
+//   (m64nNk16, bf16 operands read by the tensor cores straight from shared
+//   memory, fp32 accumulators), 64 tokens a tile. An mma.sync form with
+//   ldmatrix fragments, tried first, was bound by the fragment loads of its
+//   16 x 16 to 32 x 48 warp tiles; wgmma reads each operand once per step.
+//   Operands are in the core-matrix layout without swizzle (8 rows x 16
+//   bytes contiguous), which 16-byte cp.async fills directly. The two
+//   warpgroups take every other 8-column group of a pass, so that both share
+//   a's SiLU where a pass spans a and h.
+// - Rounding: x is read with 16-byte cp.async; the LN statistics and LN stay
+//   fp32 (each row's sums over 4 threads in a fixed order) and y is rounded
+//   to bf16 once, in place over x in shared memory, as the one A operand of
+//   both products. ops/mlla_fused.py::mlla_front_bf16_operands_plain rounds
+//   exactly there (y and the weights).
+// - Weights without a barrier in the K loop, in one of two modes. Up to
+//   C = 384 a CTA keeps a chunk of [Wa; Wi] resident (all 2 C rows up to
+//   C = 192: 37 KB at 96, 147 KB at 192; 128 rows up to 384) and, persistent,
+//   walks token tiles with the next tile's x in flight while the current one
+//   multiplies; the grid is (CTAs per chunk) x (chunks) filling the SMs, 2
+//   CTAs per SM up to C = 96. Where a chunk is not all of [Wa; Wi], the
+//   chunks of one tile run at about the same time and re-read x from L2. At
+//   C = 768 (3584 tokens, 2.4 MB of weights) that re-read and the LN redone
+//   per chunk cost more than the product, so there a CTA keeps one tile of x,
+//   LN'd once, and walks its share of 32-row weight chunks through two slots,
+//   the next chunk in flight; the grid is (tiles) x (groups of chunks). Both
+//   modes stream from L2 with 16-byte cp.async; development builds timed with
+//   phases cut out found those streams, not the products, setting the time
+//   at C >= 384 (TMA bulk copies are the lever left).
+// - Epilogue: bias, SiLU on a's columns, bf16 into a shared stage, then
+//   16-byte stores into a or h (an 8-column group lies wholly in one: C % 8
+//   == 0).
+// - Ragged token counts are masked (rows past M are zero-filled, not read,
+//   and not written), not padded. No atomics: two runs give the same bits.
+// The launch (mode, tokens per CTA, weight rows per chunk, shared memory,
+// grid) is planned by mlagg_unet_torch/ops/mlla_fused.py::front_launch_plan
+// and checked here against front_mma_shape / front_mma_smem_bytes.
 //
 // tail_mma_kernel (K3 for bf16 I/O). What the design does about the bound:
 // - Tensor cores: the three products run as mma.sync m16n8k16 with bf16
@@ -76,7 +118,9 @@ constexpr int BKS = 32;       // K slice of the weight staged per step
 constexpr int WLD = BKS + 1;  // padded weight row: conflict-free lanes
 constexpr int SMEM_BUDGET = 112 * 1024;
 
-__device__ __forceinline__ float silu_f(float a) { return a / (1.f + __expf(-a)); }
+// __fdividef: 2 ulp, where an IEEE division cost K2's bf16 epilogue more than
+// its products; 0 for a < -88 (exp overflows), as silu tends to there.
+__device__ __forceinline__ float silu_f(float a) { return __fdividef(a, 1.f + __expf(-a)); }
 
 __device__ __forceinline__ float gelu_f(float z) {
     return 0.5f * z * (1.f + erff(z * 0.70710678118654752f));
@@ -531,6 +575,309 @@ tail_mma_kernel(const bf16* __restrict__ h, const bf16* __restrict__ a,
     }
 }
 
+// ------------------------------------------------------------------ bf16 wgmma front
+
+constexpr int FRONT_TM = 64;  // tokens per tile: the M of a wgmma
+
+// The instantiations: for C up to W, a pass over output columns is 32 NW
+// wide (16 NW per warpgroup), weight rows come in chunks of R (0: all 2 C of
+// [Wa; Wi]), XRES picks the mode, PER_SM CTAs per SM.
+// - XRES 0, weights resident: a CTA holds its chunk of weight rows and walks
+//   token tiles, two x tiles in flight.
+// - XRES 1, x resident: a CTA holds one token tile, LN'd once, and walks its
+//   share of the weight chunks through two slots.
+// (mirrored by ops/mlla_fused.py::front_launch_plan)
+#define MLAGG_FRONT_SHAPES(X) \
+    X(96, 6, 0, 0, 2)         \
+    X(192, 6, 0, 0, 1)        \
+    X(384, 4, 128, 0, 1)      \
+    X(768, 1, 32, 1, 1)
+
+struct FrontShape {
+    int nw, rows, xres, per_sm;
+};
+
+// 0 where C is not taken: not a multiple of 32, or wider than the table.
+__host__ __device__ inline FrontShape front_mma_shape(int C) {
+    if (C < 32 || C % 32) return FrontShape{0, 0, 0, 0};
+#define X(W, NW, R, XRES, PER_SM) \
+    if (C <= W) return FrontShape{NW, R ? R : 2 * C, XRES, PER_SM};
+    MLAGG_FRONT_SHAPES(X)
+#undef X
+    return FrontShape{0, 0, 0, 0};
+}
+
+// Weight rows (one chunk of `rows`, two slots of it with xres) and x tiles
+// (two, one with xres) of 64 x C, both bf16 in wgmma's core-matrix layout |
+// the output stage (64 x (pass + 8) bf16, row-major), pass = min(32 nw, rows)
+// | LN scale and bias (2 C fp32). (mirrored by front_launch_plan)
+__host__ __device__ inline size_t front_mma_smem_bytes(int C, int rows, int nw, int xres) {
+    const int pass = 32 * nw < rows ? 32 * nw : rows;
+    return ((size_t)(1 + xres) * rows * C + (size_t)(2 - xres) * FRONT_TM * C +
+            (size_t)FRONT_TM * (pass + 8)) * 2 +
+           (size_t)2 * C * sizeof(float);
+}
+
+// Walks the 16-byte chunks (r, c) of a row-major tile with `cols` chunks per
+// row from this thread's first one, MMA_THREADS chunks a step, without
+// division in the loop.
+struct ChunkWalk {
+    int r, c, dr, dc, cols;
+    __device__ ChunkWalk(int cols_) : cols(cols_) {
+        r = threadIdx.x / cols, c = threadIdx.x - r * cols;
+        dr = MMA_THREADS / cols, dc = MMA_THREADS - dr * cols;
+    }
+    __device__ void next() {
+        r += dr, c += dc;
+        if (c >= cols) c -= cols, ++r;
+    }
+};
+
+// Copies rows [0, nrows) of a row-major bf16 matrix of `cchunks` 16-byte
+// chunks a row into the core-matrix layout: chunk c of row r goes to chunk
+// ((r / 8) cchunks + c) 8 + r % 8 of dst, so that 8 neighbouring threads fill
+// 128 contiguous bytes from 8 rows' 64-byte runs. row(r) gives row r's source
+// (nullptr: zero-fill, not read; `safe` stands in as the unread address).
+template <typename RowPtr>
+__device__ __forceinline__ void load_core_rows(bf16* dst, int nrows, int cchunks, RowPtr row,
+                                               const bf16* safe) {
+    const int ri = threadIdx.x & 7;
+    int g = (threadIdx.x >> 3) / cchunks, c = (threadIdx.x >> 3) - g * cchunks;
+    while (g * 8 < nrows) {
+        const bf16* src = row(g * 8 + ri);
+        cp_async16(smem_u32(dst + ((g * cchunks + c) * 8 + ri) * 8), src ? src + c * 8 : safe,
+                   src != nullptr);
+        for (c += MMA_THREADS / 8; c >= cchunks;) c -= cchunks, ++g;
+    }
+}
+
+// y = LN(x) over a 64-row tile in the core-matrix layout, in fp32, rounded
+// to bf16 once, in place. Warp w holds rows 8 w .. 8 w + 7 (lane & 7); lanes
+// 8 apart share a row and sum it in a fixed order. A thread's chunks stay in
+// registers between the two passes. Ends with the proxy fence that orders
+// the writes (and this thread's earlier cp.async copies) before wgmma.
+template <int W>
+__device__ __forceinline__ void front_ln(bf16* sA, const float* sG, int C, float eps) {
+    constexpr int XCH = (W / 8 + 3) / 4;  // a thread's chunks of its row, at most
+    static_assert(MMA_THREADS == 4 * FRONT_TM, "LN: 4 threads per token row");
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, cchunks = C / 8;
+    const int lr = warp * 8 + (lane & 7), q = lane >> 3;
+    bf16* xr = sA + (lr >> 3) * cchunks * 64 + (lr & 7) * 8;  // chunk c at xr + 64 c
+    uint4 xv[XCH];
+    float s = 0.f, ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < XCH; ++j) {
+        const int c = q + 4 * j;
+        if (c >= cchunks) break;
+        xv[j] = *reinterpret_cast<const uint4*>(xr + c * 64);
+        const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&xv[j]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const float2 f = __bfloat1622float2(p[e]);
+            s += f.x + f.y;
+            ss = fmaf(f.x, f.x, fmaf(f.y, f.y, ss));
+        }
+    }
+    s += __shfl_xor_sync(0xffffffffu, s, 8);
+    ss += __shfl_xor_sync(0xffffffffu, ss, 8);
+    s += __shfl_xor_sync(0xffffffffu, s, 16);
+    ss += __shfl_xor_sync(0xffffffffu, ss, 16);
+    const float mu = s / C;
+    const float rs = rsqrtf(fmaxf(ss / C - mu * mu, 0.f) + eps);  // flax clips at 0
+#pragma unroll
+    for (int j = 0; j < XCH; ++j) {
+        const int c = q + 4 * j;
+        if (c >= cchunks) break;
+        const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&xv[j]);
+        const float4* gv = reinterpret_cast<const float4*>(sG + c * 8);
+        const float4* bv = reinterpret_cast<const float4*>(sG + C + c * 8);
+        const float4 g0 = gv[0], g1 = gv[1], b0 = bv[0], b1 = bv[1];
+        const float gg[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+        const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+        uint4 y;
+        uint32_t* py = reinterpret_cast<uint32_t*>(&y);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const float2 f = __bfloat1622float2(p[e]);
+            py[e] = pack_bf16((f.x - mu) * rs * gg[2 * e] + bb[2 * e],
+                              (f.y - mu) * rs * gg[2 * e + 1] + bb[2 * e + 1]);
+        }
+        *reinterpret_cast<uint4*>(xr + c * 64) = y;
+    }
+    fence_proxy_async_smem();
+}
+
+// One pass: columns [o0, o0 + w) of [a | h] for the tile's 64 tokens (rows
+// past `rows` not written). Warpgroup wg takes every other 8-column group
+// (wg, wg + 2, ...), so that both share a's SiLU where a pass spans a and h:
+// one m64n(16 NW) wgmma chain of C / 16 steps over y (sA) and the pass's
+// weight rows (sB, every other 8-row group: twice the stride), or n16 chains
+// for a narrower pass; then bias, SiLU on a's columns, bf16 into sO, and
+// 16-byte stores. The caller has published y and the weight rows (proxy
+// fence, barrier); sO is free.
+template <int W, int NW>
+__device__ __forceinline__ void front_pass(const bf16* sA, const bf16* sB, bf16* sO, int w, int o0,
+                                           long long m0, int rows, int C,
+                                           const bf16* __restrict__ ba,
+                                           const bf16* __restrict__ bi, bf16* __restrict__ a_out,
+                                           bf16* __restrict__ h_out) {
+    constexpr int NT = 2 * NW;  // a warp's n8 tiles in a full pass
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, t4 = lane & 3, row0 = (warp & 3) * 16;
+    const int nw = w / 32, wg = warp >> 2, ldo = w + 8;
+    const uint32_t sbo = C * 16;  // bytes between 8-row groups
+    float acc[8 * NW];
+#pragma unroll
+    for (int e = 0; e < 8 * NW; ++e) acc[e] = 0.f;
+    wgmma_fence();
+    const uint64_t da = wgmma_desc(smem_u32(sA), sbo);
+    if (nw == NW) {  // one chain: A read once a k16 step
+        const uint64_t db = wgmma_desc(smem_u32(sB + 8 * wg * C), 2 * sbo);
+#pragma unroll
+        for (int k = 0; k < W / 16; ++k) {
+            if (16 * k >= C) break;
+            wgmma_64xn<16 * NW>(acc, da + 16 * k, db + 16 * k);  // +256 bytes a k16 step
+        }
+    } else {  // a narrower pass (C under the instantiation's widest)
+#pragma unroll
+        for (int j = 0; j < NW; ++j) {
+            if (j >= nw) continue;
+            const uint64_t db = wgmma_desc(smem_u32(sB + (32 * j + 8 * wg) * C), 2 * sbo);
+            float(&aj)[8] = *reinterpret_cast<float(*)[8]>(acc + 8 * j);
+#pragma unroll
+            for (int k = 0; k < W / 16; ++k) {
+                if (16 * k >= C) break;
+                wgmma_64xn<16>(aj, da + 16 * k, db + 16 * k);
+            }
+        }
+    }
+    wgmma_commit();
+    // the biases load while the products run
+    float2 bias[NT];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+        bias[n] = make_float2(0.f, 0.f);
+        if (n < 2 * nw) {
+            const int o = o0 + 16 * n + 8 * wg + 2 * t4;
+            const bf16* b = o < C ? ba + o : bi + (o - C);
+            bias[n] = make_float2(to_f32(b[0]), to_f32(b[1]));
+        }
+    }
+    wgmma_wait_all();
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+        if (n >= 2 * nw) continue;
+        const int lc = 16 * n + 8 * wg + 2 * t4;
+        const bool is_a = o0 + lc < C;  // an n8 tile lies in a or in h: C % 8 == 0
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+            float v0 = acc[4 * n + 2 * hf] + bias[n].x;
+            float v1 = acc[4 * n + 2 * hf + 1] + bias[n].y;
+            if (is_a) v0 = silu_f(v0), v1 = silu_f(v1);
+            *reinterpret_cast<uint32_t*>(sO + (row0 + hf * 8 + g) * ldo + lc) = pack_bf16(v0, v1);
+        }
+    }
+    __syncthreads();
+    for (ChunkWalk st(w / 8); st.r < rows; st.next()) {
+        const int o = o0 + st.c * 8;
+        bf16* dst = (o < C ? a_out + o : h_out + (o - C)) + (m0 + st.r) * C;
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(sO + st.r * ldo + st.c * 8);
+    }
+}
+
+template <int W, int NW, int XRES, int PER_SM>
+__global__ void __launch_bounds__(MMA_THREADS, PER_SM)
+front_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lw,
+                 const bf16* __restrict__ lb, const bf16* __restrict__ wa,
+                 const bf16* __restrict__ ba, const bf16* __restrict__ wi,
+                 const bf16* __restrict__ bi, bf16* __restrict__ a_out,
+                 bf16* __restrict__ h_out, long long M, int C, int R, float eps) {
+    constexpr int TM = FRONT_TM;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int pass = min(32 * NW, R);
+    bf16* sW = reinterpret_cast<bf16*>(smem_raw);  // weight rows: a chunk (XRES: two slots)
+    bf16* sX = sW + (1 + XRES) * R * C;            // x tiles (XRES: one), LN'd in place
+    bf16* sO = sX + (2 - XRES) * TM * C;           // one pass of the output, bf16
+    float* sG = reinterpret_cast<float*>(sO + TM * (pass + 8));  // LN scale, then bias
+    const int tid = threadIdx.x, cchunks = C / 8;
+    const int nch = (2 * C + R - 1) / R;  // weight chunks
+    const long long ntiles = (M + TM - 1) / TM;
+
+    // rows [r0, r0 + n) of [Wa; Wi] (row o is Wa[o] or Wi[o - C]) into dst
+    auto load_w = [&](int r0, int n, bf16* dst) {
+        load_core_rows(dst, n, cchunks, [&](int r) {
+            const int o = r0 + r;
+            return o < C ? wa + (size_t)o * C : wi + (size_t)(o - C) * C;
+        }, wa);
+        cp_async_commit();
+    };
+    // a tile of x; rows past M are zero-filled, not read
+    auto load_x = [&](long long t, bf16* dst) {
+        const long long m0 = t * TM;
+        const int rows = (int)min((long long)TM, M - m0);
+        load_core_rows(dst, TM, cchunks,
+                       [&](int r) { return r < rows ? x + (m0 + r) * C : (const bf16*)nullptr; },
+                       x);
+        cp_async_commit();
+    };
+    for (int c = tid; c < C; c += MMA_THREADS) sG[c] = to_f32(lw[c]), sG[C + c] = to_f32(lb[c]);
+
+    if (XRES) {
+        // ---- one token tile, the CTA's share [j0, j1) of the weight chunks
+        const int groups = (int)(gridDim.x / ntiles), span = (nch + groups - 1) / groups;
+        const long long t = blockIdx.x / groups;
+        const int j0 = (int)(blockIdx.x % groups) * span, j1 = min(j0 + span, nch);
+        const long long m0 = t * TM;
+        const int rows = (int)min((long long)TM, M - m0);
+        load_x(t, sX);
+        load_w(j0 * R, min(R, 2 * C - j0 * R), sW);
+        cp_async_wait<1>();
+        __syncthreads();
+        front_ln<W>(sX, sG, C, eps);
+        for (int j = j0; j < j1; ++j) {
+            // the next chunk lands while this one multiplies (its slot's
+            // wgmma reads ended before the last chunk's epilogue barrier)
+            if (j + 1 < j1)
+                load_w((j + 1) * R, min(R, 2 * C - (j + 1) * R), sW + ((j + 1 - j0) & 1) * R * C);
+            else
+                cp_async_commit();
+            cp_async_wait<1>();
+            fence_proxy_async_smem();
+            __syncthreads();  // also: the last pass's stores have read sO
+            front_pass<W, NW>(sX, sW + ((j - j0) & 1) * R * C, sO, min(R, 2 * C - j * R), j * R,
+                              m0, rows, C, ba, bi, a_out, h_out);
+        }
+    } else {
+        // ---- one chunk of weight rows, resident; the CTA walks token tiles
+        const int groups = gridDim.x / nch;
+        const int c0 = (blockIdx.x % nch) * R, cw = min(R, 2 * C - c0);  // columns [c0, c0 + cw)
+        load_w(c0, cw, sW);
+        long long t = blockIdx.x / nch;
+        if (t < ntiles) load_x(t, sX);
+        for (int buf = 0; t < ntiles; t += groups, buf ^= 1) {
+            bf16* sA = sX + buf * TM * C;
+            // the next tile's x lands while this one multiplies (the wgmma
+            // reads of its buffer ended before the last tile's epilogue)
+            if (t + groups < ntiles)
+                load_x(t + groups, sX + (buf ^ 1) * TM * C);
+            else
+                cp_async_commit();
+            cp_async_wait<1>();
+            __syncthreads();
+            front_ln<W>(sA, sG, C, eps);
+            __syncthreads();
+            const long long m0 = t * TM;
+            const int rows = (int)min((long long)TM, M - m0);
+            for (int p0 = 0; p0 < cw; p0 += pass) {
+                if (p0) __syncthreads();  // the last pass's stores have read sO
+                front_pass<W, NW>(sA, sW + p0 * C, sO, min(pass, cw - p0), c0 + p0, m0, rows, C,
+                                  ba, bi, a_out, h_out);
+            }
+        }
+    }
+    cp_async_wait<0>();
+}
+
 // Tokens per warp: the largest of 16, 8, 4, 2, 1 whose buffers fit the
 // budget; 0 when even one token per warp does not fit.
 int pick_tm(int floats_per_token) {
@@ -553,18 +900,32 @@ int launch_cfg(Kern kern, long long M, int tm, int floats_per_token,
     return 0;
 }
 
-template <typename T, int TM>
+template <int TM>
 int front_launch(const void* x, const void* lw, const void* lb, const void* wa,
                  const void* ba, const void* wi, const void* bi, void* a_out,
                  void* h_out, long long M, int C, float eps, cudaStream_t st) {
     dim3 grid;
     size_t bytes;
-    auto kern = front_kernel<T, TM>;
+    auto kern = front_kernel<float, TM>;
     const int e = launch_cfg(kern, M, TM, C, st, grid, bytes);
     if (e) return e;
     kern<<<grid, THREADS, bytes, st>>>(
-        (const T*)x, (const T*)lw, (const T*)lb, (const T*)wa, (const T*)ba,
-        (const T*)wi, (const T*)bi, (T*)a_out, (T*)h_out, M, C, eps);
+        (const float*)x, (const float*)lw, (const float*)lb, (const float*)wa, (const float*)ba,
+        (const float*)wi, (const float*)bi, (float*)a_out, (float*)h_out, M, C, eps);
+    return (int)cudaGetLastError();
+}
+
+template <int W, int NW, int XRES, int PER_SM>
+int front_mma_launch(const void* x, const void* lw, const void* lb, const void* wa,
+                     const void* ba, const void* wi, const void* bi, void* a_out, void* h_out,
+                     long long M, int C, int R, float eps, size_t bytes, long long grid,
+                     cudaStream_t st) {
+    auto kern = front_mma_kernel<W, NW, XRES, PER_SM>;
+    const int e = set_smem(kern, bytes);
+    if (e) return e;
+    kern<<<(unsigned)grid, MMA_THREADS, bytes, st>>>(
+        (const bf16*)x, (const bf16*)lw, (const bf16*)lb, (const bf16*)wa, (const bf16*)ba,
+        (const bf16*)wi, (const bf16*)bi, (bf16*)a_out, (bf16*)h_out, M, C, R, eps);
     return (int)cudaGetLastError();
 }
 
@@ -613,20 +974,55 @@ int tail_mma_launch(const void* h, const void* a, const void* s, const void* wo,
 }  // namespace
 
 // x: (M, C); ln weight/bias (C,); wa, wi: (C, C) as (out, in); ba, bi: (C,);
-// a_out, h_out: (M, C). All contiguous, all of one dtype.
+// a_out, h_out: (M, C). All contiguous, all of one dtype. The launch (tokens
+// per CTA, output columns per CTA, shared-memory bytes, grid) comes from
+// mlagg_unet_torch/ops/mlla_fused.py::front_launch_plan and is checked here:
+// bf16 launches front_mma_kernel (C a multiple of 32 up to 768, 16-byte
+// aligned token rows and weights; weights resident: a whole number of CTAs
+// per weight chunk, no more per chunk than token tiles; x resident: a whole
+// number of groups of chunks per tile, none empty), fp32 front_kernel
+// (col_chunk all 2 C columns, one CTA per token tile).
 extern "C" int mlagg_mlla_front(const void* x, const void* lw, const void* lb,
                                 const void* wa, const void* ba, const void* wi,
                                 const void* bi, void* a_out, void* h_out,
                                 long long M, int C, float eps, int dtype,
-                                void* stream) {
-    const int tm = pick_tm(C);
+                                int tokens_per_cta, int col_chunk, long long smem_bytes,
+                                long long grid, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (M < 1 || C < 1 || tokens_per_cta < 1 || col_chunk < 1 || grid < 1 || grid > 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
+    const long long tiles = (M + tokens_per_cta - 1) / tokens_per_cta;
     if (dtype == MLAGG_BF16) {
-#define CALL(TM) front_launch<__nv_bfloat16, TM>(x, lw, lb, wa, ba, wi, bi, a_out, h_out, M, C, eps, st)
-        MLAGG_DISPATCH_TM(tm, CALL)
-#undef CALL
+        const FrontShape sh = front_mma_shape(C);
+        if (!sh.nw || tokens_per_cta != FRONT_TM || col_chunk != sh.rows ||
+            smem_bytes != (long long)front_mma_smem_bytes(C, sh.rows, sh.nw, sh.xres))
+            return (int)cudaErrorInvalidValue;
+        const int nch = (2 * C + sh.rows - 1) / sh.rows;
+        if (sh.xres) {  // tiles x groups, every group a non-empty share of the chunks
+            const long long groups = grid / tiles, span = (nch + groups - 1) / groups;
+            if (grid % tiles || groups > nch || (groups - 1) * span >= nch)
+                return (int)cudaErrorInvalidValue;
+        } else if (grid % nch || grid / nch > tiles) {  // chunks x CTAs walking tiles
+            return (int)cudaErrorInvalidValue;
+        }
+        const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+        if (!aligned(x) || !aligned(wa) || !aligned(wi) || !aligned(a_out) || !aligned(h_out))
+            return (int)cudaErrorMisalignedAddress;
+#define X(W, NW, R, XRES, PER_SM)                                                               \
+    if (C <= W)                                                                                 \
+        return front_mma_launch<W, NW, XRES, PER_SM>(x, lw, lb, wa, ba, wi, bi, a_out, h_out, M, \
+                                                     C, sh.rows, eps, (size_t)smem_bytes, grid, \
+                                                     st);
+        MLAGG_FRONT_SHAPES(X)
+#undef X
+        return (int)cudaErrorInvalidValue;
     }
-#define CALL(TM) front_launch<float, TM>(x, lw, lb, wa, ba, wi, bi, a_out, h_out, M, C, eps, st)
+    const int tm = pick_tm(C);
+    const size_t bytes = ((size_t)WARPS * tm * C + BO * WLD) * sizeof(float);
+    if (dtype != MLAGG_F32 || tokens_per_cta != WARPS * tm || col_chunk != 2 * C ||
+        smem_bytes != (long long)bytes || grid != tiles)
+        return (int)cudaErrorInvalidValue;
+#define CALL(TM) front_launch<TM>(x, lw, lb, wa, ba, wi, bi, a_out, h_out, M, C, eps, st)
     MLAGG_DISPATCH_TM(tm, CALL)
 #undef CALL
 }

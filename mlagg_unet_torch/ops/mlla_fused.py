@@ -17,13 +17,17 @@ requires it the wrappers raise rather than drop the gradient.
 ``MLLABlock`` takes them in ``eval()`` when ``fused_tail_enabled`` (the JAX
 package's switch ``MLAGG_FUSED_TAIL``, on unless it is "0").
 
-K2 computes in fp32 FMA for either I/O type. K3 is two kernels, picked by
-``tail_launch_plan`` from the type: fp32 I/O launches the scalar
-``tail_kernel`` (fp32 arithmetic, as K2), bf16 I/O ``tail_mma_kernel``
-(tensor-core ``mma.sync`` with bf16 operands and fp32 accumulators, weights
-streamed through a ``cp.async`` ring, the MLP hidden in chunks).
-``mlla_tail_bf16_operands_plain`` rounds to bf16 exactly where that kernel
-does.
+K2 and K3 are two kernels each, picked by ``front_launch_plan`` and
+``tail_launch_plan`` from the type. fp32 I/O launches the scalar
+``front_kernel`` and ``tail_kernel`` (fp32 arithmetic). bf16 I/O launches
+the tensor-core kernels (bf16 operands, fp32 accumulators):
+``front_mma_kernel`` (both products as one of width 2 C on Hopper's
+``wgmma``, operands read from shared memory; persistent CTAs keep a chunk
+of the weights and walk token tiles, or at C = 768 keep a token tile and
+walk the weights) and ``tail_mma_kernel`` (``mma.sync``, weights streamed
+through a ``cp.async`` ring, the MLP hidden in chunks).
+``mlla_front_bf16_operands_plain`` and ``mlla_tail_bf16_operands_plain``
+round to bf16 exactly where those kernels do.
 """
 from __future__ import annotations
 
@@ -38,7 +42,8 @@ from mlagg_unet_torch.ops import _ext
 
 _LIB = _ext.KernelLib("mlla_fused.cu", {
     "mlagg_mlla_front": [_ext.VP] * 9 + [_ext.I64, _ext.I32, _ext.F32_ARG,
-                                         _ext.I32, _ext.VP],
+                                         _ext.I32, _ext.I32, _ext.I32, _ext.I64,
+                                         _ext.I64, _ext.VP],
     "mlagg_mlla_tail": [_ext.VP] * 12 + [_ext.I64, _ext.I32, _ext.I32, _ext.F32_ARG,
                                          _ext.I32, _ext.I32, _ext.I32, _ext.I64,
                                          _ext.I64, _ext.VP],
@@ -58,6 +63,19 @@ def fused_tail_enabled(flag: Optional[bool] = None) -> bool:
 def mlla_front_plain(x, ln_w, ln_b, wa, ba, wi, bi, eps: float = 1e-6):
     y = layer_norm(x, ln_w, ln_b, eps)
     return F.silu(F.linear(y, wa, ba)), F.linear(y, wi, bi)
+
+
+def mlla_front_bf16_operands_plain(x, ln_w, ln_b, wa, ba, wi, bi, eps: float = 1e-6):
+    """The front in fp32, rounded to bf16 exactly where ``front_mma_kernel``
+    rounds: y = LN(x), the A operand of both products, and the weights, their
+    B operands (no-ops for bf16 weights). The LN statistics, the biases and
+    SiLU stay fp32. Returns fp32 (a, h): the kernel's final rounding to bf16
+    is its own."""
+    def r(t):
+        return t.float().to(torch.bfloat16).float()
+
+    y = r(layer_norm(x.float(), ln_w.float(), ln_b.float(), eps))
+    return F.silu(F.linear(y, r(wa)) + ba.float()), F.linear(y, r(wi)) + bi.float()
 
 
 def mlla_tail_plain(h, a, s, wo, bo, ln_w, ln_b, w1, b1, w2, b2,
@@ -83,12 +101,31 @@ def mlla_tail_bf16_operands_plain(h, a, s, wo, bo, ln_w, ln_b, w1, b1, w2, b2,
     return x2 + F.linear(r(z), r(w2)) + b2.float()
 
 
-# mirrors pick_tm in the CUDA source: one token per warp (8 per CTA) of fp32
-# buffers plus the staged weight slice must fit 112 KB of shared memory
+# mirrors pick_tm in the CUDA source: the scalar kernels' fp32 buffers of
+# 8 tokens per warp step plus the staged weight slice must fit 112 KB
 _SMEM_BUDGET = 112 * 1024
 _WSLICE_FLOATS = 64 * 33
-_SMEM_FLOATS = _SMEM_BUDGET // 4 - _WSLICE_FLOATS
 _MAX_GRID = 2 ** 31 - 1
+
+
+def _scalar_tokens(name, per_token):
+    """Tokens per CTA of the scalar kernels: the most (8 per warp step, up to
+    128) whose ``per_token`` fp32 values fit the shared-memory budget."""
+    tm = next((8 * t for t in (16, 8, 4, 2, 1)
+               if (8 * t * per_token + _WSLICE_FLOATS) * 4 <= _SMEM_BUDGET), 0)
+    if not tm:
+        raise ValueError(f"{name}: {per_token} fp32 values per token "
+                         "do not fit the kernel's shared memory")
+    return tm
+
+
+class FrontPlan(NamedTuple):
+    kernel: str           # "front_mma_kernel" (bf16) or "front_kernel" (fp32)
+    tokens_per_cta: int
+    col_chunk: int        # columns of [a | h] a CTA computes: its resident weight rows
+    smem_bytes: int       # dynamic shared memory of one CTA
+    grid: int             # CTAs
+    waves: int            # the most token tiles one CTA (or SM slot) works through
 
 
 class TailPlan(NamedTuple):
@@ -114,11 +151,74 @@ def _check_operands(name, tensors, ref):
             raise ValueError(f"{name}: operands must be contiguous")
 
 
-def _check(name, tensors, floats_per_token, ref):
-    _check_operands(name, tensors, ref)
-    if 8 * floats_per_token > _SMEM_FLOATS:
-        raise ValueError(f"{name}: {floats_per_token} fp32 values per token "
-                         "do not fit the kernel's shared memory")
+# front_mma_kernel's instantiations: for C up to the first number, the width
+# of a pass over output columns in units of 32 (16 per warpgroup), weight rows
+# per chunk (0: all 2 C), the mode (0: a CTA keeps its weight chunk and walks
+# token tiles; 1: a CTA keeps one token tile and walks weight chunks), CTAs
+# per SM (mirrors MLAGG_FRONT_SHAPES in csrc/mlla_fused.cu)
+_FRONT_SHAPES = ((96, 6, 0, 0, 2), (192, 6, 0, 0, 1), (384, 4, 128, 0, 1), (768, 1, 32, 1, 1))
+_FRONT_TM = 64  # tokens per tile: the M of a wgmma
+
+
+def front_launch_plan(M: int, C: int, dtype, num_sms: int, operands=()) -> FrontPlan:
+    """K2's kernel and launch for M tokens of width C, I/O type ``dtype``;
+    raises on what the kernels do not take, including, for the given
+    ``operands`` (x, ln_w, ln_b, wa, ba, wi, bi), a grad request, mixed
+    dtypes or devices, and non-contiguous or (bf16) not 16-byte aligned
+    tensors. Works on tensors of any device (the CPU tests call it); the C
+    launcher ``mlagg_mlla_front`` in ``csrc/mlla_fused.cu`` checks the same
+    numbers.
+
+    bf16 launches ``front_mma_kernel``, which takes C a multiple of 32 from
+    32 to 768: every MLLA width of the repo (C = 96 * 2^i up to 768). Token
+    tiles are 64 tokens; [Wa; Wi] comes in chunks of ``col_chunk`` rows. Up
+    to C = 192 a CTA keeps all 2 C rows in shared memory (two CTAs per SM up
+    to C = 96), up to 384 128 rows, and walks token tiles, the grid the
+    chunks times as many CTAs per chunk as the SMs hold (at most one per
+    tile). Above, a CTA keeps one token tile, LN'd once, and walks its share
+    of the 32-row chunks through two slots: the grid is the tiles times as
+    many groups of chunks as the SMs leave room for (at least one).
+    ``waves`` is the most tiles one CTA, or one SM's CTA slot, works
+    through. fp32 launches the scalar
+    ``front_kernel``, one CTA per tile of the most tokens whose C fp32
+    values fit 112 KB; its ``col_chunk`` is all 2 C.
+    """
+    name = "mlla_front"
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: dtype {dtype} not supported")
+    if operands:
+        _check_operands(name, operands, operands[0])
+        if operands[0].dtype != dtype:
+            raise ValueError(f"{name}: operands are {operands[0].dtype}, plan is for {dtype}")
+    if M < 0 or C < 1:
+        raise ValueError(f"{name}: M={M}, C={C}")
+    if dtype == torch.bfloat16:
+        shape = next((r for r in _FRONT_SHAPES if C <= r[0]), None)
+        if C % 32 or shape is None:
+            raise ValueError(f"{name}: the bf16 kernel takes C a multiple of 32 up to 768, "
+                             f"got C={C}")
+        for i, t in enumerate(operands):
+            if i in (0, 3, 5) and t.data_ptr() % 16:
+                raise ValueError(f"{name}: the bf16 kernel's token rows and weights "
+                                 "must start 16-byte aligned")
+        _, nw, rows, xres, per_sm = shape
+        tm, rows = _FRONT_TM, rows or 2 * C
+        smem = (2 * ((1 + xres) * rows * C + (2 - xres) * tm * C + tm * (min(32 * nw, rows) + 8))
+                + 8 * C)
+        chunks, tiles, slots = -(-2 * C // rows), -(-M // tm), per_sm * num_sms
+        if xres:  # tiles x groups of chunks, as many groups as the SMs leave room for
+            span = -(-chunks // min(max(slots // max(tiles, 1), 1), chunks))
+            grid = tiles * -(-chunks // span)
+            return FrontPlan("front_mma_kernel", tm, rows, smem, grid, -(-grid // slots))
+        per_chunk = min(max(slots // chunks, 1), tiles)
+        return FrontPlan("front_mma_kernel", tm, rows, smem, per_chunk * chunks,
+                         -(-tiles // per_chunk) if per_chunk else 0)
+    tm = _scalar_tokens(name, C)
+    grid = -(-M // tm)
+    if grid > _MAX_GRID:
+        raise ValueError(f"{name}: {grid} CTAs exceed the grid's {_MAX_GRID}")
+    return FrontPlan("front_kernel", tm, 2 * C, (tm * C + _WSLICE_FLOATS) * 4, grid,
+                     -(-grid // num_sms))
 
 
 # tail_mma_kernel's instantiations: for C up to the first number, m16 tiles
@@ -171,11 +271,7 @@ def tail_launch_plan(M: int, C: int, Hd: int, dtype, num_sms: int,
         kernel, per_sm = "tail_mma_kernel", 2 if mt * (widest // 32 + nz) <= 20 else 1
     else:
         per_token = 2 * C + Hd
-        tm = next((8 * t for t in (16, 8, 4, 2, 1)
-                   if (8 * t * per_token + _WSLICE_FLOATS) * 4 <= _SMEM_BUDGET), 0)
-        if not tm:
-            raise ValueError(f"{name}: {per_token} fp32 values per token "
-                             "do not fit the kernel's shared memory")
+        tm = _scalar_tokens(name, per_token)
         hc, smem = Hd, (tm * per_token + _WSLICE_FLOATS) * 4
         kernel, per_sm = "tail_kernel", 1
     grid = -(-M // tm)
@@ -194,12 +290,16 @@ def mlla_front(x, ln_w, ln_b, wa, ba, wi, bi, eps: float = 1e-6
     if wa.shape != (C, C) or wi.shape != (C, C):
         raise ValueError(f"mlla_front: weights {tuple(wa.shape)}, "
                          f"{tuple(wi.shape)} != {(C, C)}")
-    _check("mlla_front", (x2d, ln_w, ln_b, wa, ba, wi, bi), C, x)
+    ops = (x2d, ln_w, ln_b, wa, ba, wi, bi)
+    plan = front_launch_plan(x2d.shape[0], C, x.dtype,
+                             torch.cuda.get_device_properties(x.device).multi_processor_count,
+                             ops)
     a = torch.empty_like(x2d)
     h = torch.empty_like(x2d)
-    FRONT.launch(*map(_ext.ptr, (x2d, ln_w, ln_b, wa, ba, wi, bi, a, h)),
-                 x2d.shape[0], C, float(eps), _dtype_code(x),
-                 _ext.stream_ptr(x.device))
+    if plan.grid:
+        FRONT.launch(*map(_ext.ptr, ops + (a, h)), x2d.shape[0], C, float(eps),
+                     _dtype_code(x), plan.tokens_per_cta, plan.col_chunk,
+                     plan.smem_bytes, plan.grid, _ext.stream_ptr(x.device))
     return a.view(x.shape), h.view(x.shape)
 
 

@@ -9,11 +9,12 @@ also runs on a machine that has none:
 order), 2e-2 with bf16 operands; the attention (K4), the fused local
 attention and instance norm 2e-2 with bf16 I/O (one bf16 rounding of the
 output and of the twin's intermediates; K4 rounds the unnormalised
-probabilities where the twin rounds the normalised ones). K3's bf16
-tensor-core kernel: 2e-2 against the bf16 twin (which rounds x2 and every
-product's output), 4e-3 against ``mlla_tail_bf16_operands_plain``, which
-rounds where the kernel does: half a bf16 ulp of the output (<= 2^-9 of a
-value) plus the odd operand rounded the other way after sums in another
+probabilities where the twin rounds the normalised ones). K2's and K3's
+bf16 tensor-core kernels: 2e-2 against the bf16 twins (which round LN's
+output, K3's x2 and every product's output), 4e-3 against
+``mlla_front_bf16_operands_plain`` and ``mlla_tail_bf16_operands_plain``,
+which round where the kernels do: half a bf16 ulp of the output (<= 2^-9 of
+a value) plus the odd operand rounded the other way after sums in another
 order.
 """
 import numpy as np
@@ -27,7 +28,13 @@ from mlagg_unet_torch.ops.mlla_attn_fused import (
     local_attention_fused_plain,
 )
 from mlagg_unet_torch.ops.mlla_fused import (
-    mlla_front, mlla_front_plain, mlla_tail, mlla_tail_bf16_operands_plain, mlla_tail_plain)
+    mlla_front,
+    mlla_front_bf16_operands_plain,
+    mlla_front_plain,
+    mlla_tail,
+    mlla_tail_bf16_operands_plain,
+    mlla_tail_plain,
+)
 from mlagg_unet_torch.ops.selective_scan import (
     selective_scan,
     selective_scan_bwd_plain,
@@ -153,7 +160,8 @@ def test_attention_autograd_on_card_matches_plain(cuda_device, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mlla_kernels_raise_under_grad(cuda_device, dtype):
-    """bf16: the tail's tensor-core kernel raises too (C = 32, its narrowest)."""
+    """bf16: the front's and the tail's tensor-core kernels raise too (C = 32,
+    their narrowest)."""
     C = 32
     x = torch.zeros(4, C, device=cuda_device, dtype=dtype)
     w = torch.zeros(C, C, device=cuda_device, dtype=dtype, requires_grad=True)
@@ -224,6 +232,35 @@ def test_mlla_kernels_match_plain(cuda_device, dtype, C, tokens):
         assert torch.equal(got, mlla_tail(*ta))
 
 
+@pytest.mark.parametrize("C,tokens", [
+    (32, 77), (64, 1), (96, 1000),
+    (96, 64 * 264 + 5),   # more tiles than CTAs: each walks two or three
+    (128, 300),           # 2 C = 256: passes of 192 and 64 columns
+    (160, 129), (192, 257),
+    (192, 57344),         # the flagship's stage 1 at model batch 16
+    (224, 500),           # 2 C = 448: a last column chunk of 64 rows
+    (384, 33), (384, 14336 + 7), (416, 100), (736, 40), (768, 3589)])
+def test_front_mma_kernel_matches_both_twins(cuda_device, C, tokens):
+    """K2 in bf16 (``front_mma_kernel``) at C = 32-768 with ragged token
+    counts: within 2e-2 of the bf16 twin, 4e-3 of the twin that rounds where
+    the kernel rounds, and two runs bit-equal."""
+    def w(seed):  # (out, in), variance 1 / C
+        return _rand((C, C), cuda_device, torch.bfloat16, seed, C ** -0.5)
+
+    def b(seed):
+        return _rand((C,), cuda_device, torch.bfloat16, seed, 0.1)
+
+    x = _rand((tokens, C), cuda_device, torch.bfloat16, 0, 2.0) + 0.5
+    fa = (x, 1 + b(10), b(11), w(20), b(12), w(21), b(13))
+    got = mlla_front(*fa)
+    for g, r, r_ops in zip(got, mlla_front_plain(*fa), mlla_front_bf16_operands_plain(*fa)):
+        assert g.dtype == torch.bfloat16 and g.shape == (tokens, C)
+        _close(g, r, 2e-2)
+        _close(g, r_ops, 4e-3)
+    for g, again in zip(got, mlla_front(*fa)):
+        assert torch.equal(g, again)
+
+
 def _attn_tol(dtype):
     return 1e-4 if dtype == torch.float32 else 2e-2
 
@@ -290,6 +327,8 @@ def test_wrappers_raise_on_what_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError):  # mixed dtypes
         mlla_front(x, bias, bias, w, bias, w, bias.double())
     z16 = lambda *shape: torch.zeros(*shape, device=cuda_device, dtype=torch.bfloat16)  # noqa: E731
+    with pytest.raises(ValueError):  # bf16 front: C = 48 is not a multiple of 32
+        mlla_front(z16(4, 8, 48), z16(48), z16(48), z16(48, 48), z16(48), z16(48, 48), z16(48))
     with pytest.raises(ValueError):  # bf16 tail: Hd = 48 is not a multiple of 32
         mlla_tail(z16(4, 8, 32), z16(4, 8, 32), z16(4, 8, 32), z16(32, 32), z16(32), z16(32),
                   z16(32), z16(48, 32), z16(48), z16(32, 48), z16(32))
