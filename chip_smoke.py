@@ -24,8 +24,10 @@ failure exits non-zero:
    (MLLA block front and tail) in bf16, their tensor-core kernels, against
    the bf16 twins and the twins that round where the kernels round, two
    runs bit-equal, timed per stage beside cuBLAS doing their two or three
-   products alone. K6 (fused
-   local attention) at the four stages' local halves; K7 and K8 (fused
+   products alone. K6 (fused local attention) at the four stages' local
+   halves, its bf16 tensor-core kernel against the twin, two runs
+   bit-equal, timed per stage beside cuBLAS doing its three projections
+   alone; K7 and K8 (fused
    instance norm stats and apply) at the UNETR head's (16, 256, 224, 48) in
    modes 0, 1 and 2 with and without the activation, two runs bit-equal, and
    autograd through them against autograd through the plain twin;
@@ -42,7 +44,12 @@ failure exits non-zero:
    kernel's total, where K2 and K3 must be the tensor-core
    ``front_mma_kernel`` and ``tail_mma_kernel`` 80 times each (8 per
    forward, 10 forwards) and the scalar ``front_kernel`` and ``tail_kernel``
-   never;
+   never; K6 in the fused serve the tensor-core ``local_attn_mma_kernel``
+   80 times and the scalar ``local_attn_kernel`` never, neither in the
+   default one. The trace of a volume must hold as many K2, K3 and K6
+   launches as their wrappers counted in it (exactly 80, 80 and 80 or 0): a
+   trace that holds fewer lost device records in torch.profiler and is
+   taken again, up to three times;
 6. train: the ``nnUNetTrainer_MLAgg_2D_dt_MS`` recipe on the full-width
    flagship. One fp32 batch (batch 1, drop path off) on the card against a
    CPU copy of the network: the loss and every parameter gradient. Then 2
@@ -61,8 +68,9 @@ Kernel times in the JSON line are per flagship forward at model batch 16,
 the sum over the launches one forward makes (K1 2, K2 8, K3 8, K4 16, K6 8,
 K7 6, K8 4), and for K5 per training step at batch 10 (2 launches, one per
 scan direction). ``library_ms`` is SDPA for K4, six ``F.instance_norm``
-calls for K7 + K8, and for K2 and K3 "GEMMs alone": cuBLAS doing the
-kernel's two or three products in bf16 with no LN, GELU or residuals. A
+calls for K7 + K8, and for K2, K3 and K6 "GEMMs alone": cuBLAS doing the
+kernel's two or three products in bf16 with no LN, GELU, residuals or
+window (K6: ``F.linear`` for q and for k, v). A
 kernel's ``launches`` is its count in the serve run that runs it (K1-K4 the
 default one, K6-K8 the fused one), K5's in the default timed train run.
 """
@@ -105,6 +113,10 @@ TOL_K3_OPERANDS = 4e-3  # K3 bf16 against the twin rounding where it rounds: hal
 TOL_K2_OPERANDS = 4e-3  # K2 bf16 against the twin rounding where it rounds: the
                         # same (half an ulp of a or h, an element of y rounded
                         # the other way after LN sums in another order)
+TOL_K6_TWIN = 1e-2  # K6 bf16 against its twin, which rounds where it rounds
+                    # (k, v, the output): one bf16 ulp of the output's largest
+                    # element (<= 2^-7 of it), flipped by fp32 sums in another
+                    # order, as are some roundings of k and v
 TOL_SCAN = 1e-4    # the scan's output is fp32 for either input type
 TOL_MODEL = 1e-3   # fp32 flagship card vs CPU: ~40 layers of re-ordered fp32
                    # sums, __expf in the scan, renormalised by LN/GroupNorm
@@ -125,7 +137,7 @@ FUSED_KERNELS = ("local_attn_fused",) + NORM_KERNELS   # the fused config's alon
 PORT_KERNEL_NAMES = ("scan_fwd_kernel", "scan_bwd_kernel", "front_kernel",
                      "front_mma_kernel", "tail_kernel", "tail_mma_kernel", "flash_fwd_mma_kernel",
                      "flash_fwd_fp32_kernel",
-                     "local_attn_kernel",
+                     "local_attn_kernel", "local_attn_mma_kernel",
                      "stats_partial_kernel", "stats_finalize_kernel", "apply_kernel")
 DEFAULT = dict(fused_local_attn=False, fused_instance_norm=False, fused_tail=True)
 FUSED = dict(fused_local_attn=True, fused_instance_norm=True, fused_tail=True)
@@ -138,6 +150,14 @@ LOCAL_SHAPES = ((128, 112, 48, 1), (64, 56, 96, 2), (32, 28, 192, 4), (16, 14, 3
 NORM_C = 48                              # the UNETR head's width (embed 96 / 2)
 NORM_STATS, NORM_APPLY = 6, (2, 2)       # per forward: K7 launches; K8 mode 0, mode 2
 FORWARDS_PER_VOLUME = 10                 # 10 slices x 4 tiles x 4 mirrors / model batch 16
+# the serve profile's kernels by wrapper: each call launches one of its two
+# kernels (tensor-core, scalar), so a complete trace of a volume holds as
+# many of them as the wrapper counted launches
+PROFILED = {"mlla_front": ("front_mma_kernel", "front_kernel"),
+            "mlla_tail": ("tail_mma_kernel", "tail_kernel"),
+            "local_attn_fused": ("local_attn_mma_kernel", "local_attn_kernel")}
+PROFILE_TRIES = 3  # torch.profiler can drop device records: a trace that
+                   # holds fewer launches than the wrappers counted is taken again
 
 
 def fail(msg: str) -> None:
@@ -492,6 +512,7 @@ def phase_fused_kernels(torch, report: Report) -> None:
 
     # ---- K6 fused local attention: the local half of each block, 2 per stage
     lam = torch.tensor(0.37, device=dev)
+    lin = torch.nn.functional.linear
     for H, W, ch, nh in LOCAL_SHAPES:
         hd = ch // nh // 2
         log(f"[kernels] K6 local_attn_fused ({BM}, {H}, {W}, {ch}) nh={nh}")
@@ -502,13 +523,25 @@ def phase_fused_kernels(torch, report: Report) -> None:
         for dtype, tag, tol in ((torch.float32, "fp32", TOL_FP32),
                                 (torch.bfloat16, "bf16", TOL_BF16)):
             args = (*(T(a, dtype) for a in raw), lam, nh)
-            err = check(f"K6 {tag} ch={ch}", local_aggregated_attention_fused(*args),
-                        local_attention_fused_plain(*args), tol)
+            got = local_aggregated_attention_fused(*args)
+            ref = local_attention_fused_plain(*args)
+            err = check(f"K6 {tag} ch={ch}", got, ref, tol)
             if tag != "bf16":
                 continue
+            again = local_aggregated_attention_fused(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"K6 bf16 ch={ch}: two runs differ")
+            err = max(err, check(f"K6 bf16 ch={ch} vs the twin, which rounds where the kernel "
+                                 "does (bit-equal twice)", got, ref, TOL_K6_TWIN))
+            del got, again, ref
+            x, wq, bq, wkv, bkv = args[:5]
             ms = time_ms(lambda: local_aggregated_attention_fused(*args))
             pms = time_ms(lambda: local_attention_fused_plain(*args), reps=5, warmup=1)
-            log(f"  K6 bf16 ch={ch}: {ms:.3f} ms, plain {pms:.3f} ms (x{DEPTH} per forward)")
+            # the yardstick: cuBLAS doing the three projections alone
+            gms = time_ms(lambda: (lin(x, wq, bq), lin(x, wkv, bkv)))
+            log(f"  K6 bf16 ch={ch}: {ms:.4f} ms, plain {pms:.3f} ms, GEMMs alone {gms:.4f} ms "
+                f"(x{DEPTH} per forward)")
             tok = BM * H * W
             # x read once, the output written once, the weights read once
             nbytes = (2 * tok * ch + 3 * ch * ch + 14 * ch + 2 * hd) * 2
@@ -518,7 +551,7 @@ def phase_fused_kernels(torch, report: Report) -> None:
             report.add("local_attn_fused", "mlagg_unet_torch/csrc/mlla_local_attn.cu",
                        "mlagg_unet_tpu/ops/mlla_attn_fused.py:46",
                        max_abs_err=err, ms=DEPTH * ms, plain_ms=DEPTH * pms,
-                       bytes=DEPTH * nbytes, flops=DEPTH * flops)
+                       library_ms=DEPTH * gms, bytes=DEPTH * nbytes, flops=DEPTH * flops)
         del args
 
     # ---- K7 / K8 fused instance norm at the UNETR head: (16, 256, 224, 48)
@@ -669,8 +702,9 @@ def phase_model_fused(torch, model):
 def is_port_kernel(key: str, name: str) -> bool:
     """Whether a profiler key is the port's kernel ``name``: every port
     kernel is in an anonymous namespace (a bare substring also matches
-    PyTorch's own kernels, e.g. ``apply_kernel``)."""
-    return re.match(rf"void \(anonymous namespace\)::{name}[<(]", key) is not None
+    PyTorch's own kernels, e.g. ``apply_kernel``). A template kernel's key
+    starts with its return type, ``void``; a plain function's has none."""
+    return re.match(rf"(void )?\(anonymous namespace\)::{name}[<(]", key) is not None
 
 
 def profile(torch, label, fn) -> dict:
@@ -748,17 +782,45 @@ def phase_serve(torch, model, label, required, forbidden=()):
     for name in forbidden:
         if launches[name] != 0:
             fail(f"kernel {name} was launched on the {label} serving path")
-    counts = profile(torch, f"one volume ({label})", lambda: pred(volumes[1]))  # returns on the host
     # bf16 serving runs K2 and K3 as the tensor-core kernels, 8 each per forward
     want = DEPTH * len(STAGE_C) * FORWARDS_PER_VOLUME
+    fused = "local_attn_fused" in required
+    for attempt in range(1, PROFILE_TRIES + 1):
+        _ext.reset_launch_counts()
+        counts = profile(torch, f"one volume ({label})", lambda: pred(volumes[1]))  # returns on the host
+        if counts is None:
+            fail(f"{label} serve profile: no device time recorded")
+        wrapped = {k.name: k.launches for k in _ext.ALL_KERNELS}
+        short = {w: wrapped[w] - sum(counts[n] for n in names) for w, names in PROFILED.items()}
+        if any(v < 0 for v in short.values()):
+            fail(f"{label} serve profile: the trace holds more launches than the wrappers "
+                 f"made ({short})")
+        if not any(short.values()):
+            break
+        log(f"  trace {attempt} of {PROFILE_TRIES} lost device records: it is short of "
+            f"the wrappers' launches by {short}; tracing the volume again")
+    else:
+        fail(f"{label} serve profile: no complete trace in {PROFILE_TRIES} tries")
+    for name, n in (("mlla_front", want), ("mlla_tail", want),
+                    ("local_attn_fused", want if fused else 0)):
+        if wrapped[name] != n:
+            fail(f"{label} serve profile: {name} launched {wrapped[name]} times in one "
+                 f"volume (want {n})")
     for k, mma, scalar in (("K2", "front_mma_kernel", "front_kernel"),
                            ("K3", "tail_mma_kernel", "tail_kernel")):
-        if counts is None or counts[mma] != want or counts[scalar] != 0:
-            fail(f"{label} serve profile: {k} ran as {mma} {counts and counts[mma]} times "
-                 f"(want {want}) and as the scalar {scalar} {counts and counts[scalar]} "
+        if counts[mma] != want or counts[scalar] != 0:
+            fail(f"{label} serve profile: {k} ran as {mma} {counts[mma]} times "
+                 f"(want {want}) and as the scalar {scalar} {counts[scalar]} "
                  "times (want 0)")
+    # K6 runs only in the fused configuration, as the tensor-core kernel
+    k6 = {"local_attn_mma_kernel": want if fused else 0, "local_attn_kernel": 0}
+    if any(counts[k] != n for k, n in k6.items()):
+        fail(f"{label} serve profile: K6 ran as local_attn_mma_kernel "
+             f"{counts['local_attn_mma_kernel']} times and as the scalar local_attn_kernel "
+             f"{counts['local_attn_kernel']} times (want {k6})")
     log(f"  profile: front_mma_kernel and tail_mma_kernel x{want}, front_kernel and "
-        "tail_kernel x0, as required")
+        f"tail_kernel x0, local_attn_mma_kernel x{k6['local_attn_mma_kernel']}, "
+        "local_attn_kernel x0, as required")
     return launches, vps
 
 

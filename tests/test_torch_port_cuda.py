@@ -9,7 +9,10 @@ also runs on a machine that has none:
 order), 2e-2 with bf16 operands; the attention (K4), the fused local
 attention and instance norm 2e-2 with bf16 I/O (one bf16 rounding of the
 output and of the twin's intermediates; K4 rounds the unnormalised
-probabilities where the twin rounds the normalised ones). K2's and K3's
+probabilities where the twin rounds the normalised ones). K6's bf16
+tensor-core kernel rounds only where its twin rounds (k, v and the output):
+1e-2, one bf16 ulp of the output's largest element (<= 2^-7 of it) flipped
+by fp32 sums in another order. K2's and K3's
 bf16 tensor-core kernels: 2e-2 against the bf16 twins (which round LN's
 output, K3's x2 and every product's output), 4e-3 against
 ``mlla_front_bf16_operands_plain`` and ``mlla_tail_bf16_operands_plain``,
@@ -390,6 +393,58 @@ def test_local_attn_kernel_takes_a_channel_slice(cuda_device):
     assert not half.is_contiguous()
     _close(local_aggregated_attention_fused(half, *params, lam, nh),
            local_attention_fused_plain(x, *params, lam, nh))
+
+
+@pytest.mark.parametrize("B,H,W,ch,nh", [
+    (2, 13, 11, 48, 1),     # an odd map inside one tile
+    (16, 128, 112, 48, 1),  # the four stages at model batch 16
+    (16, 64, 56, 96, 2),
+    (16, 32, 28, 192, 4),
+    (16, 16, 14, 384, 8),
+    (1, 17, 15, 48, 1),     # two row tiles, the last of one row
+    (3, 9, 29, 96, 2),      # two column tiles, the last of one column
+    (3, 17, 31, 96, 2),     # 2 x 2 ragged tiles
+    (2, 33, 7, 192, 4),     # three row tiles
+    (2, 19, 23, 384, 8),    # two row tiles at the widest stage
+    (2, 33, 57, 384, 8),    # 16 x 14 tiles: 16 x 28 ones leave too little shared memory
+    (1, 1, 9, 96, 2),       # one row
+    (2, 5, 1, 192, 4),      # one column
+    (1, 1, 1, 384, 8),      # one token: every neighbour outside the map
+])
+def test_local_attn_mma_kernel_matches_twin(cuda_device, B, H, W, ch, nh):
+    """K6 in bf16 (``local_attn_mma_kernel``) at every stage width with odd
+    and ragged maps: within 1e-2 of the plain twin, which rounds where the
+    kernel rounds (k and v, the output), and two runs bit-equal."""
+    x, params, lam, nh = _local_args(cuda_device, torch.bfloat16, B, H, W, ch, nh)
+    got = local_aggregated_attention_fused(x, *params, lam, nh)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    _close(got, local_attention_fused_plain(x, *params, lam, nh), 1e-2)
+    assert torch.equal(got, local_aggregated_attention_fused(x, *params, lam, nh))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_local_attn_kernels_take_a_channel_slice_bit_equal(cuda_device, dtype):
+    """Both halves of a (B, H, W, 2 ch) map, read in place (tokens 2 ch
+    apart), give the bits of their contiguous copies."""
+    x, params, lam, nh = _local_args(cuda_device, dtype, 2, 19, 17, 192, 4)
+    wide = torch.cat([x, _rand(x.shape, cuda_device, dtype, 9)], dim=-1)
+    for half in (wide[..., :192], wide[..., 192:]):
+        assert not half.is_contiguous()
+        got = local_aggregated_attention_fused(half, *params, lam, nh)
+        assert torch.equal(got, local_aggregated_attention_fused(half.contiguous(), *params,
+                                                                 lam, nh))
+
+
+def test_local_attn_mma_kernel_raises_under_grad_and_on_unaligned_tokens(cuda_device):
+    x, params, lam, nh = _local_args(cuda_device, torch.bfloat16, 1, 4, 4, 96, 2)
+    params[2].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        local_aggregated_attention_fused(x, *params, lam, nh)
+    with torch.no_grad():
+        local_aggregated_attention_fused(x, *params, lam, nh)
+        odd = torch.zeros(1, 4, 4, 100, device=cuda_device, dtype=torch.bfloat16)[..., :96]
+        with pytest.raises(ValueError, match="16-byte"):  # tokens 200 bytes apart
+            local_aggregated_attention_fused(odd, *params, lam, nh)
 
 
 def test_local_attn_kernel_raises_under_grad(cuda_device):
