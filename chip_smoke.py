@@ -15,9 +15,12 @@ failure exits non-zero:
    training batch 10), fp32 and bf16 I/O, with the tolerances stated below,
    and timed with CUDA events (median of 20). K1 with its tile-entry states
    must give a y bit-equal to K1 without them and states equal to the plain
-   scan's; K5 (scan backward) is also held against autograd through the
-   step-by-step scan at b = 2, L = 1024. K4 (pooled-branch attention) on
-   both head-group views at the four stage shapes and at edge shapes (lq
+   scan's; K5 (scan backward: three kernels per call) two runs bit-equal,
+   each of its kernels timed (torch.profiler) beside a model estimate of
+   the bytes it requests, and held against autograd through the
+   step-by-step scan and against the twin that splits the work over tiles
+   as K5 does at b = 2, L = 1024. K4 (pooled-branch attention) on both
+   head-group views at the four stage shapes and at edge shapes (lq
    not a multiple of 64, lk > 64 with a ragged last key block, head dims 8
    to 128, b * h > 65535), its bf16 tensor-core kernel two runs bit-equal,
    beside SDPA and a PyTorch copy of the same strided bytes. K2 and K3
@@ -57,7 +60,10 @@ failure exits non-zero:
    path on, on one seeded synthetic batch whose label is a fixed function of
    the image: ms per step, images/s, peak memory, the first and last loss
    (the last must be lower), a profile of one step, and one validation
-   step. K1, K4 and K5 must each be launched in the timed steps, no other.
+   step, whose trace must hold each of K5's three kernels twice (one call
+   per scan direction) (a trace short of them is taken again, up to three
+   times). K1, K4 and K5 must
+   each be launched in the timed steps, no other.
    Then the same with ``fused_instance_norm`` on, its fp32 batch held
    against the default network on the card: K1, K4, K5, K7 and K8 must
    each be launched, K2, K3 and K6 never;
@@ -67,7 +73,12 @@ failure exits non-zero:
 Kernel times in the JSON line are per flagship forward at model batch 16,
 the sum over the launches one forward makes (K1 2, K2 8, K3 8, K4 16, K6 8,
 K7 6, K8 4), and for K5 per training step at batch 10 (2 launches, one per
-scan direction). ``library_ms`` is SDPA for K4, six ``F.instance_norm``
+scan direction). ``bound_ms`` is the larger of the bytes over 3.35 TB/s
+and the operations: the FLOPs over the peak rate of their type and, for K1
+and K5, one exp per (row, d, n, step), split between the SFU (16 per SM per
+clock at ``nvidia-smi``'s maximum SM clock) and an 8-instruction polynomial
+on the FP32 pipe beside the kernel's own fp32 FLOPs, so that both finish
+together. ``library_ms`` is SDPA for K4, six ``F.instance_norm``
 calls for K7 + K8, and for K2, K3 and K6 "GEMMs alone": cuBLAS doing the
 kernel's two or three products in bf16 with no LN, GELU, residuals or
 window (K6: ``F.linear`` for q and for k, v). A
@@ -91,6 +102,10 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # dense bf16 tensor core; fp32 FMA
+SFU_PER_SM_PER_CLOCK = 16   # exp2 (MUFU.EX2) results per SM per clock, sm_90
+# an exp2 on the FP32 pipe instead, at fp32 accuracy: range reduction (2),
+# a degree-5 polynomial (5 FMA) and the exponent's insertion (1)
+POLY_EXP_FP32_OPS = 8
 
 BM = 16                                  # model batch: 4 tiles x 4 mirrors
 TILE = (256, 224)
@@ -134,7 +149,9 @@ SERVE_KERNELS = ("selective_scan_fwd", "mlla_front", "mlla_tail", "flash_attn_fw
 TRAIN_KERNELS = ("selective_scan_fwd", "flash_attn_fwd", "selective_scan_bwd")
 NORM_KERNELS = ("instance_norm_stats", "instance_norm_apply")
 FUSED_KERNELS = ("local_attn_fused",) + NORM_KERNELS   # the fused config's alone
-PORT_KERNEL_NAMES = ("scan_fwd_kernel", "scan_bwd_kernel", "front_kernel",
+K5_KERNELS = ("scan_bwd_group_kernel", "scan_bwd_carry_kernel", "scan_bwd_tile_kernel")
+K5_FIRST_MS = 17.717   # K5 bf16 per train step before its redesign (PERF.md, H100 80GB HBM3, 700 W)
+PORT_KERNEL_NAMES = ("scan_fwd_kernel", *K5_KERNELS, "front_kernel",
                      "front_mma_kernel", "tail_kernel", "tail_mma_kernel", "flash_fwd_mma_kernel",
                      "flash_fwd_fp32_kernel",
                      "local_attn_kernel", "local_attn_mma_kernel",
@@ -196,23 +213,47 @@ def rel_err(got, ref) -> tuple:
     return d, d / max(ref.float().abs().max().item(), 1e-30)
 
 
-def bound_ms(nbytes: float, flops: float, kind: str) -> tuple:
+def bound_ms(nbytes: float, flops: float, kind: str, exps: float, exp_per_s: float) -> tuple:
+    """The least time for the work: bytes over the memory rate, or the
+    operations: FLOPs over the peak rate of their type, with the exps split
+    between the SFU and a polynomial on the FP32 pipe so that both end
+    together (the pipe also runs the fp32 FLOPs)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    t_ops = flops / PEAK_FLOPS[kind]
+    if exps:
+        own = flops / PEAK_FLOPS["fp32"] if kind == "fp32" else 0.0
+        per_exp = POLY_EXP_FP32_OPS / (PEAK_FLOPS["fp32"] / 2)   # FMA = 2 FLOPs
+        t_ops = max(t_ops, (own + exps * per_exp) / (1 + exp_per_s * per_exp))
+    t_ops *= 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sfu_exp_per_s(torch) -> float:
+    """The card's exp rate: 16 per SM per clock at the maximum SM clock that
+    ``nvidia-smi`` reports."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60).stdout.split()
+    if not out:
+        fail("nvidia-smi gave no clocks.max.sm")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = SFU_PER_SM_PER_CLOCK * sms * float(out[0]) * 1e6
+    log(f"[device] {sms} SMs, max SM clock {out[0]} MHz: {rate:.4g} exp/s")
+    return rate
 
 
 class Report:
     """Per-kernel numbers of one run, summed per flagship forward."""
 
-    def __init__(self):
+    def __init__(self, exp_per_s: float):
         self.rows = {}
+        self.exp_per_s = exp_per_s
 
     def add(self, name, source, replaces, kind="bf16", **vals):
         row = self.rows.setdefault(name, dict(
             name=name, route="cuda", source=source, replaces=replaces, kind=kind,
             launches=0, max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-            bytes=0.0, flops=0.0, library_ms=None))
+            bytes=0.0, flops=0.0, exps=0.0, library_ms=None))
         for k, v in vals.items():
             if k == "max_abs_err":
                 row[k] = max(row[k], v)
@@ -224,7 +265,8 @@ class Report:
     def finish(self, launches):
         out = []
         for row in self.rows.values():
-            t, by = bound_ms(row.pop("bytes"), row.pop("flops"), row.pop("kind"))
+            t, by = bound_ms(row.pop("bytes"), row.pop("flops"), row.pop("kind"),
+                             row.pop("exps"), self.exp_per_s)
             row.update(bound_ms=t, bound_by=by, launches=launches[row["name"]])
             out.append(row)
         return out
@@ -273,12 +315,13 @@ def phase_kernels(torch, report: Report) -> None:
                 el = b * g * d * L
                 nbytes = 2 * el * 2 + 2 * b * g * n * L * 2 + el * 4
                 flops = el * (6 * n + 7)
+                exps = el * n   # a_t = exp(delta_t A) per (row, d, n, t)
                 log(f"  K1 bf16 reverse={rev}: {ms:.3f} ms, plain {pms:.3f} ms")
                 # elementwise recurrence: no tensor-core form, fp32 rate
                 report.add("selective_scan_fwd", "mlagg_unet_torch/csrc/selective_scan_fwd.cu",
                            "mlagg_unet_tpu/ops/selective_scan_pallas.py:172", kind="fp32",
                            max_abs_err=err, ms=ms, plain_ms=pms,
-                           bytes=nbytes, flops=flops)
+                           bytes=nbytes, flops=flops, exps=exps)
     short = [t[:2, ..., :1024].contiguous() for t in full]
     for rev in (False, True):
         args = (*short[:2], A, *short[2:], Dp, bias, True, rev)
@@ -420,9 +463,11 @@ def phase_scan_train(torch, report: Report) -> None:
     """K1 with states and K5 at the training shapes: batch 10, both scan
     directions, fp32 and bf16 operands, fp32 gy."""
     from mlagg_unet_torch.ops.selective_scan import (
-        selective_scan_bwd_plain, selective_scan_seq_ref, selective_scan_states)
+        selective_scan_bwd_plain, selective_scan_bwd_tiled_plain, selective_scan_seq_ref,
+        selective_scan_states)
     from mlagg_unet_torch.ops.selective_scan_cuda import (
-        STATE_EVERY, selective_scan_bwd, selective_scan_fwd, selective_scan_fwd_states)
+        STATE_EVERY, scan_bwd_launch_plan, selective_scan_bwd, selective_scan_fwd,
+        selective_scan_fwd_states)
 
     dev = torch.device("cuda")
     rs = np.random.RandomState(1)
@@ -433,6 +478,10 @@ def phase_scan_train(torch, report: Report) -> None:
     names = ("du", "ddelta", "dA", "dB", "dC", "dD", "dbias")
     b, g, d, n, L = TRAIN_BATCH, 2, SCAN_D, SCAN_N, SCAN_L
     log(f"[kernels] K1 with states and K5 selective_scan_bwd at ({b}, {g}, {d}, {L})")
+    props = torch.cuda.get_device_properties(dev)
+    plan = scan_bwd_launch_plan(b, g, d, L, torch.bfloat16, props.multi_processor_count,
+                                props.shared_memory_per_block_optin)
+    log(f"  K5 plan (bf16): {plan}")
     A = T(-np.tile(np.arange(1, n + 1, dtype=np.float32), (g, d, 1)))
     dt0 = np.exp(rs.rand(g, d) * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
     bias = T(dt0 + np.log(-np.expm1(-dt0)))
@@ -440,6 +489,7 @@ def phase_scan_train(torch, report: Report) -> None:
     full = [T(rs.randn(b, g, d, L) * s) for s in (1.0, 0.5)] + \
            [T(rs.randn(b, g, n, L)) for _ in range(2)]
     gy = T(rs.randn(b, g, d, L))
+    k5_ms = 0.0
     for dtype, tag, tol in ((torch.float32, "fp32", TOL_SCAN_GRAD),
                             (torch.bfloat16, "bf16", TOL_SCAN_GRAD_BF16)):
         u, dl, Bm, Cm = (t.to(dtype) for t in full)
@@ -455,8 +505,13 @@ def phase_scan_train(torch, report: Report) -> None:
                   states, selective_scan_states(u, dl, A, Bm, Cm, bias, True,
                                                 STATE_EVERY, rev), TOL_SCAN)
             got = selective_scan_bwd(*args, gy, states)
+            again = selective_scan_bwd(*args, gy, states)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, a) for x, a in zip(got, again)):
+                fail(f"K5 {tag} reverse={rev}: two runs differ")
+            del again
             ref = selective_scan_bwd_plain(*args, gy)
-            err = max(check(f"K5 {tag} reverse={rev} {nm}", g_, r_, tol)
+            err = max(check(f"K5 {tag} reverse={rev} {nm} (bit-equal twice)", g_, r_, tol)
                       for nm, g_, r_ in zip(names, got, ref))
             del got, ref
             if tag != "bf16":
@@ -465,23 +520,50 @@ def phase_scan_train(torch, report: Report) -> None:
             pms = time_ms(lambda: selective_scan_bwd_plain(*args, gy), reps=3, warmup=1)
             k1s = time_ms(lambda: selective_scan_fwd_states(*args))
             k1 = time_ms(lambda: selective_scan_fwd(*args))
-            log(f"  K5 bf16 reverse={rev}: {ms:.3f} ms, plain {pms:.3f} ms; "
-                f"K1 at this batch {k1:.3f} ms, with states {k1s:.3f} ms")
+            counts, times = profile(
+                torch, f"5 K5 calls (bf16 reverse={rev})",
+                lambda: ([selective_scan_bwd(*args, gy, states) for _ in range(5)],
+                         torch.cuda.synchronize()))
+            per = {k: times[k] / counts[k] if counts and counts[k] else None
+                   for k in K5_KERNELS}
+            k5_ms += ms
+            log(f"  K5 bf16 reverse={rev}: {ms:.4f} ms, plain {pms:.3f} ms; per kernel "
+                + ", ".join(f"{k} {'not measured' if v is None else f'{v:.4f} ms'}"
+                            for k, v in per.items())
+                + f"; K1 at this batch {k1:.3f} ms, with states {k1s:.3f} ms")
             el, bc = b * g * d * L, b * g * n * L
             n_tiles = math.ceil(L / STATE_EVERY)
             # each input read once (u, delta, B, C in bf16, gy and the states
             # in fp32, the per-channel parameters), each output written once
             nbytes = (2 * el * 2 + 2 * bc * 2 + el * 4 + b * g * n_tiles * d * n * 4
                       + 2 * (g * d * n + 2 * g * d) * 4 + 2 * el * 2 + 2 * bc * 2)
+            # a model of what the kernels request besides, not a measurement:
+            # phase 1 reads delta, gy and (per chunk of 32 channels) C again;
+            # the fp32 carry, product and dA partials (S bytes each) are
+            # written and read once, the carry and dA once more per further
+            # tile of a group; dD and dbias partials. The scratch may stay in
+            # L2, so this is what the kernels ask of L2 and HBM, at most.
+            scratch = b * g * plan.groups * d * n * 4
+            asked = (nbytes + el * (2 + 4) + bc * 2 * math.ceil(d / 32)
+                     + scratch * (8 + 4 * (plan.tiles_per_cta - 1))
+                     + 4 * b * g * plan.groups * d * 4)
+            log(f"  K5 bf16 reverse={rev}: model estimate (not measured) of the bytes "
+                f"requested: {asked / 1e6:.1f} MB, the function's {nbytes / 1e6:.1f} and "
+                f"{(asked - nbytes) / 1e6:.1f} more (phase 1's second read of delta, gy "
+                f"and C; {scratch / 1e6:.1f} MB of fp32 scratch per array, and partials)")
             # ~15 fp32 operations per (row, channel, state, step) for the h
-            # recompute, the adjoint and the contractions; ~10 per channel step
-            flops = 15 * el * n + 10 * el
+            # recompute, the adjoint and the contractions; ~10 per channel
+            # step; at least one exp per (row, channel, state, step)
             report.add("selective_scan_bwd", "mlagg_unet_torch/csrc/selective_scan_bwd.cu",
                        "mlagg_unet_tpu/ops/selective_scan_pallas.py:274", kind="fp32",
-                       max_abs_err=err, ms=ms, plain_ms=pms, bytes=nbytes, flops=flops)
+                       max_abs_err=err, ms=ms, plain_ms=pms, bytes=nbytes,
+                       flops=15 * el * n + 10 * el, exps=el * n)
+    log(f"  K5 bf16: {k5_ms:.4f} ms per train step (2 launches; {K5_FIRST_MS} ms before "
+        "its redesign, H100 80GB HBM3 at 700 W)")
     del full, gy
 
-    # K5 against autograd through the step-by-step scan (ground truth)
+    # K5 against autograd through the step-by-step scan (ground truth) and
+    # against the twin that splits the work over tiles as K5 does
     short = [T(rs.randn(2, g, d, 1024) * s) for s in (1.0, 0.5)] + \
             [T(rs.randn(2, g, n, 1024)) for _ in range(2)]
     gs = T(rs.randn(2, g, d, 1024))
@@ -489,11 +571,15 @@ def phase_scan_train(torch, report: Report) -> None:
         leaves = [t.clone().requires_grad_() for t in (*short[:2], A, *short[2:], Dp, bias)]
         y = selective_scan_seq_ref(*leaves, delta_softplus=True, reverse=rev)
         ref = torch.autograd.grad(y, leaves, gs)
-        _, states = selective_scan_fwd_states(*short[:2], A, *short[2:], Dp, bias, True, rev)
-        got = selective_scan_bwd(*short[:2], A, *short[2:], Dp, bias, True, rev, gs, states)
-        for nm, g_, r_ in zip(names, got, ref):
+        ops = (*short[:2], A, *short[2:], Dp, bias, True, rev)
+        _, states = selective_scan_fwd_states(*ops)
+        got = selective_scan_bwd(*ops, gs, states)
+        tiled = selective_scan_bwd_tiled_plain(*ops, gs)
+        for nm, g_, r_, t_ in zip(names, got, ref, tiled):
             check(f"K5 fp32 reverse={rev} {nm} vs autograd of the step scan (L=1024)",
                   g_, r_, TOL_SCAN_GRAD)
+            check(f"K5 fp32 reverse={rev} {nm} vs the tiled twin (L=1024)", g_, t_,
+                  TOL_SCAN_GRAD)
 
 
 def phase_fused_kernels(torch, report: Report) -> None:
@@ -707,12 +793,12 @@ def is_port_kernel(key: str, name: str) -> bool:
     return re.match(rf"(void )?\(anonymous namespace\)::{name}[<(]", key) is not None
 
 
-def profile(torch, label, fn) -> dict:
+def profile(torch, label, fn) -> tuple:
     """Device time by kernel over one call of ``fn`` (which ends in a sync),
     the port's kernels against the rest, and the device's busy share of the
     wall time (torch.profiler, whose own host overhead is in the wall time).
-    Returns each port kernel's launch count in the trace (None: no device
-    time recorded)."""
+    Returns two dicts, each port kernel's launch count and device ms in the
+    trace ((None, None): no device time recorded)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as trace
 
@@ -725,7 +811,7 @@ def profile(torch, label, fn) -> dict:
            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not dev:
         log("  profile: no device time recorded (not measured)")
-        return None
+        return None, None
     busy_ms = sum(t for _, t, _ in dev)
     ours = sum(t for k, t, _ in dev if any(is_port_kernel(k, n) for n in PORT_KERNEL_NAMES))
     log(f"  profile of {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
@@ -733,13 +819,13 @@ def profile(torch, label, fn) -> dict:
         f"port kernels {ours:.1f} ms ({100 * ours / busy_ms:.1f}% of busy)")
     for key, t, count in sorted(dev, key=lambda r: -r[1])[:15]:
         log(f"    {t:9.2f} ms {100 * t / busy_ms:5.1f}% x{count:<5d} {key[:100]}")
-    counts = {}
+    counts, times = {}, {}
     for name in PORT_KERNEL_NAMES:   # each port kernel, all its instantiations
         t, count = (sum(r[i] for r in dev if is_port_kernel(r[0], name)) for i in (1, 2))
-        counts[name] = count
+        counts[name], times[name] = count, t
         if count:
             log(f"    port {name}: {t:.2f} ms ({100 * t / busy_ms:.1f}% of busy) x{count}")
-    return counts
+    return counts, times
 
 
 def phase_serve(torch, model, label, required, forbidden=()):
@@ -787,7 +873,7 @@ def phase_serve(torch, model, label, required, forbidden=()):
     fused = "local_attn_fused" in required
     for attempt in range(1, PROFILE_TRIES + 1):
         _ext.reset_launch_counts()
-        counts = profile(torch, f"one volume ({label})", lambda: pred(volumes[1]))  # returns on the host
+        counts, _ = profile(torch, f"one volume ({label})", lambda: pred(volumes[1]))  # returns on the host
         if counts is None:
             fail(f"{label} serve profile: no device time recorded")
         wrapped = {k.name: k.launches for k in _ext.ALL_KERNELS}
@@ -925,8 +1011,29 @@ def phase_train(torch, fused_in: bool = False):
     for k in set(launches) - set(required):
         if launches[k] != 0:
             fail(f"kernel {k} (no backward) was launched on the {label} training path")
-    profile(torch, f"one train step ({label})",
-            lambda: (tr.train_step(x, y), torch.cuda.synchronize()))
+    # a step runs K5 once per scan direction, each call its three kernels; a
+    # trace that holds fewer of them than the wrapper counted lost device
+    # records in torch.profiler and is taken again
+    for attempt in range(1, PROFILE_TRIES + 1):
+        _ext.reset_launch_counts()
+        counts, _ = profile(torch, f"one train step ({label})",
+                         lambda: (tr.train_step(x, y), torch.cuda.synchronize()))
+        if counts is None:
+            fail(f"{label} train profile: no device time recorded")
+        calls = next(k.launches for k in _ext.ALL_KERNELS if k.name == "selective_scan_bwd")
+        short = {k: calls - counts[k] for k in K5_KERNELS}
+        if any(v < 0 for v in short.values()):
+            fail(f"{label} train profile: the trace holds more K5 launches than the "
+                 f"wrapper made ({short})")
+        if not any(short.values()):
+            break
+        log(f"  trace {attempt} of {PROFILE_TRIES} lost device records: it is short of "
+            f"the wrapper's K5 launches by {short}; tracing the step again")
+    else:
+        fail(f"{label} train profile: no complete trace in {PROFILE_TRIES} tries")
+    if calls != 2:
+        fail(f"{label} train profile: K5 called {calls} times in one step (want 2)")
+    log(f"  profile: {', '.join(K5_KERNELS)} x2 each per step, as required")
     loss, tp, fp, fn = tr.val_step(x, y)
     dice = (2 * tp / (2 * tp + fp + fn).clamp(min=1)).tolist()
     log(f"  validation step: loss {loss.item():.5f}, pseudo dice per class "
@@ -964,7 +1071,7 @@ def main() -> None:
     def done(phase):
         log(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s")
 
-    report = Report()
+    report = Report(sfu_exp_per_s(torch))
     phase_kernels(torch, report)
     phase_scan_train(torch, report)
     phase_fused_kernels(torch, report)

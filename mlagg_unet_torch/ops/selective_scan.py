@@ -25,10 +25,15 @@ recomputed per chunk from the chunk's saved start state, as the Pallas
 backward does (``selective_scan_pallas.py:30-36``). It builds no autograd
 graph, so its memory is a few chunk-sized tensors at any length. It is the
 plain twin of the CUDA backward kernel and the CPU backward.
+``selective_scan_bwd_tiled_plain`` computes the same gradients decomposed as
+the CUDA backward decomposes them (a pass per tile with zero carry-in, the
+carry across tiles, the gradients per tile from its carry), vectorised over
+tiles; the tests and ``chip_smoke.py`` hold the kernel's design against it.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -196,6 +201,99 @@ def selective_scan_bwd_plain(u, delta, A, B, C, D=None, delta_bias=None,
     dD = None
     if D is not None:
         du += D.float()[None, :, :, None] * gy
+        dD = (gy * u32).sum((0, 3))
+    dbias = None if delta_bias is None else ddt.sum((0, 3))
+    grads = (du, ddt, dA, dB, dC, dD, dbias)
+    return tuple(None if t is None else t.to(dt_) for t, dt_ in zip(grads, dtypes))
+
+
+@torch.no_grad()
+def selective_scan_bwd_tiled_plain(u, delta, A, B, C, D=None, delta_bias=None,
+                                   delta_softplus: bool = False,
+                                   reverse: bool = False, gy=None, tile: int = 64):
+    """The gradients of ``selective_scan_bwd_plain``, decomposed as the CUDA
+    backward (K5) decomposes them, over tiles of ``tile`` steps in scan order
+    (the last one ragged, padded with steps that change nothing: delta, u,
+    gy, B, C = 0). With a_t = exp(delta_t A) and g the adjoint
+    g_t = gy_t C_t + a_{t+1} g_{t+1}, vectorised over tiles:
+
+    1. per tile i, the adjoint with zero carry-in, X_i = a_s g_s at its first
+       step s and P_i = prod_t a_t over it;
+    2. the carry into each tile from the scan's end, c_last = 0 and
+       c_{i-1} = X_i + P_i c_i (c_i = a g at the step after tile i);
+    3. per tile, the adjoint again from g = c_i and a_next = 1, h from the
+       tile's entry state, and the gradients.
+
+    K5's groups of 64-step tiles are this function's tiles of 64 * k steps.
+    Returns what ``selective_scan_bwd_plain`` returns."""
+    if reverse:
+        u, delta, B, C, gy = _flip_l(u, delta, B, C, gy)
+        du, ddt, dA, dB, dC, dD, dbias = selective_scan_bwd_tiled_plain(
+            u, delta, A, B, C, D, delta_bias, delta_softplus, False, gy, tile)
+        du, ddt, dB, dC = _flip_l(du, ddt, dB, dC)
+        return du, ddt, dA, dB, dC, dD, dbias
+    dtypes = [None if t is None else t.dtype
+              for t in (u, delta, A, B, C, D, delta_bias)]
+    pre = delta.float()
+    if delta_bias is not None:
+        pre = pre + delta_bias.float()[None, :, :, None]
+    u32, dt, A32, B32, C32 = _prep(u, delta, A, B, C, delta_bias, delta_softplus)
+    gy = gy.float()
+    b, g, d, l = u.shape
+    n = A.shape[-1]
+    nt = -(-l // tile)
+
+    def tiles(x):  # (..., l) -> (..., nt, tile), zeros after step l
+        return F.pad(x, (0, nt * tile - l)).unflatten(-1, (nt, tile))
+
+    def steps(x):  # (b, g, n, l) -> (b, g, 1, nt, tile, n)
+        return tiles(x).permute(0, 1, 3, 4, 2)[:, :, None]
+
+    ut, dtt, gyt, Bs, Cs = tiles(u32), tiles(dt), tiles(gy), steps(B32), steps(C32)
+    a = torch.exp(dtt[..., None] * A32[None, :, :, None, None, :])  # (b,g,d,nt,tile,n)
+    G = gyt[..., None] * Cs
+    zero = a.new_zeros(b, g, d, nt, 1, n)
+
+    def adjoint(a_last, carry):  # g in every step of every tile, right to left
+        a_next = torch.cat([a[..., 1:, :], a_last], dim=-2)
+        return _linear_scan(a_next.flip(-2), G.flip(-2), carry).flip(-2)
+
+    # 1. zero carry-in
+    g0 = adjoint(zero, zero)
+    X, P = a[..., 0, :] * g0[..., 0, :], a.prod(-2)                  # (b,g,d,nt,n)
+    # 2. the carry into each tile
+    c = torch.empty_like(X)
+    carry = X.new_zeros(b, g, d, n)
+    for i in range(nt - 1, -1, -1):
+        c[..., i, :] = carry
+        carry = X[..., i, :] + P[..., i, :] * carry
+    # 3. per tile from its carry; h from the tile-entry states
+    gc = adjoint(torch.ones_like(zero), c[..., None, :])
+    bx = (dtt * ut)[..., None] * Bs
+    h_local = _linear_scan(a, bx, zero)
+    entry = torch.empty_like(X)
+    h = X.new_zeros(b, g, d, n)
+    for i in range(nt):
+        entry[..., i, :] = h
+        h = h_local[..., i, -1, :] + P[..., i, :] * h
+    h = h_local + a.cumprod(-2) * entry[..., None, :]
+    h_prev = torch.cat([entry[..., None, :], h[..., :-1, :]], dim=-2)
+    dda = gc * h_prev * a                                            # d/d(delta A)
+    gB = torch.einsum("bgdtkn,bgxtkn->bgdtk", gc, Bs)
+    dd = ut * gB + torch.einsum("bgdtkn,gdn->bgdtk", dda, A32)
+    if delta_softplus:
+        dd = dd * torch.sigmoid(tiles(pre))
+
+    def untile(x):
+        return x.flatten(-2)[..., :l]
+
+    du, ddt = untile(dtt * gB), untile(dd)
+    dB = untile(torch.einsum("bgdtkn,bgdtk->bgntk", gc, dtt * ut))
+    dC = untile(torch.einsum("bgdtkn,bgdtk->bgntk", h, gyt))
+    dA = torch.einsum("bgdtkn,bgdtk->gdn", dda, dtt)
+    dD = None
+    if D is not None:
+        du = du + D.float()[None, :, :, None] * gy
         dD = (gy * u32).sum((0, 3))
     dbias = None if delta_bias is None else ddt.sum((0, 3))
     grads = (du, ddt, dA, dB, dC, dD, dbias)

@@ -6,7 +6,9 @@ and K5 the backward kernels ``_bwd_kernel_v2`` / ``_bwd_kernel`` of
 ``mlagg_unet_tpu/ops/selective_scan_pallas.py``; ``_SelectiveScan`` ties them
 together as the custom_vjp there does (``:1092-1117``): the forward of a
 training step runs K1 with its tile-entry states, and the backward runs K5
-on them.
+on them. K5 is three kernels launched by one call, parallel over groups of
+K1's 64-step tiles (``scan_bwd_launch_plan``): per group the adjoint with
+zero carry-in, the carry across groups, then the gradients.
 
 ``selective_scan_fwd`` takes the contract of ``ops.selective_scan``. When no
 gradient is needed (serving) it runs K1 alone, without states, on a CUDA
@@ -18,6 +20,7 @@ operands a kernel does not take, it raises.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -39,14 +42,112 @@ FWD = _ext.Kernel(
 BWD = _ext.Kernel(
     "selective_scan_bwd",
     _ext.KernelLib("selective_scan_bwd.cu", {
-        "mlagg_scan_bwd": [VP] * 16 + [I32] * 4 + [I64] + [I32] * 3 + [VP],
-        "mlagg_scan_bwd_smem_bytes": [],
+        "mlagg_scan_bwd": [VP] * 18 + [I32] * 4 + [I64] + [I32] * 7 + [VP],
     }),
     "mlagg_scan_bwd",
 )
 N_STATE = 16
 STATE_EVERY = 64   # K1 saves h at the entry of every tile of this many steps
-CHANNELS_PER_CTA = 8
+
+# K5's geometry (mirrors csrc/selective_scan_bwd.cu): a CTA of phases 1 and 3
+# holds 32 channels x 16 states on 128 threads; phase 3's walks the row's
+# channels in chunks of 32 and keeps 8 sub-tiles' entry states, u, gy,
+# delta's softplus and sigmoid, B and C of a tile, and its dB / dC sums in
+# shared memory; three phase 3 CTAs fit an SM
+BWD_KERNELS = ("scan_bwd_group_kernel", "scan_bwd_carry_kernel", "scan_bwd_tile_kernel")
+_BWD_CH, _BWD_THREADS, _BWD_CARRY_THREADS = 32, 128, 256
+_BWD_SUB = 8           # steps per sub-tile of phase 3's adjoint
+_BWD_CTAS_PER_SM = 3
+_BWD_MAX_TILES = 8     # tiles per CTA at most
+_BWD_MIN_WAVES = 6     # rounds of phase 3 CTAs over the SMs, at least, where L allows
+_MAX_GRID = 2 ** 31 - 1
+
+
+class ScanBwdPlan(NamedTuple):
+    kernels: Tuple[str, str, str]    # phase 1 (group sums), 2 (carry), 3 (gradients)
+    tiles_per_cta: int               # consecutive 64-step tiles of a phase 1 / 3 CTA
+    groups: int                      # tile groups per row: ceil(ceil(L / 64) / tiles_per_cta)
+    grids: Tuple[int, int, int]      # CTAs of each kernel (1-D grids)
+    threads: Tuple[int, int, int]    # threads per CTA of each
+    smem_bytes: Tuple[int, int, int]  # dynamic shared memory of each
+    vec: int                         # 1: 16-byte cp.async staging and stores
+    scratch_bytes: int               # fp32 carry, product, dA / dD / dbias partials
+
+
+def _bwd_smem(esize: int) -> Tuple[int, int, int]:
+    lt, ch, n = STATE_EVERY, _BWD_CH, N_STATE
+    pt, gp, acc = lt + 1, lt + 4, 2 * n + 1          # padded rows
+    up = lt + 8 if esize == 2 else lt + 4             # u row: 16-byte multiple
+    group = (ch * pt + ch * gp + lt * n) * 4
+    # the sub-tile entry states, with room for the next chunk's raw delta
+    hent = max(lt // _BWD_SUB * _BWD_THREADS * 16, 2 * ch * lt * esize)
+    tile = hent + ch * up * esize + (ch * gp + 2 * ch * pt + 2 * lt * n + 2 * 4 * _BWD_SUB * 32
+                                     + lt * acc) * 4
+    return group, 0, tile
+
+
+def _bwd_tiles_per_cta(rows: int, n_tiles: int, num_sms: int) -> int:
+    """The tiles each CTA walks: the most, up to 8 (less scratch, a shorter
+    carry pass), that leave the grid ``_BWD_MIN_WAVES`` rounds of CTAs over
+    the SMs' slots, so that CTAs finishing at different times keep the SMs
+    evenly loaded; 1 where even that leaves fewer."""
+    slots = _BWD_CTAS_PER_SM * num_sms
+    return max((k for k in range(1, min(_BWD_MAX_TILES, n_tiles) + 1)
+                if rows * -(-n_tiles // k) >= _BWD_MIN_WAVES * slots), default=1)
+
+
+def scan_bwd_launch_plan(b: int, g: int, d: int, L: int, dtype, num_sms: int,
+                         smem_optin: int, operands=()) -> ScanBwdPlan:
+    """K5's kernels and launch for u of shape (b, g, d, L) in ``dtype``;
+    raises on what the kernels do not take, including, for the given
+    ``operands`` (u, delta, A, B, C, D, delta_bias, gy, states), other dtypes,
+    n != 16, shapes, devices, non-contiguous tensors, a gy that is not fp32
+    and the states' shape. Works on tensors of any device (the CPU tests call
+    it); the C launcher ``mlagg_scan_bwd`` checks the same numbers.
+
+    A row's ceil(L / 64) tiles are cut into groups of ``tiles_per_cta``
+    (``_bwd_tiles_per_cta``); phase 1 launches one 128-thread CTA per (row,
+    group, chunk of 32 channels), phase 2 one thread per (row, d, n), phase 3
+    one 128-thread CTA per (row, group), which walks the row's chunks. ``vec``
+    needs L % 8 == 0 and 16-byte aligned u, delta, B, C and gy (assumed
+    without operands).
+    """
+    name = "selective_scan_bwd"
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: dtype {dtype} not supported")
+    if b < 0 or g < 1 or d < 1 or L < 1:
+        raise ValueError(f"{name}: b={b}, g={g}, d={d}, L={L}")
+    n_tiles = -(-L // STATE_EVERY)
+    vec = int(L % 8 == 0)
+    if operands:
+        u, delta, A, B, C, D, delta_bias, gy, states = operands
+        if _check(name, u, delta, A, B, C) != (b, g, d, L) or u.dtype != dtype:
+            raise ValueError(f"{name}: u {tuple(u.shape)} {u.dtype}, plan is for "
+                             f"{(b, g, d, L)} {dtype}")
+        for nm, t in (("D", D), ("delta_bias", delta_bias)):
+            if t is not None and (t.numel() != g * d or t.device != u.device):
+                raise ValueError(f"{name}: {nm} must hold (g, d) = {(g, d)} values on {u.device}")
+        if (gy is None or gy.shape != u.shape or gy.dtype != torch.float32
+                or gy.device != u.device or not gy.is_contiguous()):
+            raise ValueError(f"{name}: gy must be contiguous fp32 {tuple(u.shape)} on {u.device}")
+        shape = (b, g, n_tiles, d, N_STATE)
+        if (states is None or states.shape != shape or states.dtype != torch.float32
+                or states.device != u.device or not states.is_contiguous()):
+            raise ValueError(f"{name}: states must be contiguous fp32 {shape} on {u.device}")
+        vec = int(vec and all(t.data_ptr() % 16 == 0 for t in (u, delta, B, C, gy)))
+    k = _bwd_tiles_per_cta(b * g, n_tiles, num_sms)
+    groups = -(-n_tiles // k)
+    grid = b * g * groups
+    grids = (grid * -(-d // _BWD_CH), -(-b * g * d * N_STATE // _BWD_CARRY_THREADS), grid)
+    if max(grids) > _MAX_GRID:
+        raise ValueError(f"{name}: {max(grids)} CTAs exceed the grid's {_MAX_GRID}")
+    smem = _bwd_smem(torch.finfo(dtype).bits // 8)
+    if max(smem) > smem_optin:
+        raise ValueError(f"{name}: the kernels need {max(smem)} bytes of shared memory "
+                         f"per block, the device allows {smem_optin}")
+    scratch = 4 * b * g * groups * d * (3 * N_STATE + 2)
+    return ScanBwdPlan(BWD_KERNELS, k, groups, grids,
+                       (_BWD_THREADS, _BWD_CARRY_THREADS, _BWD_THREADS), smem, vec, scratch)
 
 
 def scan_fwd_plain(u, delta, A, B, C, D=None, delta_bias=None,
@@ -126,39 +227,30 @@ def selective_scan_bwd(u, delta, A, B, C, D=None, delta_bias=None,
     if _ext.use_plain(u):
         return selective_scan_bwd_plain(u, delta, A, B, C, D, delta_bias,
                                         delta_softplus, reverse, gy)
-    b, g, d, l = _check("selective_scan_bwd", u, delta, A, B, C)
-    shape = (b, g, math.ceil(l / STATE_EVERY), d, N_STATE)
-    if (states is None or states.shape != shape or states.dtype != torch.float32
-            or states.device != u.device or not states.is_contiguous()):
-        raise ValueError(f"selective_scan_bwd: states must be contiguous fp32 "
-                         f"{shape} on {u.device}")
-    if gy is None or gy.shape != u.shape:
-        raise ValueError(f"selective_scan_bwd: gy must have u's shape {tuple(u.shape)}")
-    lib = BWD.lib.load()
-    need = lib.mlagg_scan_bwd_smem_bytes()
-    have = torch.cuda.get_device_properties(u.device).shared_memory_per_block_optin
-    if need > have:
-        raise ValueError(f"selective_scan_bwd: the kernel needs {need} bytes of "
-                         f"shared memory per block, the device allows {have}")
+    gy32 = None if gy is None else gy.to(u.device, torch.float32).contiguous()
+    props = torch.cuda.get_device_properties(u.device)
+    plan = scan_bwd_launch_plan(*u.shape, u.dtype, props.multi_processor_count,
+                                props.shared_memory_per_block_optin,
+                                (u, delta, A, B, C, D, delta_bias, gy32, states))
+    b, g, d, l = u.shape
     A32, D32, bias32 = _params32(u, A, D, delta_bias, g, d)
-    gy32 = gy.to(u.device, torch.float32).contiguous()
     f32 = dict(device=u.device, dtype=torch.float32)
     du, ddelta = torch.empty_like(u), torch.empty_like(delta)
-    dA_p = torch.empty(b, g, d, N_STATE, **f32)
-    n_blk = math.ceil(d / CHANNELS_PER_CTA)
-    dB_p = torch.empty(n_blk, b, g, N_STATE, l, **f32)
-    dC_p = torch.empty(n_blk, b, g, N_STATE, l, **f32)
-    dD_p, dbias_p = torch.empty(b, g, d, **f32), torch.empty(b, g, d, **f32)
-    BWD.launch(
-        *map(_ext.ptr, (u, delta, A32, B, C, D32, bias32, gy32, states, du,
-                        ddelta, dA_p, dB_p, dC_p, dD_p, dbias_p)),
-        b, g, d, N_STATE, l, int(delta_softplus), int(reverse),
-        _dtype_code(u), _ext.stream_ptr(u.device))
-    # the batch (and, for dB / dC, the CTAs' channel blocks) summed here
-    return (du, ddelta, dA_p.sum(0).to(A.dtype), dB_p.sum(0).to(B.dtype),
-            dC_p.sum(0).to(C.dtype),
-            None if D is None else dD_p.sum(0).to(D.dtype),
-            None if delta_bias is None else dbias_p.sum(0).to(delta_bias.dtype))
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    part = (b, g, plan.groups, d)
+    carry, prod, dA_p = (torch.empty(*part, N_STATE, **f32) for _ in range(3))
+    dD_p, dbias_p = torch.empty(*part, **f32), torch.empty(*part, **f32)
+    if b:
+        BWD.launch(
+            *map(_ext.ptr, (u, delta, A32, B, C, D32, bias32, gy32, states, du,
+                            ddelta, dB, dC, carry, prod, dA_p, dD_p, dbias_p)),
+            b, g, d, N_STATE, l, int(delta_softplus), int(reverse),
+            _dtype_code(u), plan.tiles_per_cta, plan.vec, plan.smem_bytes[0],
+            plan.smem_bytes[2], _ext.stream_ptr(u.device))
+    # the per-(row, group) partials of dA, dD and dbias, summed here
+    return (du, ddelta, dA_p.sum((0, 2)).to(A.dtype), dB, dC,
+            None if D is None else dD_p.sum((0, 2)).to(D.dtype),
+            None if delta_bias is None else dbias_p.sum((0, 2)).to(delta_bias.dtype))
 
 
 class _SelectiveScan(torch.autograd.Function):

@@ -41,9 +41,12 @@ from mlagg_unet_torch.ops.mlla_fused import (
 from mlagg_unet_torch.ops.selective_scan import (
     selective_scan,
     selective_scan_bwd_plain,
+    selective_scan_bwd_tiled_plain,
+    selective_scan_seq_ref,
     selective_scan_states,
 )
 from mlagg_unet_torch.ops.selective_scan_cuda import (
+    scan_bwd_launch_plan,
     selective_scan_bwd,
     selective_scan_fwd,
     selective_scan_fwd_states,
@@ -110,6 +113,30 @@ def test_scan_states_match_plain(cuda_device, reverse):
     _close(states, selective_scan_states(u, dl, A, B, C, db, True, 64, reverse))
 
 
+SCAN_GRADS = ("du", "ddelta", "dA", "dB", "dC", "dD", "dbias")
+
+
+def _scan_bwd_against_twins(args, reverse, gy, states, rel, tiled=None):
+    """K5 against selective_scan_bwd_plain and the tiled twin (which splits
+    the work as K5 does, over K1's 64-step tiles; ``tiled``: its gradients
+    computed by the caller), and two runs bit-equal: no atomics, dB and dC
+    summed over the channels in a fixed order."""
+    got = selective_scan_bwd(*args, True, reverse, gy, states)
+    again = selective_scan_bwd(*args, True, reverse, gy, states)
+    ref = selective_scan_bwd_plain(*args, True, reverse, gy)
+    if tiled is None:
+        tiled = selective_scan_bwd_tiled_plain(*args, True, reverse, gy)
+    torch.cuda.synchronize()
+    for name, g_, a_, r_, t_ in zip(SCAN_GRADS, got, again, ref, tiled):
+        if r_ is None:
+            assert g_ is None and t_ is None, name
+            continue
+        assert g_.dtype == r_.dtype and g_.shape == r_.shape, name
+        assert torch.equal(g_, a_), name
+        _close(g_, r_, rel)
+        _close(g_, t_, rel)
+
+
 @pytest.mark.parametrize("optionals", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("reverse", [False, True])
@@ -117,15 +144,93 @@ def test_scan_bwd_kernel_matches_plain(cuda_device, dtype, reverse, optionals):
     args = _scan_args(cuda_device, dtype, optionals=optionals)
     gy = _rand(args[0].shape, cuda_device, torch.float32, 7)
     _, states = selective_scan_fwd_states(*args, True, reverse)
+    _scan_bwd_against_twins(args, reverse, gy, states, 2e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("l", [1, 63, 65, 1000])
+def test_scan_bwd_kernel_at_ragged_lengths(cuda_device, dtype, reverse, l):
+    """d = 20 (one chunk of 32 channels with 12 empty), L under one tile,
+    ragged, and a multiple of 8 (16-byte staging) with a ragged tile."""
+    args = _scan_args(cuda_device, dtype, b=2, d=20, l=l)
+    gy = _rand(args[0].shape, cuda_device, torch.float32, 8)
+    _, states = selective_scan_fwd_states(*args, True, reverse)
+    _scan_bwd_against_twins(args, reverse, gy, states, 2e-4 if dtype == torch.float32 else 2e-2)
+
+
+def _tiled_twin_by_rows(args, reverse, gy, step):
+    """selective_scan_bwd_tiled_plain over slices of ``step`` batch entries
+    (its (b, g, d, L, n) fp32 temporaries of a whole large batch take tens
+    of GB): du, ddelta, dB, dC joined, dA, dD, dbias summed."""
+    parts = []
+    for i in range(0, args[0].shape[0], step):
+        sl = [t[i:i + step] if t is not None and t.dim() == 4 else t for t in args]
+        parts.append(selective_scan_bwd_tiled_plain(*sl, True, reverse, gy[i:i + step]))
+    return tuple(None if ps[0] is None
+                 else torch.cat(ps) if k in (0, 1, 3, 4) else torch.stack(ps).sum(0)
+                 for k, ps in enumerate(zip(*parts)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("rows_per_sm, l, k", [(10, 1024, 8), (10, 1000, 8), (4, 1280, 4)])
+def test_scan_bwd_kernel_with_large_tile_groups(cuda_device, dtype, reverse, rows_per_sm, l, k):
+    """Enough rows that the plan gives each CTA a group of k > 1 tiles (16
+    tiles: 2 groups of 8; 20 tiles: 5 groups of 4, as 4 groups of 5 would
+    leave too few CTAs), so the running carry kept in the carry buffer, the
+    dA / dD / dbias partials added across a group's tiles and the delta
+    copied ahead across tiles all run; L = 1000 makes one tile ragged.
+    Against both twins, two runs bit-equal."""
+    props = torch.cuda.get_device_properties(cuda_device)
+    b = rows_per_sm * props.multi_processor_count // 2
+    args = _scan_args(cuda_device, dtype, b=b, d=40, l=l)
+    gy = _rand(args[0].shape, cuda_device, torch.float32, 11)
+    _, states = selective_scan_fwd_states(*args, True, reverse)
+    ops = (*args, gy, states)
+    plan = scan_bwd_launch_plan(b, 2, 40, l, dtype, props.multi_processor_count,
+                                props.shared_memory_per_block_optin, ops)
+    assert plan.tiles_per_cta == k and plan.groups == -(-l // 64 // k) and plan.vec == 1
+    _scan_bwd_against_twins(args, reverse, gy, states, 2e-4 if dtype == torch.float32 else 2e-2,
+                            _tiled_twin_by_rows(args, reverse, gy, 64))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_bwd_kernel_takes_unaligned_operands(cuda_device, dtype):
+    """u starting 4 bytes past a 16-byte boundary: the plan stages element
+    by element (vec 0), and the gradients are bit-equal to those of an
+    aligned copy (only the staging differs, not the arithmetic)."""
+    args = _scan_args(cuda_device, dtype, b=2, d=24, l=1024)
+    base = torch.empty(args[0].numel() + 8, device=cuda_device, dtype=dtype)
+    shifted = base[4 // args[0].element_size():][:args[0].numel()].view_as(args[0])
+    shifted.copy_(args[0])
+    props = torch.cuda.get_device_properties(cuda_device)
+    gy = _rand(args[0].shape, cuda_device, torch.float32, 9)
+    _, states = selective_scan_fwd_states(*args, True, False)
+    ops = (shifted, *args[1:], gy, states)
+    plan = scan_bwd_launch_plan(2, 2, 24, 1024, dtype, props.multi_processor_count,
+                                props.shared_memory_per_block_optin, ops)
+    assert plan.vec == 0
+    got = selective_scan_bwd(shifted, *args[1:], True, False, gy, states)
+    ref = selective_scan_bwd(*args, True, False, gy, states)
+    torch.cuda.synchronize()
+    for name, g_, r_ in zip(SCAN_GRADS, got, ref):
+        assert torch.equal(g_, r_), name
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_scan_bwd_fp32_matches_autograd_of_step_scan(cuda_device, reverse):
+    """The fp32 kernels against autograd through the step-by-step scan (the
+    ground truth), at L = 1000 (a ragged tile) and d = 40 (two chunks)."""
+    args = _scan_args(cuda_device, torch.float32, b=2)
+    gy = _rand(args[0].shape, cuda_device, torch.float32, 10)
+    leaves = [t.clone().requires_grad_() for t in args]
+    y = selective_scan_seq_ref(*leaves, delta_softplus=True, reverse=reverse)
+    ref = torch.autograd.grad(y, leaves, gy)
+    _, states = selective_scan_fwd_states(*args, True, reverse)
     got = selective_scan_bwd(*args, True, reverse, gy, states)
-    ref = selective_scan_bwd_plain(*args, True, reverse, gy)
-    rel = 2e-4 if dtype == torch.float32 else 2e-2
-    for name, g_, r_ in zip(("du", "ddelta", "dA", "dB", "dC", "dD", "dbias"), got, ref):
-        if r_ is None:
-            assert g_ is None, name
-            continue
-        assert g_.dtype == r_.dtype and g_.shape == r_.shape, name
-        _close(g_, r_, rel)
+    for name, g_, r_ in zip(SCAN_GRADS, got, ref):
+        _close(g_, r_, 2e-4)
 
 
 def test_scan_autograd_on_card_matches_plain(cuda_device):
@@ -340,6 +445,12 @@ def test_wrappers_raise_on_what_kernels_do_not_take(cuda_device):
         selective_scan_fwd(u, u, torch.zeros(1, 4, 8, device=cuda_device),
                            torch.zeros(1, 1, 8, 10, device=cuda_device),
                            torch.zeros(1, 1, 8, 10, device=cuda_device))
+    A, B = torch.zeros(1, 4, 16, device=cuda_device), torch.zeros(1, 1, 16, 10, device=cuda_device)
+    _, states = selective_scan_fwd_states(u, u, A, B, B)
+    with pytest.raises(ValueError):  # K5: states of another length
+        selective_scan_bwd(u, u, A, B, B, gy=u, states=states[:, :, :0])
+    with pytest.raises(ValueError):  # K5: no output gradient
+        selective_scan_bwd(u, u, A, B, B, states=states)
 
 
 def test_model_on_card_matches_cpu(cuda_device):
