@@ -13,9 +13,14 @@ failure exits non-zero:
 3. kernels: each kernel against its plain PyTorch twin at the flagship's
    shapes (serving: model batch 16, tile 256x224; the scan backward: the
    training batch 10), fp32 and bf16 I/O, with the tolerances stated below,
-   and timed with CUDA events (median of 20). K1 with its tile-entry states
+   and timed with CUDA events (median of 20). K1 (scan forward: three
+   kernels per call) with its launch plan and resident CTAs per SM printed,
+   against the chunked scan and against the twin that splits the work over
+   groups of tiles as K1 does, two runs bit-equal, each of its kernels timed
+   (torch.profiler); at the training batch K1 with its tile-entry states
    must give a y bit-equal to K1 without them and states equal to the plain
-   scan's; K5 (scan backward: three kernels per call) two runs bit-equal,
+   scan's, each kernel timed again; K5 (scan backward: three kernels per
+   call) two runs bit-equal,
    each of its kernels timed (torch.profiler) beside a model estimate of
    the bytes it requests, and held against autograd through the
    step-by-step scan and against the twin that splits the work over tiles
@@ -44,15 +49,16 @@ failure exits non-zero:
    peak memory, in the default configuration (K1-K4 must each be launched,
    K6-K8 never) and then the fused one (K1-K4 and K6-K8 must each be); a
    profile of one volume in each: device time by kernel and each port
-   kernel's total, where K2 and K3 must be the tensor-core
+   kernel's total, where each of K1's three kernels must run 20 times (2
+   calls per forward, 10 forwards), K2 and K3 must be the tensor-core
    ``front_mma_kernel`` and ``tail_mma_kernel`` 80 times each (8 per
-   forward, 10 forwards) and the scalar ``front_kernel`` and ``tail_kernel``
-   never; K6 in the fused serve the tensor-core ``local_attn_mma_kernel``
-   80 times and the scalar ``local_attn_kernel`` never, neither in the
-   default one. The trace of a volume must hold as many K2, K3 and K6
-   launches as their wrappers counted in it (exactly 80, 80 and 80 or 0): a
-   trace that holds fewer lost device records in torch.profiler and is
-   taken again, up to three times;
+   forward) and the scalar ``front_kernel`` and ``tail_kernel`` never; K6
+   in the fused serve the tensor-core ``local_attn_mma_kernel`` 80 times
+   and the scalar ``local_attn_kernel`` never, neither in the default one.
+   The trace of a volume must hold as many K1, K2, K3 and K6 launches as
+   their wrappers counted in it (exactly 20 of each K1 kernel, 80, 80 and
+   80 or 0): a trace that holds fewer lost device records in torch.profiler
+   and is taken again, up to three times;
 6. train: the ``nnUNetTrainer_MLAgg_2D_dt_MS`` recipe on the full-width
    flagship. One fp32 batch (batch 1, drop path off) on the card against a
    CPU copy of the network: the loss and every parameter gradient. Then 2
@@ -60,9 +66,9 @@ failure exits non-zero:
    path on, on one seeded synthetic batch whose label is a fixed function of
    the image: ms per step, images/s, peak memory, the first and last loss
    (the last must be lower), a profile of one step, and one validation
-   step, whose trace must hold each of K5's three kernels twice (one call
-   per scan direction) (a trace short of them is taken again, up to three
-   times). K1, K4 and K5 must
+   step, whose trace must hold each of K1's and K5's three kernels twice
+   (one call per scan direction) (a trace short of them is taken again, up
+   to three times). K1, K4 and K5 must
    each be launched in the timed steps, no other.
    Then the same with ``fused_instance_norm`` on, its fp32 batch held
    against the default network on the card: K1, K4, K5, K7 and K8 must
@@ -149,9 +155,11 @@ SERVE_KERNELS = ("selective_scan_fwd", "mlla_front", "mlla_tail", "flash_attn_fw
 TRAIN_KERNELS = ("selective_scan_fwd", "flash_attn_fwd", "selective_scan_bwd")
 NORM_KERNELS = ("instance_norm_stats", "instance_norm_apply")
 FUSED_KERNELS = ("local_attn_fused",) + NORM_KERNELS   # the fused config's alone
+K1_KERNELS = ("scan_fwd_group_kernel", "scan_fwd_carry_kernel", "scan_fwd_out_kernel")
 K5_KERNELS = ("scan_bwd_group_kernel", "scan_bwd_carry_kernel", "scan_bwd_tile_kernel")
+K1_FIRST_MS = 8.151    # K1 bf16 per forward before its redesign (PERF.md, H100 80GB HBM3, 700 W)
 K5_FIRST_MS = 17.717   # K5 bf16 per train step before its redesign (PERF.md, H100 80GB HBM3, 700 W)
-PORT_KERNEL_NAMES = ("scan_fwd_kernel", *K5_KERNELS, "front_kernel",
+PORT_KERNEL_NAMES = (*K1_KERNELS, *K5_KERNELS, "front_kernel",
                      "front_mma_kernel", "tail_kernel", "tail_mma_kernel", "flash_fwd_mma_kernel",
                      "flash_fwd_fp32_kernel",
                      "local_attn_kernel", "local_attn_mma_kernel",
@@ -285,8 +293,10 @@ def phase_kernels(torch, report: Report) -> None:
     from mlagg_unet_torch.ops.mlla_fused import (
         mlla_front, mlla_front_bf16_operands_plain, mlla_front_plain, mlla_tail,
         mlla_tail_bf16_operands_plain, mlla_tail_plain)
-    from mlagg_unet_torch.ops.selective_scan import selective_scan_seq_ref
-    from mlagg_unet_torch.ops.selective_scan_cuda import scan_fwd_plain, selective_scan_fwd
+    from mlagg_unet_torch.ops.selective_scan import (
+        selective_scan_fwd_tiled_plain, selective_scan_seq_ref)
+    from mlagg_unet_torch.ops.selective_scan_cuda import (
+        STATE_EVERY, scan_fwd_launch_plan, scan_fwd_occupancy, scan_fwd_plain, selective_scan_fwd)
 
     dev = torch.device("cuda")
     rs = np.random.RandomState(0)
@@ -303,25 +313,58 @@ def phase_kernels(torch, report: Report) -> None:
     Dp = T(1 + 0.1 * rs.randn(g, d))
     full = [T(rs.randn(b, g, d, L) * s) for s in (1.0, 0.5)] + \
            [T(rs.randn(b, g, n, L)) for _ in range(2)]
+    props = torch.cuda.get_device_properties(dev)
+    k1_ms = 0.0
     for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
         u, dl, Bm, Cm = (t.to(dtype) for t in full)
+        plan = scan_fwd_launch_plan(b, g, d, L, dtype, props.multi_processor_count,
+                                    props.shared_memory_per_block_optin,
+                                    (u, dl, A, Bm, Cm, Dp, bias))
+        log(f"  K1 plan ({tag}): {plan}")
+        occ = scan_fwd_occupancy(dtype, False, plan.threads[0])
+        log(f"  K1 {tag} resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor): "
+            + ", ".join(f"{k} {v['ctas_per_sm']} CTAs of {plan.threads[0]} threads = "
+                        f"{v['ctas_per_sm'] * plan.threads[0] // 32} warps at {v['registers']} "
+                        "registers" for k, v in occ.items()))
         for rev in (False, True):
             args = (u, dl, A, Bm, Cm, Dp, bias, True, rev)
-            err = check(f"K1 {tag} reverse={rev} vs plain chunked",
-                        selective_scan_fwd(*args), scan_fwd_plain(*args), TOL_SCAN)
+            got, again = selective_scan_fwd(*args), selective_scan_fwd(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"K1 {tag} reverse={rev}: two runs differ")
+            tile = STATE_EVERY * plan.tiles_per_cta
+            tiled = torch.cat([selective_scan_fwd_tiled_plain(
+                *(t[i:i + 4] if t.dim() == 4 else t for t in args[:7]), True, rev, tile)
+                for i in range(0, b, 4)])
+            err = max(check(f"K1 {tag} reverse={rev} vs plain chunked (bit-equal twice)",
+                            got, scan_fwd_plain(*args), TOL_SCAN),
+                      check(f"K1 {tag} reverse={rev} vs the tiled twin (tiles of {tile} steps)",
+                            got, tiled, TOL_SCAN))
+            del got, again, tiled
             if tag == "bf16":
                 ms = time_ms(lambda: selective_scan_fwd(*args))
                 pms = time_ms(lambda: scan_fwd_plain(*args), reps=5, warmup=1)
+                counts, times = profile(torch, f"5 K1 calls (bf16 reverse={rev})",
+                                        lambda: ([selective_scan_fwd(*args) for _ in range(5)],
+                                                 torch.cuda.synchronize()))
+                per = {k: times[k] / counts[k] if counts and counts[k] else None
+                       for k in K1_KERNELS}
+                k1_ms += ms
                 el = b * g * d * L
                 nbytes = 2 * el * 2 + 2 * b * g * n * L * 2 + el * 4
                 flops = el * (6 * n + 7)
                 exps = el * n   # a_t = exp(delta_t A) per (row, d, n, t)
-                log(f"  K1 bf16 reverse={rev}: {ms:.3f} ms, plain {pms:.3f} ms")
+                log(f"  K1 bf16 reverse={rev}: {ms:.4f} ms, plain {pms:.3f} ms; per kernel "
+                    + ", ".join(f"{k} {'not measured' if v is None else f'{v:.4f} ms'}"
+                                for k, v in per.items())
+                    + f"; fp32 scratch {plan.scratch_bytes / 1e6:.1f} MB")
                 # elementwise recurrence: no tensor-core form, fp32 rate
                 report.add("selective_scan_fwd", "mlagg_unet_torch/csrc/selective_scan_fwd.cu",
                            "mlagg_unet_tpu/ops/selective_scan_pallas.py:172", kind="fp32",
                            max_abs_err=err, ms=ms, plain_ms=pms,
                            bytes=nbytes, flops=flops, exps=exps)
+    log(f"  K1 bf16: {k1_ms:.4f} ms per forward (2 launches; {K1_FIRST_MS} ms before its "
+        "redesign, H100 80GB HBM3 at 700 W)")
     short = [t[:2, ..., :1024].contiguous() for t in full]
     for rev in (False, True):
         args = (*short[:2], A, *short[2:], Dp, bias, True, rev)
@@ -466,8 +509,8 @@ def phase_scan_train(torch, report: Report) -> None:
         selective_scan_bwd_plain, selective_scan_bwd_tiled_plain, selective_scan_seq_ref,
         selective_scan_states)
     from mlagg_unet_torch.ops.selective_scan_cuda import (
-        STATE_EVERY, scan_bwd_launch_plan, selective_scan_bwd, selective_scan_fwd,
-        selective_scan_fwd_states)
+        STATE_EVERY, scan_bwd_launch_plan, scan_fwd_launch_plan, selective_scan_bwd,
+        selective_scan_fwd, selective_scan_fwd_states)
 
     dev = torch.device("cuda")
     rs = np.random.RandomState(1)
@@ -482,6 +525,9 @@ def phase_scan_train(torch, report: Report) -> None:
     plan = scan_bwd_launch_plan(b, g, d, L, torch.bfloat16, props.multi_processor_count,
                                 props.shared_memory_per_block_optin)
     log(f"  K5 plan (bf16): {plan}")
+    log("  K1 plan (bf16): " + str(scan_fwd_launch_plan(
+        b, g, d, L, torch.bfloat16, props.multi_processor_count,
+        props.shared_memory_per_block_optin)))
     A = T(-np.tile(np.arange(1, n + 1, dtype=np.float32), (g, d, 1)))
     dt0 = np.exp(rs.rand(g, d) * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
     bias = T(dt0 + np.log(-np.expm1(-dt0)))
@@ -520,6 +566,13 @@ def phase_scan_train(torch, report: Report) -> None:
             pms = time_ms(lambda: selective_scan_bwd_plain(*args, gy), reps=3, warmup=1)
             k1s = time_ms(lambda: selective_scan_fwd_states(*args))
             k1 = time_ms(lambda: selective_scan_fwd(*args))
+            c1, t1 = profile(torch, f"5 K1 calls with states (bf16 reverse={rev})",
+                             lambda: ([selective_scan_fwd_states(*args) for _ in range(5)],
+                                      torch.cuda.synchronize()))
+            log(f"  K1 bf16 reverse={rev} at this batch: {k1:.4f} ms, with states {k1s:.4f} ms; "
+                "per kernel with states: "
+                + ", ".join(f"{k} {t1[k] / c1[k]:.4f} ms" if c1 and c1[k] else f"{k} not measured"
+                            for k in K1_KERNELS))
             counts, times = profile(
                 torch, f"5 K5 calls (bf16 reverse={rev})",
                 lambda: ([selective_scan_bwd(*args, gy, states) for _ in range(5)],
@@ -529,8 +582,7 @@ def phase_scan_train(torch, report: Report) -> None:
             k5_ms += ms
             log(f"  K5 bf16 reverse={rev}: {ms:.4f} ms, plain {pms:.3f} ms; per kernel "
                 + ", ".join(f"{k} {'not measured' if v is None else f'{v:.4f} ms'}"
-                            for k, v in per.items())
-                + f"; K1 at this batch {k1:.3f} ms, with states {k1s:.3f} ms")
+                            for k, v in per.items()))
             el, bc = b * g * d * L, b * g * n * L
             n_tiles = math.ceil(L / STATE_EVERY)
             # each input read once (u, delta, B, C in bf16, gy and the states
@@ -878,6 +930,7 @@ def phase_serve(torch, model, label, required, forbidden=()):
             fail(f"{label} serve profile: no device time recorded")
         wrapped = {k.name: k.launches for k in _ext.ALL_KERNELS}
         short = {w: wrapped[w] - sum(counts[n] for n in names) for w, names in PROFILED.items()}
+        short.update({k: wrapped["selective_scan_fwd"] - counts[k] for k in K1_KERNELS})
         if any(v < 0 for v in short.values()):
             fail(f"{label} serve profile: the trace holds more launches than the wrappers "
                  f"made ({short})")
@@ -887,6 +940,10 @@ def phase_serve(torch, model, label, required, forbidden=()):
             f"the wrappers' launches by {short}; tracing the volume again")
     else:
         fail(f"{label} serve profile: no complete trace in {PROFILE_TRIES} tries")
+    k1_want = 2 * FORWARDS_PER_VOLUME   # one call per scan direction and forward
+    if wrapped["selective_scan_fwd"] != k1_want or any(counts[k] != k1_want for k in K1_KERNELS):
+        fail(f"{label} serve profile: K1 called {wrapped['selective_scan_fwd']} times, its "
+             f"kernels ran {[counts[k] for k in K1_KERNELS]} times (want {k1_want} each)")
     for name, n in (("mlla_front", want), ("mlla_tail", want),
                     ("local_attn_fused", want if fused else 0)):
         if wrapped[name] != n:
@@ -904,7 +961,8 @@ def phase_serve(torch, model, label, required, forbidden=()):
         fail(f"{label} serve profile: K6 ran as local_attn_mma_kernel "
              f"{counts['local_attn_mma_kernel']} times and as the scalar local_attn_kernel "
              f"{counts['local_attn_kernel']} times (want {k6})")
-    log(f"  profile: front_mma_kernel and tail_mma_kernel x{want}, front_kernel and "
+    log(f"  profile: {', '.join(K1_KERNELS)} x{k1_want} each, "
+        f"front_mma_kernel and tail_mma_kernel x{want}, front_kernel and "
         f"tail_kernel x0, local_attn_mma_kernel x{k6['local_attn_mma_kernel']}, "
         "local_attn_kernel x0, as required")
     return launches, vps
@@ -1021,19 +1079,22 @@ def phase_train(torch, fused_in: bool = False):
         if counts is None:
             fail(f"{label} train profile: no device time recorded")
         calls = next(k.launches for k in _ext.ALL_KERNELS if k.name == "selective_scan_bwd")
+        calls_fwd = next(k.launches for k in _ext.ALL_KERNELS if k.name == "selective_scan_fwd")
         short = {k: calls - counts[k] for k in K5_KERNELS}
+        short.update({k: calls_fwd - counts[k] for k in K1_KERNELS})
         if any(v < 0 for v in short.values()):
-            fail(f"{label} train profile: the trace holds more K5 launches than the "
-                 f"wrapper made ({short})")
+            fail(f"{label} train profile: the trace holds more K1 or K5 launches than the "
+                 f"wrappers made ({short})")
         if not any(short.values()):
             break
         log(f"  trace {attempt} of {PROFILE_TRIES} lost device records: it is short of "
-            f"the wrapper's K5 launches by {short}; tracing the step again")
+            f"the wrappers' K1 and K5 launches by {short}; tracing the step again")
     else:
         fail(f"{label} train profile: no complete trace in {PROFILE_TRIES} tries")
-    if calls != 2:
-        fail(f"{label} train profile: K5 called {calls} times in one step (want 2)")
-    log(f"  profile: {', '.join(K5_KERNELS)} x2 each per step, as required")
+    if calls != 2 or calls_fwd != 2:
+        fail(f"{label} train profile: K1 called {calls_fwd} and K5 {calls} times in one "
+             "step (want 2 each)")
+    log(f"  profile: {', '.join(K1_KERNELS + K5_KERNELS)} x2 each per step, as required")
     loss, tp, fp, fn = tr.val_step(x, y)
     dice = (2 * tp / (2 * tp + fp + fn).clamp(min=1)).tolist()
     log(f"  validation step: loss {loss.item():.5f}, pseudo dice per class "

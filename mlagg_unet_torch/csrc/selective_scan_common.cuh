@@ -1,20 +1,14 @@
-// Geometry shared by the selective-scan forward (K1) and backward (K5)
-// kernels. K5 recomputes h inside the same LT-step tiles whose entry states
-// K1 saves, so both must agree on N, DC and LT.
+// The contract between the selective-scan forward (K1, selective_scan_fwd.cu)
+// and backward (K5, selective_scan_bwd.cu) kernels. K1 saves h at the entry
+// of every LT-step tile and K5 recomputes h inside the same tiles from them,
+// so both take N states per channel and cut a row into tiles the same way:
+// N, LT and tile_bounds are all the two share.
 #pragma once
 
 namespace scan {
 
-constexpr int N = 16;   // states per channel = lanes per channel group
-constexpr int DC = 8;   // channels per CTA
-constexpr int LT = 64;  // steps staged per tile; K1 saves h every LT steps
-constexpr int THREADS = DC * N;
-constexpr int LP = LT + 1;  // padded row: B/C rows of 16 states hit 16 banks
-
-__device__ __forceinline__ float softplus_f(float x) {
-    // jax.nn.softplus == logaddexp(x, 0) == max(x, 0) + log1p(exp(-|x|))
-    return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
+constexpr int N = 16;   // states per channel
+constexpr int LT = 64;  // steps per tile; K1 saves h at every tile's entry
 
 // Bounds of tile `it` in scan order: a forward scan's tile it starts at
 // it * LT; a reverse scan's ends at L - it * LT (its ragged tile is the

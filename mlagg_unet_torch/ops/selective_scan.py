@@ -132,6 +132,62 @@ def selective_scan(u, delta, A, B, C, D=None, delta_bias=None,
     return _add_d(torch.cat(ys, dim=-1), u, D)
 
 
+@torch.no_grad()
+def selective_scan_fwd_tiled_plain(u, delta, A, B, C, D=None, delta_bias=None,
+                                   delta_softplus: bool = False,
+                                   reverse: bool = False, tile: int = 64,
+                                   with_states: bool = False):
+    """y of ``selective_scan``, decomposed as the CUDA forward (K1)
+    decomposes it, over tiles of ``tile`` steps in scan order (the last one
+    ragged, padded with steps that change nothing: delta = 0, so a = 1 and
+    no input). With a_t = exp(delta_t A), vectorised over tiles:
+
+    1. per tile i, the scan from a zero entry state: its end state X_i, and
+       its decay P_i = exp(A * sum_t delta_t), formed from the sum of delta
+       as the kernel forms it (not as the product of the a_t);
+    2. the state entering each tile in scan order, h_0 = 0 and
+       h_{i+1} = X_i + P_i h_i;
+    3. per tile, the scan again from h_i, and y = C . h + D u.
+
+    K1's groups of 64-step tiles are this function's tiles of 64 * k steps.
+    Returns y (fp32 (b, g, d, l)), and with ``with_states`` also the entry
+    states (fp32 (b, g, ceil(l / tile), d, n), in scan order, as
+    ``selective_scan_states(..., every=tile)``)."""
+    if reverse:
+        u, delta, B, C = _flip_l(u, delta, B, C)
+        out = selective_scan_fwd_tiled_plain(u, delta, A, B, C, D, delta_bias,
+                                             delta_softplus, False, tile, with_states)
+        return (out[0].flip(-1), out[1]) if with_states else out.flip(-1)
+    u32, dt, A32, B32, C32 = _prep(u, delta, A, B, C, delta_bias, delta_softplus)
+    b, g, d, l = u32.shape
+    n = A32.shape[-1]
+    nt = -(-l // tile)
+
+    def tiles(x):  # (..., l) -> (..., nt, tile), zeros after step l
+        return F.pad(x, (0, nt * tile - l)).unflatten(-1, (nt, tile))
+
+    def steps(x):  # (b, g, n, l) -> (b, g, 1, nt, tile, n)
+        return tiles(x).permute(0, 1, 3, 4, 2)[:, :, None]
+
+    dtt = tiles(dt)
+    a = torch.exp(dtt[..., None] * A32[None, :, :, None, None, :])  # (b,g,d,nt,tile,n)
+    bx = (dtt * tiles(u32))[..., None] * steps(B32)
+    # 1. from a zero entry state
+    X = _linear_scan(a, bx, a.new_zeros(b, g, d, nt, 1, n))[..., -1, :]   # (b,g,d,nt,n)
+    P = torch.exp(dtt.sum(-1)[..., None] * A32[None, :, :, None, :])
+    # 2. the entry state of each tile
+    h_in = torch.empty_like(X)
+    h = X.new_zeros(b, g, d, n)
+    for i in range(nt):
+        h_in[..., i, :] = h
+        h = X[..., i, :] + P[..., i, :] * h
+    # 3. the rescan from it
+    hs = _linear_scan(a, bx, h_in[..., None, :])
+    y = torch.einsum("bgdtkn,bgxtkn->bgdtk", hs, steps(C32)).flatten(-2)[..., :l]
+    y = _add_d(y, u32, D)
+    return (y, h_in.transpose(2, 3).contiguous()) if with_states else y
+
+
 def selective_scan_states(u, delta, A, B, C, delta_bias=None,
                           delta_softplus: bool = False, every: int = 64,
                           reverse: bool = False) -> torch.Tensor:

@@ -6,9 +6,13 @@ and K5 the backward kernels ``_bwd_kernel_v2`` / ``_bwd_kernel`` of
 ``mlagg_unet_tpu/ops/selective_scan_pallas.py``; ``_SelectiveScan`` ties them
 together as the custom_vjp there does (``:1092-1117``): the forward of a
 training step runs K1 with its tile-entry states, and the backward runs K5
-on them. K5 is three kernels launched by one call, parallel over groups of
-K1's 64-step tiles (``scan_bwd_launch_plan``): per group the adjoint with
-zero carry-in, the carry across groups, then the gradients.
+on them. Both are three kernels launched by one call, parallel over groups
+of consecutive 64-step tiles. K1 (``scan_fwd_launch_plan``): per group the
+scan from a zero entry state (``scan_fwd_group_kernel``), the carry of the
+state across groups in scan order (``scan_fwd_carry_kernel``), then y and
+the tile-entry states from each group's true entry state
+(``scan_fwd_out_kernel``). K5 (``scan_bwd_launch_plan``): per group the
+adjoint with zero carry-in, the carry across groups, then the gradients.
 
 ``selective_scan_fwd`` takes the contract of ``ops.selective_scan``. When no
 gradient is needed (serving) it runs K1 alone, without states, on a CUDA
@@ -35,7 +39,8 @@ VP, I32, I64 = _ext.VP, _ext.I32, _ext.I64
 FWD = _ext.Kernel(
     "selective_scan_fwd",
     _ext.KernelLib("selective_scan_fwd.cu", {
-        "mlagg_scan_fwd": [VP] * 9 + [I32] * 4 + [I64] + [I32] * 3 + [VP],
+        "mlagg_scan_fwd": [VP] * 11 + [I32] * 4 + [I64] + [I32] * 8 + [VP],
+        "mlagg_scan_fwd_occupancy": [I32] * 3 + [VP],
     }),
     "mlagg_scan_fwd",
 )
@@ -150,6 +155,118 @@ def scan_bwd_launch_plan(b: int, g: int, d: int, L: int, dtype, num_sms: int,
                        (_BWD_THREADS, _BWD_CARRY_THREADS, _BWD_THREADS), smem, vec, scratch)
 
 
+# K1's geometry (mirrors csrc/selective_scan_fwd.cu): a CTA of passes 1 and 3
+# holds one thread per channel, all 16 states in registers, up to 128
+# channels of one row; it stages B (and C) of a tile in shared memory, raw
+# by 16-byte cp.async into rows 16 bytes longer than a tile, then as fp32
+# [step][state]
+FWD_KERNELS = ("scan_fwd_group_kernel", "scan_fwd_carry_kernel", "scan_fwd_out_kernel")
+_FWD_MAX_CH, _FWD_CARRY_THREADS = 128, 256
+_FWD_WARPS_PER_SM = 18  # resident warps of passes 1 and 3 (96 registers a thread)
+_FWD_MAX_TILES = 16     # tiles per CTA at most
+_FWD_MIN_WAVES = 6      # rounds of CTAs over the SMs, at least, where L allows
+
+
+class ScanFwdPlan(NamedTuple):
+    kernels: Tuple[str, str, str]    # pass 1 (zero-entry group scan), 2 (carry), 3 (output)
+    tiles_per_cta: int               # consecutive 64-step tiles of a pass 1 / 3 CTA
+    groups: int                      # tile groups per row: ceil(ceil(L / 64) / tiles_per_cta)
+    grids: Tuple[int, int, int]      # CTAs of each kernel (1-D grids)
+    threads: Tuple[int, int, int]    # threads per CTA of each
+    smem_bytes: Tuple[int, int, int]  # dynamic shared memory of each
+    vec: int                         # 1: 16-byte loads of u, delta, cp.async of B, C, stores of y
+    scratch_bytes: int               # fp32 group end states and delta sums
+
+
+def _fwd_channels(d: int) -> Tuple[int, int, int]:
+    """(chunks, channels per CTA, threads per CTA) for d channels: chunks of
+    at most 128 channels, as even as can be, on whole warps."""
+    chunks = -(-d // _FWD_MAX_CH)
+    width = -(-d // chunks)
+    return chunks, width, 32 * -(-width // 32)
+
+
+def _fwd_smem(esize: int) -> Tuple[int, int, int]:
+    lt, n = STATE_EVERY, N_STATE
+    raw_pitch = lt + 16 // esize
+    group, out = (nm * n * raw_pitch * esize + lt * nm * n * 4 for nm in (1, 2))
+    return group, 0, out
+
+
+def _fwd_tiles_per_cta(ctas_per_tile_row: int, n_tiles: int, num_sms: int, warps: int) -> int:
+    """The tiles each CTA walks: the most, up to 16 (less scratch, a shorter
+    carry pass), that leave the grid ``_FWD_MIN_WAVES`` rounds of CTAs over
+    the SMs' slots, then the fewest that give as many groups (groups of
+    even length); 1 where even one tile per CTA leaves fewer rounds."""
+    slots = num_sms * max(1, _FWD_WARPS_PER_SM // warps)
+    k = max((k for k in range(1, min(_FWD_MAX_TILES, n_tiles) + 1)
+             if ctas_per_tile_row * -(-n_tiles // k) >= _FWD_MIN_WAVES * slots), default=1)
+    return -(-n_tiles // -(-n_tiles // k))
+
+
+def scan_fwd_launch_plan(b: int, g: int, d: int, L: int, dtype, num_sms: int,
+                         smem_optin: int, operands=()) -> ScanFwdPlan:
+    """K1's kernels and launch for u of shape (b, g, d, L) in ``dtype``;
+    raises on what the kernels do not take, including, for the given
+    ``operands`` (u, delta, A, B, C, D, delta_bias), other dtypes, n != 16,
+    shapes, devices and non-contiguous tensors. Works on tensors of any
+    device (the CPU tests call it); the C launcher ``mlagg_scan_fwd`` checks
+    the same numbers. The plan does not depend on whether the tile-entry
+    states are written, so y is the same either way.
+
+    A row's ceil(L / 64) tiles are cut into groups of ``tiles_per_cta``
+    (``_fwd_tiles_per_cta``); passes 1 and 3 launch one CTA per (row, group,
+    chunk of at most 128 channels) with a thread per channel, pass 2 one
+    thread per (row, d, n). ``vec`` needs L % 8 == 0 and 16-byte aligned u,
+    delta, B and C (assumed without operands; y is allocated aligned).
+    """
+    name = "selective_scan_fwd"
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: dtype {dtype} not supported")
+    if b < 0 or g < 1 or d < 1 or L < 1:
+        raise ValueError(f"{name}: b={b}, g={g}, d={d}, L={L}")
+    n_tiles = -(-L // STATE_EVERY)
+    vec = int(L % 8 == 0)
+    if operands:
+        u, delta, A, B, C, D, delta_bias = operands
+        if _check(name, u, delta, A, B, C) != (b, g, d, L) or u.dtype != dtype:
+            raise ValueError(f"{name}: u {tuple(u.shape)} {u.dtype}, plan is for "
+                             f"{(b, g, d, L)} {dtype}")
+        for nm, t in (("D", D), ("delta_bias", delta_bias)):
+            if t is not None and (t.numel() != g * d or t.device != u.device):
+                raise ValueError(f"{name}: {nm} must hold (g, d) = {(g, d)} values on {u.device}")
+        vec = int(vec and all(t.data_ptr() % 16 == 0 for t in (u, delta, B, C)))
+    chunks, _, threads = _fwd_channels(d)
+    k = _fwd_tiles_per_cta(b * g * chunks, n_tiles, num_sms, threads // 32)
+    groups = -(-n_tiles // k)
+    grid = b * g * groups * chunks
+    grids = (grid, -(-b * g * d * N_STATE // _FWD_CARRY_THREADS), grid)
+    if max(grids) > _MAX_GRID:
+        raise ValueError(f"{name}: {max(grids)} CTAs exceed the grid's {_MAX_GRID}")
+    smem = _fwd_smem(torch.finfo(dtype).bits // 8)
+    if max(smem) > smem_optin:
+        raise ValueError(f"{name}: the kernels need {max(smem)} bytes of shared memory "
+                         f"per block, the device allows {smem_optin}")
+    scratch = 4 * b * g * groups * d * (N_STATE + 1)
+    return ScanFwdPlan(FWD_KERNELS, k, groups, grids, (threads, _FWD_CARRY_THREADS, threads),
+                       smem, vec, scratch)
+
+
+def scan_fwd_occupancy(dtype, reverse: bool, threads: int) -> dict:
+    """Resident CTAs per SM and registers per thread of K1's passes 1 and 3
+    in CTAs of ``threads`` threads, as the card's runtime reports them
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor); builds K1 if needed."""
+    import ctypes
+
+    out = (ctypes.c_int * 4)()
+    rc = FWD.lib.load().mlagg_scan_fwd_occupancy(
+        _ext.BF16 if dtype == torch.bfloat16 else _ext.F32, int(reverse), threads, out)
+    if rc != 0:
+        raise RuntimeError(f"selective_scan_fwd: occupancy query failed, CUDA error {rc}")
+    return {"group": dict(ctas_per_sm=out[0], registers=out[1]),
+            "out": dict(ctas_per_sm=out[2], registers=out[3])}
+
+
 def scan_fwd_plain(u, delta, A, B, C, D=None, delta_bias=None,
                    delta_softplus=False, reverse=False):
     """K1's plain twin: the chunked PyTorch scan."""
@@ -190,17 +307,24 @@ def _dtype_code(t):
 
 def _launch_fwd(u, delta, A, B, C, D, delta_bias, delta_softplus, reverse,
                 with_states):
-    b, g, d, l = _check("selective_scan_fwd", u, delta, A, B, C)
+    props = torch.cuda.get_device_properties(u.device)
+    plan = scan_fwd_launch_plan(*u.shape, u.dtype, props.multi_processor_count,
+                                props.shared_memory_per_block_optin,
+                                (u, delta, A, B, C, D, delta_bias))
+    b, g, d, l = u.shape
     A32, D32, bias32 = _params32(u, A, D, delta_bias, g, d)
-    y = torch.empty(b, g, d, l, device=u.device, dtype=torch.float32)
-    states = (torch.empty(b, g, math.ceil(l / STATE_EVERY), d, N_STATE,
-                          device=u.device, dtype=torch.float32)
+    f32 = dict(device=u.device, dtype=torch.float32)
+    y = torch.empty(b, g, d, l, **f32)
+    states = (torch.empty(b, g, math.ceil(l / STATE_EVERY), d, N_STATE, **f32)
               if with_states else None)
-    FWD.launch(
-        _ext.ptr(u), _ext.ptr(delta), _ext.ptr(A32), _ext.ptr(B), _ext.ptr(C),
-        _ext.ptr(D32), _ext.ptr(bias32), _ext.ptr(y), _ext.ptr(states),
-        b, g, d, N_STATE, l, int(delta_softplus), int(reverse),
-        _dtype_code(u), _ext.stream_ptr(u.device))
+    carry = torch.empty(b, g, plan.groups, d, N_STATE, **f32)
+    dsum = torch.empty(b, g, plan.groups, d, **f32)
+    if b:
+        FWD.launch(
+            *map(_ext.ptr, (u, delta, A32, B, C, D32, bias32, y, states, carry, dsum)),
+            b, g, d, N_STATE, l, int(delta_softplus), int(reverse), _dtype_code(u),
+            plan.tiles_per_cta, plan.vec, plan.threads[0], plan.smem_bytes[0],
+            plan.smem_bytes[2], _ext.stream_ptr(u.device))
     return y, states
 
 

@@ -42,11 +42,14 @@ from mlagg_unet_torch.ops.selective_scan import (
     selective_scan,
     selective_scan_bwd_plain,
     selective_scan_bwd_tiled_plain,
+    selective_scan_fwd_tiled_plain,
     selective_scan_seq_ref,
     selective_scan_states,
 )
 from mlagg_unet_torch.ops.selective_scan_cuda import (
+    FWD,
     scan_bwd_launch_plan,
+    scan_fwd_launch_plan,
     selective_scan_bwd,
     selective_scan_fwd,
     selective_scan_fwd_states,
@@ -77,7 +80,7 @@ def _close(got, ref, rel=1e-4):
 
 
 def _scan_args(dev, dtype, b=3, g=2, d=40, n=16, l=1000, optionals=True):
-    """d and l not multiples of the CTA's 8 channels and 64-step tiles."""
+    """d and l not multiples of a warp's 32 channels and of 64-step tiles."""
     u = _rand((b, g, d, l), dev, dtype, 0)
     dl = _rand((b, g, d, l), dev, dtype, 1, 0.5)
     B, C = _rand((b, g, n, l), dev, dtype, 2), _rand((b, g, n, l), dev, dtype, 3)
@@ -111,6 +114,142 @@ def test_scan_states_match_plain(cuda_device, reverse):
     assert torch.equal(y, selective_scan_fwd(*args, True, reverse))
     u, dl, A, B, C, _, db = args
     _close(states, selective_scan_states(u, dl, A, B, C, db, True, 64, reverse))
+
+
+def _fwd_plan(args):
+    props = torch.cuda.get_device_properties(args[0].device)
+    return scan_fwd_launch_plan(*args[0].shape, args[0].dtype, props.multi_processor_count,
+                                props.shared_memory_per_block_optin, args)
+
+
+def _scan_fwd_against_twins(args, reverse, step=None):
+    """K1 against the chunked scan and the tiled twin (which splits the work
+    as K1 does, over groups of the plan's tiles per CTA; by slices of
+    ``step`` batch entries where given), two runs bit-equal, y with states
+    bit-equal to y without and the states equal to the plain scan's. Returns
+    the plan and the states."""
+    plan = _fwd_plan(args)
+    y = selective_scan_fwd(*args, True, reverse)
+    again = selective_scan_fwd(*args, True, reverse)
+    y_s, states = selective_scan_fwd_states(*args, True, reverse)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32 and y.shape == args[0].shape
+    assert torch.equal(y, again) and torch.equal(y, y_s)
+    b, step = args[0].shape[0], step or args[0].shape[0]
+    tiled = torch.cat([selective_scan_fwd_tiled_plain(
+        *(t[i:i + step] if t is not None and t.dim() == 4 else t for t in args), True, reverse,
+        64 * plan.tiles_per_cta) for i in range(0, b, step)])
+    _close(y, selective_scan(*args, True, reverse=reverse))
+    _close(y, tiled)
+    u, dl, A, B, C, _, db = args
+    _close(states, selective_scan_states(u, dl, A, B, C, db, True, 64, reverse))
+    return plan, states
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("l", [1, 63, 65, 1000])
+def test_scan_fwd_kernel_at_ragged_lengths(cuda_device, dtype, reverse, l):
+    """d = 20 (one CTA of 32 threads, 12 without a channel), L under one
+    tile, ragged (element-by-element accesses), and a multiple of 8 (16-byte
+    accesses) with a ragged last tile."""
+    args = _scan_args(cuda_device, dtype, b=2, d=20, l=l)
+    plan, _ = _scan_fwd_against_twins(args, reverse)
+    assert plan.vec == int(l % 8 == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("rows_per_sm, l, k", [(30, 1024, 8), (30, 1000, 8), (12, 1280, 4)])
+def test_scan_fwd_kernel_with_large_tile_groups(cuda_device, dtype, reverse, rows_per_sm, l, k):
+    """Enough rows that the plan gives each CTA a group of k > 1 tiles (16
+    tiles: 2 groups of 8; 20 tiles: 5 groups of 4, as 4 groups of 5 would
+    leave too few CTAs), so the carry across groups, the states written
+    inside a group and the B / C copies issued for a group's next tile all
+    run; L = 1000 makes one tile ragged. Against both twins, two runs
+    bit-equal, y with states bit-equal to y without."""
+    props = torch.cuda.get_device_properties(cuda_device)
+    b = rows_per_sm * props.multi_processor_count // 2
+    args = _scan_args(cuda_device, dtype, b=b, d=40, l=l)
+    plan, _ = _scan_fwd_against_twins(args, reverse, step=64)
+    assert (plan.tiles_per_cta, plan.groups, plan.vec) == (k, -(-l // 64 // k), 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_fwd_kernel_takes_unaligned_operands(cuda_device, dtype):
+    """u starting 4 bytes past a 16-byte boundary: the plan goes element by
+    element (vec 0), and y and the states are bit-equal to those of an
+    aligned copy (only the accesses differ, not the arithmetic)."""
+    args = _scan_args(cuda_device, dtype, b=2, d=24, l=1024)
+    base = torch.empty(args[0].numel() + 8, device=cuda_device, dtype=dtype)
+    shifted = base[4 // args[0].element_size():][:args[0].numel()].view_as(args[0])
+    shifted.copy_(args[0])
+    assert _fwd_plan([shifted, *args[1:]]).vec == 0 and _fwd_plan(args).vec == 1
+    for rev in (False, True):
+        got = selective_scan_fwd_states(shifted, *args[1:], True, rev)
+        ref = selective_scan_fwd_states(*args, True, rev)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_scan_bwd_from_states_written_inside_k1_groups(cuda_device, dtype, reverse):
+    """K5 on the tile-entry states that K1 writes inside its groups of 4
+    tiles (1,584 rows on 132 SMs), against the plain backward."""
+    props = torch.cuda.get_device_properties(cuda_device)
+    b = 12 * props.multi_processor_count // 2
+    args = _scan_args(cuda_device, dtype, b=b, d=40, l=1280)
+    assert _fwd_plan(args).tiles_per_cta == 4
+    gy = _rand(args[0].shape, cuda_device, torch.float32, 12)
+    _, states = selective_scan_fwd_states(*args, True, reverse)
+    got = selective_scan_bwd(*args, True, reverse, gy, states)
+    ref = selective_scan_bwd_plain(*args, True, reverse, gy)
+    for name, g_, r_ in zip(SCAN_GRADS, got, ref):
+        assert g_.dtype == r_.dtype, name
+        _close(g_, r_, 2e-4 if dtype == torch.float32 else 2e-2)
+
+
+def test_scan_fwd_kernel_launches_nothing_for_an_empty_batch(cuda_device):
+    args = _scan_args(cuda_device, torch.bfloat16, b=0, d=20, l=100)
+    before = FWD.launches
+    y = selective_scan_fwd(*args, True, False)
+    y_s, states = selective_scan_fwd_states(*args, True, True)
+    assert FWD.launches == before
+    assert y.shape == y_s.shape == (0, 2, 20, 100) and states.shape == (0, 2, 2, 20, 16)
+
+
+def _bad_fwd(dev, name):
+    args = _scan_args(dev, torch.bfloat16, b=1, d=8, l=128)
+    if name == "fp16":
+        args = [t.half() if t.dim() == 4 else t for t in args]
+    elif name == "8 states":
+        args[2] = args[2][..., :8].contiguous()
+        args[3], args[4] = args[3][:, :, :8].contiguous(), args[4][:, :, :8].contiguous()
+    elif name == "mixed dtypes":
+        args[1] = args[1].float()
+    elif name == "non-contiguous u":
+        args[0] = args[0].transpose(2, 3).contiguous().transpose(2, 3)
+    elif name == "B's shape":
+        args[3] = args[3][..., :127].contiguous()
+    elif name == "C on the CPU":
+        args[4] = args[4].cpu()
+    elif name == "D's shape":
+        args[5] = args[5][:, :7].contiguous()
+    elif name == "L = 0":
+        args = _scan_args(dev, torch.bfloat16, b=1, d=8, l=0)
+    else:
+        raise KeyError(name)
+    return args
+
+
+@pytest.mark.parametrize("name", ["fp16", "8 states", "mixed dtypes", "non-contiguous u",
+                                  "B's shape", "C on the CPU", "D's shape", "L = 0"])
+def test_scan_fwd_raises_on_what_k1_does_not_take(cuda_device, name):
+    args = _bad_fwd(cuda_device, name)
+    for fn in (selective_scan_fwd, selective_scan_fwd_states):
+        with pytest.raises(TypeError if name == "fp16" else ValueError):
+            fn(*args, True, False)
 
 
 SCAN_GRADS = ("du", "ddelta", "dA", "dB", "dC", "dD", "dbias")
