@@ -59,7 +59,26 @@ failure exits non-zero:
    their wrappers counted in it (exactly 20 of each K1 kernel, 80, 80 and
    80 or 0): a trace that holds fewer lost device records in torch.profiler
    and is taken again, up to three times;
-6. train: the ``nnUNetTrainer_MLAgg_2D_dt_MS`` recipe on the full-width
+6. predict: the port's predict verb (``predict_from_modelfolder_entry``,
+   bf16, mirror TTA, automatic tile batch) on a trained-model folder the
+   phase writes (a 2d plan at 256x224, ZScore, NiftiIO, 4 labels, the
+   seeded flagship's checkpoint in the JAX package's format) over 4 cases
+   of 1x10x320x260 ``.nii.gz``: every output's shape and labels, each case
+   at least 99.9 % equal to the argmax of the predictor's own
+   ``VolumePredictor`` on the preprocessed case, K1-K4 launched and K5-K8
+   never; cases/s through ``predict_from_files`` after a warm-up pass,
+   over the 4 cases and over 12 (the last 8 outputs' write times give the
+   steady rate); K1's launch plan at the model batch the verb chose, and
+   on one case that predictor (bf16) and an fp32 one at the same batch
+   against themselves with every kernel wrapper switched to its plain
+   twin on the card (bf16: rel L2 within 5e-2; fp32: within 1e-3 x max);
+   the host-accumulator fallback on one volume (fp32, tile batch 4, a
+   budget too small for the accumulator) within 1e-5 x max of the device
+   path;
+   ``bench.py``'s configuration (automatic tile batch, bf16 transfer, 8
+   volumes after 1 warm-up): volumes/s, the chosen tile batch, each
+   autotune candidate's ms per tile and the peak memory;
+7. train: the ``nnUNetTrainer_MLAgg_2D_dt_MS`` recipe on the full-width
    flagship. One fp32 batch (batch 1, drop path off) on the card against a
    CPU copy of the network: the loss and every parameter gradient. Then 2
    warm-up and 10 timed bf16 steps at batch 10, 256x224, 4 classes, drop
@@ -73,8 +92,14 @@ failure exits non-zero:
    Then the same with ``fused_instance_norm`` on, its fp32 batch held
    against the default network on the card: K1, K4, K5, K7 and K8 must
    each be launched, K2, K3 and K6 never;
-7. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
+8. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
+
+``--only predict`` runs phases 1, 2 and 6 alone; ``--only serve-timing``
+runs phases 1 and 2 and then phase 5's default timing alone, in two
+windows, from the package under ``--root`` (default: this script's
+directory): run it for two checkouts in turns in one call to compare them.
+Neither prints the last two lines.
 
 Kernel times in the JSON line are per flagship forward at model batch 16,
 the sum over the launches one forward makes (K1 2, K2 8, K3 8, K4 16, K6 8,
@@ -93,10 +118,13 @@ default one, K6-K8 the fused one), K5's in the default timed train run.
 """
 from __future__ import annotations
 
+import argparse
+import contextlib
 import copy
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -183,6 +211,39 @@ PROFILED = {"mlla_front": ("front_mma_kernel", "front_kernel"),
             "local_attn_fused": ("local_attn_mma_kernel", "local_attn_kernel")}
 PROFILE_TRIES = 3  # torch.profiler can drop device records: a trace that
                    # holds fewer launches than the wrappers counted is taken again
+PREDICT_CASES = 4                        # cases of 1x10x320x260 through the predict verb
+PREDICT_STEADY_CASES = 12                # 4x the 3 export threads: a steady-state cases/s
+PREDICT_SPACING = (5.0, 1.0, 1.0)        # (z, y, x): the plan's in-plane spacing, no resampling
+TOL_PREDICT_AGREE = 0.999                # share of voxels equal to the predictor's own argmax
+TOL_HOST_FALLBACK = 1e-5                 # host accumulator vs the device one, fp32, x max|ref|
+# the trained-model folder the predict phase writes (a 2d plan at bench.py's
+# tile, ZScore, NiftiIO, 4 labels)
+PREDICT_PLANS = {
+    "dataset_name": "Dataset998_ChipSmoke", "plans_name": "nnUNetPlans",
+    "image_reader_writer": "NiftiIO", "transpose_forward": [0, 1, 2],
+    "transpose_backward": [0, 1, 2],
+    "original_median_spacing_after_transp": list(PREDICT_SPACING),
+    "original_median_shape_after_transp": [10, 320, 260],
+    "foreground_intensity_properties_per_channel": {"0": {
+        "mean": 0.5, "std": 0.29, "percentile_00_5": 0.005, "percentile_99_5": 0.995}},
+    "configurations": {"2d": {
+        "data_identifier": "nnUNetPlans_2d", "preprocessor_name": "DefaultPreprocessor",
+        "batch_size": 10, "patch_size": list(TILE), "spacing": list(PREDICT_SPACING[1:]),
+        "normalization_schemes": ["ZScoreNormalization"], "use_mask_for_norm": [False],
+        "resampling_fn_data": "resample_data_or_seg_to_shape",
+        "resampling_fn_data_kwargs": {"is_seg": False, "order": 3, "order_z": 0,
+                                      "force_separate_z": None},
+        "resampling_fn_seg": "resample_data_or_seg_to_shape",
+        "resampling_fn_seg_kwargs": {"is_seg": True, "order": 1, "order_z": 0,
+                                     "force_separate_z": None},
+        "resampling_fn_probabilities": "resample_data_or_seg_to_shape",
+        "resampling_fn_probabilities_kwargs": {"is_seg": False, "order": 1, "order_z": 0,
+                                               "force_separate_z": None},
+        "batch_dice": True}},
+}
+PREDICT_DATASET = {"channel_names": {"0": "MRI"}, "file_ending": ".nii.gz",
+                   "numTraining": 0,
+                   "labels": {"background": 0, "a": 1, "b": 2, "c": 3}}
 
 
 def fail(msg: str) -> None:
@@ -900,10 +961,7 @@ def phase_serve(torch, model, label, required, forbidden=()):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _ext.reset_launch_counts()
-    t0 = time.perf_counter()
-    pending = [pred.predict_device(v) for v in volumes]
-    outs = [pred.finalize(p) for p in pending]
-    elapsed = time.perf_counter() - t0
+    outs, elapsed, queued = serve_window(pred, volumes)
     launches = {k.name: k.launches for k in _ext.ALL_KERNELS}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for o in outs:
@@ -913,6 +971,8 @@ def phase_serve(torch, model, label, required, forbidden=()):
     log(f"  {vps:.4f} volumes/s ({elapsed:.3f} s for {len(volumes)}; the serving slice's first run "
         f"measured {SERVE_FIRST_VOLUMES_PER_S} on an H100 80GB HBM3 at 700 W), peak memory "
         f"{peak:.2f} GiB, model batch {pred.model_batch}")
+    log(f"  host ms of each predict_device call (queueing): "
+        f"{', '.join(f'{q:.1f}' for q in queued)}")
     log(f"  launches in the serve run: {launches}")
     for name in required:
         if launches[name] <= 0:
@@ -966,6 +1026,52 @@ def phase_serve(torch, model, label, required, forbidden=()):
         f"tail_kernel x0, local_attn_mma_kernel x{k6['local_attn_mma_kernel']}, "
         "local_attn_kernel x0, as required")
     return launches, vps
+
+
+def serve_window(pred, volumes) -> tuple:
+    """Every volume queued (``predict_device``), then each fetched: the
+    outputs, the seconds, and the host ms of each queueing call."""
+    queued, pending = [], []
+    t0 = time.perf_counter()
+    for v in volumes:
+        t = time.perf_counter()
+        pending.append(pred.predict_device(v))
+        queued.append(1e3 * (time.perf_counter() - t))
+    outs = [pred.finalize(p) for p in pending]
+    return outs, time.perf_counter() - t0, queued
+
+
+def serve_timing(torch, card: str) -> None:
+    """Phase 5's default serve timing alone, from the package under
+    ``REPO`` (``--root``): the flagship, 8 volumes of 1x10x320x260, tile
+    batch 4, bf16, mirror (0, 1), 1 warm-up volume, then two windows of the
+    8 volumes queued and fetched. The first window is phase 5's figure.
+    Run it for two trees in turns in one call to compare them."""
+    from mlagg_unet_torch import VolumePredictor, build_flagship
+
+    model = build_flagship(num_classes=4, seed=0, device="cuda", **DEFAULT)
+    rng = np.random.RandomState(0)
+    volumes = [rng.rand(1, 10, 320, 260).astype(np.float32) for _ in range(8)]
+    pred = VolumePredictor(model, TILE, 4, mirror_axes=(0, 1), tile_batch_size=4,
+                           compute_dtype=torch.bfloat16, device="cuda")
+    pred(volumes[0])
+    for window in (1, 2):
+        torch.cuda.synchronize()
+        _, elapsed, queued = serve_window(pred, volumes)
+        log(f"[serve timing] {REPO}: window {window}: {len(volumes) / elapsed:.4f} volumes/s "
+            f"({elapsed:.3f} s for {len(volumes)}); host ms of each predict_device call "
+            f"{', '.join(f'{q:.1f}' for q in queued)} | {card}")
+
+
+@contextlib.contextmanager
+def plain_twins(_ext):
+    """Every kernel wrapper runs its plain PyTorch twin, on the card too."""
+    use_plain = _ext.use_plain
+    _ext.use_plain = lambda t: True
+    try:
+        yield
+    finally:
+        _ext.use_plain = use_plain
 
 
 def synthetic_batch(torch, batch: int, seed: int = 0):
@@ -1102,7 +1208,231 @@ def phase_train(torch, fused_in: bool = False):
     return launches, ms
 
 
+def phase_predict(torch, card: str) -> dict:
+    """The predict verb on a trained-model folder this phase writes, then
+    bench.py's VolumePredictor configuration (automatic tile batch, bf16
+    transfer), the host-accumulator fallback against the device path, and
+    cases/s through ``predict_from_files``. Returns the verb run's launches."""
+    import tempfile
+
+    from mlagg_unet_torch import VolumePredictor, build_flagship
+    from mlagg_unet_torch.cli.entrypoints import predict_from_modelfolder_entry
+    from mlagg_unet_torch.imageio.nifti_io import NiftiIO, write_nifti
+    from mlagg_unet_torch.inference.export import export_prediction_from_logits
+    from mlagg_unet_torch.inference.predictor import NNUNetPredictor
+    from mlagg_unet_torch.ops import _ext
+    from mlagg_unet_torch.ops.selective_scan_cuda import scan_fwd_launch_plan
+    from mlagg_unet_torch.preprocessing.preprocessor import DefaultPreprocessor
+    from mlagg_unet_torch.training.checkpoint import save_checkpoint
+    from mlagg_unet_torch.utils.helpers import save_json
+    from mlagg_unet_torch.weights import state_dict_to_jax_tree
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_predict_") as tmp:
+        tmp = Path(tmp)
+        folder = tmp / "nnUNetTrainer_MLAgg_2D_dt_MS__nnUNetPlans__2d"
+        (folder / "fold_0").mkdir(parents=True)
+        save_json(PREDICT_PLANS, str(folder / "plans.json"))
+        save_json(PREDICT_DATASET, str(folder / "dataset.json"))
+        net = build_flagship(num_classes=4, seed=1, device="cpu", deep_supervision=True)
+        save_checkpoint({
+            "network_weights": state_dict_to_jax_tree(net.state_dict()),
+            "trainer_name": "nnUNetTrainer_MLAgg_2D_dt_MS",
+            "init_args": {"configuration": "2d", "fold": 0},
+            "inference_allowed_mirroring_axes": (0, 1)},
+            str(folder / "fold_0" / "checkpoint_final.ckpt"))
+        del net
+        cases = tmp / "imagesTs"
+        cases.mkdir()
+        rng = np.random.RandomState(0)
+        for i in range(PREDICT_CASES):
+            vol = rng.rand(10, 320, 260).astype(np.float32)
+            write_nifti(str(cases / f"case_{i:03d}_0000.nii.gz"), vol.transpose(2, 1, 0),
+                        PREDICT_SPACING[::-1])
+        # the steady-state folder repeats the 4 cases under new names
+        steady = tmp / "imagesTs_steady"
+        steady.mkdir()
+        for i in range(PREDICT_STEADY_CASES):
+            shutil.copyfile(cases / f"case_{i % PREDICT_CASES:03d}_0000.nii.gz",
+                            steady / f"case_{i:03d}_0000.nii.gz")
+        log(f"[predict] model folder (full-width flagship, seeded; 2d plan at "
+            f"{TILE[0]}x{TILE[1]}, ZScore, NiftiIO, 4 labels) and {PREDICT_CASES} cases of "
+            f"1x10x320x260 written in {time.perf_counter() - t_phase:.1f} s")
+
+        # the verb, as a user runs it: bf16, mirror TTA, automatic tile batch
+        out = tmp / "out"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _ext.reset_launch_counts()
+        t0 = time.perf_counter()
+        predict_from_modelfolder_entry(["-i", str(cases), "-o", str(out), "-m", str(folder),
+                                        "-device", "cuda"])
+        verb_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in _ext.ALL_KERNELS}
+        verb_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"  verb predict_from_modelfolder: {PREDICT_CASES} cases in {verb_s:.3f} s "
+            f"(model build, checkpoint load, memory probe and autotune included), peak "
+            f"memory {verb_peak:.2f} GiB | {card}")
+        log(f"  launches in the verb run: {launches}")
+        for name in SERVE_KERNELS:
+            if launches[name] <= 0:
+                fail(f"kernel {name} was not launched on the predict verb's path")
+        for name in ("selective_scan_bwd",) + FUSED_KERNELS:
+            if launches[name] != 0:
+                fail(f"kernel {name} was launched on the predict verb's path")
+
+        # the same predictor on the same folder: its outputs against the
+        # argmax of its VolumePredictor's own logits, then cases/s
+        pred = NNUNetPredictor()
+        pred.initialize_from_trained_model_folder(str(folder), None)
+        pred.predict_from_files(str(cases), str(tmp / "warm"))      # probe + autotune
+        vp = pred._ensure_volume_predictors()[0]
+        log(f"  NNUNetPredictor: tile batch {vp.last_tile_batch} (model batch "
+            f"{vp.model_batch}); autotune ms per tile {vp.autotune_ms} | {card}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.predict_from_files(str(cases), str(tmp / "timed"))
+        cases_s = PREDICT_CASES / (time.perf_counter() - t0)
+        log(f"  cases/s through predict_from_files: {cases_s:.4f} ({PREDICT_CASES} cases of "
+            f"1x10x320x260, bf16, mirror (0, 1), read, preprocess, export .nii.gz; "
+            f"latency-bound: the first read and the last export are in the window) | {card}")
+        # steady state: the rate at which the last 8 of 12 cases were written
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.predict_from_files(str(steady), str(tmp / "steady"))
+        window = time.perf_counter() - t0
+        done_at = sorted(f.stat().st_mtime for f in (tmp / "steady").glob("*.nii.gz"))
+        if len(done_at) != PREDICT_STEADY_CASES:
+            fail(f"steady-state run wrote {len(done_at)} of {PREDICT_STEADY_CASES} cases")
+        last = PREDICT_STEADY_CASES - PREDICT_CASES
+        log(f"  cases/s through predict_from_files over {PREDICT_STEADY_CASES} cases: "
+            f"{PREDICT_STEADY_CASES / window:.4f} over the window ({window:.3f} s), "
+            f"{last / (done_at[-1] - done_at[PREDICT_CASES - 1]):.4f} steady (the last "
+            f"{last} outputs' write times) | {card}")
+        # the host stages of one case, one after another: which sets the pace
+        rw, pre = NiftiIO(), DefaultPreprocessor()
+        stages, t0 = {}, time.perf_counter()
+        img, props = rw.read_images([str(cases / "case_000_0000.nii.gz")])
+        stages["read"], t0 = time.perf_counter() - t0, time.perf_counter()
+        data, _, props = pre.run_case_npy(img, None, props, pred.plans_manager,
+                                          pred.configuration_manager, pred.dataset_json)
+        stages["preprocess"], t0 = time.perf_counter() - t0, time.perf_counter()
+        logits = pred.predict_logits_from_preprocessed_data(data)
+        stages["volume (card, waited for)"], t0 = time.perf_counter() - t0, time.perf_counter()
+        export_prediction_from_logits(logits, props, pred.configuration_manager,
+                                      pred.plans_manager, pred.dataset_json,
+                                      str(tmp / "stage_case"))
+        stages["export"] = time.perf_counter() - t0
+        log("  host stages of case 0 run one after another (s): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()) + f" | {card}")
+        for i in range(PREDICT_CASES):
+            seg, props = rw.read_seg(str(out / f"case_{i:03d}.nii.gz"))
+            if seg.shape != (1, 10, 320, 260) or not set(np.unique(seg)) <= {0, 1, 2, 3}:
+                fail(f"predict output {i}: shape {seg.shape}, labels {np.unique(seg)}")
+            data, _, _ = pre.run_case([str(cases / f"case_{i:03d}_0000.nii.gz")], None,
+                                      pred.plans_manager, pred.configuration_manager,
+                                      pred.dataset_json)
+            agree = float((vp(data).argmax(0) == seg[0]).mean())
+            log(f"  case {i}: {seg.shape}, labels {np.unique(seg).tolist()}, "
+                f"{100 * agree:.4f} % of voxels equal the VolumePredictor's argmax "
+                f"(tol {100 * TOL_PREDICT_AGREE:g} %)")
+            if not agree >= TOL_PREDICT_AGREE:
+                fail(f"predict case {i}: only {agree:.6f} of voxels agree")
+
+        # the kernels at the shapes the verb gave them, against their plain
+        # twins: the verb's own predictor (bf16, the tile batch it chose) and
+        # an fp32 one at that batch, each with every kernel wrapper switched
+        # to its plain twin on the card
+        props = torch.cuda.get_device_properties(0)
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            log(f"  K1 plan at model batch {vp.model_batch} ({tag}): "
+                + str(scan_fwd_launch_plan(vp.model_batch, 2, SCAN_D, SCAN_L, dtype,
+                                           props.multi_processor_count,
+                                           props.shared_memory_per_block_optin)))
+        vp32 = VolumePredictor(pred.network, TILE, 4, (0, 1),
+                               tile_batch_size=vp.last_tile_batch, device="cuda")
+        for tag, p in (("bf16", vp), ("fp32", vp32)):
+            _ext.reset_launch_counts()
+            got = p(data)
+            ran = {k.name: k.launches for k in _ext.ALL_KERNELS}
+            _ext.reset_launch_counts()
+            with plain_twins(_ext):
+                ref = p(data)
+            if any(k.launches for k in _ext.ALL_KERNELS):
+                fail(f"the plain-twin run of the {tag} predictor launched a kernel")
+            if any(ran[name] <= 0 for name in SERVE_KERNELS) or p.model_batch != vp.model_batch:
+                fail(f"the {tag} predictor ran K1-K4 {[ran[n] for n in SERVE_KERNELS]} times "
+                     f"at model batch {p.model_batch} (want > 0 each at {vp.model_batch})")
+            err, peak = float(np.abs(got - ref).max()), float(np.abs(ref).max())
+            l2 = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+            agree = float((got.argmax(0) == ref.argmax(0)).mean())
+            ok = l2 <= TOL_SERVE_REL_L2 if tag == "bf16" else err <= TOL_MODEL * peak
+            log(f"  case {PREDICT_CASES - 1}, {tag}, model batch {p.model_batch}: kernels "
+                f"(K1-K4 {[ran[n] for n in SERVE_KERNELS]} launches) vs plain twins on "
+                f"the card: rel L2 {l2:.3e}, max|diff| {err:.3e} of max {peak:.3e}, argmax "
+                f"{100 * agree:.4f} % equal (tol "
+                + (f"rel L2 {TOL_SERVE_REL_L2:g})" if tag == "bf16"
+                   else f"{TOL_MODEL:g} x max)") + f" | {card}")
+            if not ok:
+                fail(f"predict {tag}: the kernels at model batch {p.model_batch} disagree "
+                     f"with their plain twins")
+        del vp32, got, ref
+
+        # the host-accumulator fallback on one volume: fp32, pinned batch, a
+        # budget too small for the accumulator, against the device path
+        vol = data
+        dev = VolumePredictor(pred.network, TILE, 4, (0, 1), tile_batch_size=4, device="cuda")
+        host = VolumePredictor(pred.network, TILE, 4, (0, 1), tile_batch_size=4,
+                               budget_fraction=1e-6, device="cuda")
+        calls = []
+        run_host = host._run_host
+        host._run_host = lambda *a: calls.append(1) or run_host(*a)
+        ref, got = dev(vol), host(vol)
+        if calls != [1]:
+            fail(f"the host-accumulator fallback ran {len(calls)} times (want 1)")
+        err = float(np.abs(got - ref).max())
+        bound = TOL_HOST_FALLBACK * float(np.abs(ref).max())
+        log(f"  host accumulator vs device, fp32, tile batch 4: max|diff| {err:.3e} "
+            f"(tol {bound:.3e} = {TOL_HOST_FALLBACK:g} x max|ref|) | {card}")
+        if not err <= bound:
+            fail(f"host-accumulator fallback disagrees: {err:.3e} > {bound:.3e}")
+        del dev, host
+
+        # bench.py's configuration: automatic tile batch, bf16 compute and
+        # transfer, 8 volumes after 1 warm-up, every volume queued then fetched
+        rng = np.random.RandomState(0)
+        volumes = [rng.rand(1, 10, 320, 260).astype(np.float32) for _ in range(8)]
+        bench = VolumePredictor(pred.network, TILE, 4, (0, 1), compute_dtype=torch.bfloat16,
+                                transfer_dtype=torch.bfloat16, device="cuda")
+        bench(volumes[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pending = [bench.predict_device(v) for v in volumes]
+        outs = [bench.finalize(p) for p in pending]
+        bench_vps = len(volumes) / (time.perf_counter() - t0)
+        bench_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if any(o.shape != (4, 10, 320, 260) or not np.isfinite(o).all() for o in outs):
+            fail("bench-configuration output not finite or misshapen")
+        log(f"  bench.py configuration: {bench_vps:.4f} volumes/s, tile batch "
+            f"{bench.last_tile_batch} (model batch {bench.model_batch}), autotune ms per "
+            f"tile {bench.autotune_ms}, peak memory {bench_peak:.2f} GiB | {card}")
+        del pred, vp, bench
+    log(f"[predict] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> None:
+    global REPO
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
+    ap.add_argument("--only", choices=("predict", "serve-timing"),
+                    help="run the device and build phases and this one alone, with no "
+                         "kernels line and no final line")
+    ap.add_argument("--root", type=Path, default=REPO,
+                    help="checkout whose mlagg_unet_torch is imported (default: this "
+                         "script's directory)")
+    opts = ap.parse_args()
+    REPO = opts.root.resolve()
     import torch
 
     t_start = time.perf_counter()
@@ -1132,6 +1462,10 @@ def main() -> None:
     def done(phase):
         log(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s")
 
+    if opts.only:
+        (serve_timing if opts.only == "serve-timing" else phase_predict)(torch, card)
+        done(opts.only)
+        return
     report = Report(sfu_exp_per_s(torch))
     phase_kernels(torch, report)
     phase_scan_train(torch, report)
@@ -1145,6 +1479,8 @@ def main() -> None:
     serve_f, vps_f = phase_serve(torch, fused, "fused", SERVE_KERNELS + FUSED_KERNELS)
     del fused
     done("serve")
+    predict = phase_predict(torch, card)
+    done("predict")
     train, step_ms = phase_train(torch)
     done("train (default)")
     train_f, step_ms_f = phase_train(torch, fused_in=True)
@@ -1157,6 +1493,8 @@ def main() -> None:
         fail(f"kernels measured {sorted(r['name'] for r in kernels)} != built {sorted(launches)}")
     log(f"[serve] volumes_per_s default {vps} fused {vps_f}")
     log(f"[train] ms_per_step default {step_ms} fused_instance_norm {step_ms_f}")
+    log(f"[predict] verb launches K1 {predict['selective_scan_fwd']}, K2 "
+        f"{predict['mlla_front']}, K3 {predict['mlla_tail']}, K4 {predict['flash_attn_fwd']}")
     log(f"[train] fused_instance_norm launches per step: K7 "
         f"{train_f['instance_norm_stats'] / TRAIN_STEPS:g}, K8 "
         f"{train_f['instance_norm_apply'] / TRAIN_STEPS:g}")

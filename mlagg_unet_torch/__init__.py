@@ -6,8 +6,10 @@ the numerical reference. This package imports ``torch`` and never ``jax``,
 layouts: NHWC activations in the models, ``(b, g, d, l)`` for the selective
 scan and ``(b, h, l, d)`` for attention.
 
-Entry points (``build_flagship``, ``VolumePredictor``, ``Trainer``) run on
-the GPU unless the caller passes ``device="cpu"``; without a GPU they raise.
+Entry points (``build_flagship``, ``VolumePredictor``, ``Trainer``,
+``inference.predictor.NNUNetPredictor`` and the predict verbs of
+``cli/entrypoints.py``) run on the GPU unless the caller passes
+``device="cpu"``; without a GPU they raise.
 """
 from mlagg_unet_torch.device import resolve_device
 from mlagg_unet_torch.inference.sliding_window import VolumePredictor

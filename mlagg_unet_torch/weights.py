@@ -64,3 +64,43 @@ def state_dict_to_jax_params(state_dict: Mapping[str, torch.Tensor],
             arr = arr.transpose(np.argsort(_kernel_perm(key, arr.ndim)))
         out[key] = np.ascontiguousarray(arr)
     return out
+
+
+def jax_key(name: str, ndim: int) -> str:
+    """The flat JAX key of a state-dict entry: a ``weight`` of rank >= 2 is
+    a ``kernel``, of rank 1 a ``scale``."""
+    parts = name.split(".")
+    if parts[-1] == "weight":
+        parts[-1] = "kernel" if ndim >= 2 else "scale"
+    return "/".join(parts)
+
+
+def state_dict_to_jax_tree(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """A state_dict as the JAX package's nested param tree of numpy arrays
+    (what its checkpoints hold under ``network_weights``)."""
+    flat = state_dict_to_jax_params(
+        state_dict, [jax_key(k, v.ndim) for k, v in state_dict.items()])
+    tree: dict = {}
+    for key, arr in flat.items():
+        *path, leaf = key.split("/")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = arr
+    return tree
+
+
+def jax_tree_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Inverse of ``state_dict_to_jax_tree``: a nested param tree to a
+    state_dict for ``load_state_dict(strict=True)``."""
+    flat = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v, prefix + k + "/")
+            else:
+                flat[prefix + k] = v
+
+    walk(tree, "")
+    return jax_params_to_state_dict(flat)
