@@ -92,14 +92,40 @@ failure exits non-zero:
    Then the same with ``fused_instance_norm`` on, its fp32 batch held
    against the default network on the card: K1, K4, K5, K7 and K8 must
    each be launched, K2, K3 and K6 never;
-8. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
+8. train verb: the port's ``train_entry`` on the card, default
+   configuration, fold 0 of a dataset the phase writes (10 cases of
+   1x10x320x260 ``.nii.gz`` from ``RandomState(0)``, smooth blobs labelled
+   by 3 thresholds of the image, preprocessed by the port's
+   ``run_case_save``; the predict phase's 2d plan at 256x224, batch 10, 4
+   labels), with the flagship recipe cut to 3 epochs of 20 steps, 5
+   validation steps and 1 warm-up epoch (registered here only). Every loss
+   finite; checkpoint_final, _best and _latest written; a Dice per label in
+   ``validation/summary.json``; K1, K4 and K5 launched in the training
+   steps and no other kernel; K1-K4 in the validation steps and the final
+   validation and K5-K8 not; K2 and K3 nowhere else. Then ``--c`` with the
+   recipe at 4 epochs: it loads checkpoint_final, trains one epoch of 20
+   steps and keeps the logger's first three epochs. Then the predict verb on
+   the folder it wrote: shape and labels. On the first training batch the
+   verb's loader produced, from the verb's final weights, the fp32 loss and
+   every parameter gradient with the kernels against every wrapper
+   switched to its plain twin on the card (phase 7's tolerances), and the
+   first validation batch's logits in bf16 (rel L2 within 5e-2) and fp32
+   (within 1e-3 x max). Printed beside the card's name and power limit:
+   seconds per epoch, ms per step and images/s with the loader (median over
+   epochs 2-3), the step on one cached batch, the loader's batches/s alone
+   on threads and on fork processes (a worker that hangs fails the phase),
+   the device busy share of 5 profiled steps fed by the loader, the peak
+   memory, the losses and pseudo dice per epoch and the final validation's
+   seconds per case;
+9. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
-``--only predict`` runs phases 1, 2 and 6 alone; ``--only serve-timing``
+``--only predict`` runs phases 1, 2 and 6 alone, ``--only train-verb``
+phases 1, 2 and 8; ``--only serve-timing``
 runs phases 1 and 2 and then phase 5's default timing alone, in two
 windows, from the package under ``--root`` (default: this script's
 directory): run it for two checkouts in turns in one call to compare them.
-Neither prints the last two lines.
+None of them prints the last two lines.
 
 Kernel times in the JSON line are per flagship forward at model batch 16,
 the sum over the launches one forward makes (K1 2, K2 8, K3 8, K4 16, K6 8,
@@ -244,6 +270,16 @@ PREDICT_PLANS = {
 PREDICT_DATASET = {"channel_names": {"0": "MRI"}, "file_ending": ".nii.gz",
                    "numTraining": 0,
                    "labels": {"background": 0, "a": 1, "b": 2, "c": 3}}
+# the train verb's dataset: 10 cases of 1x10x320x260 (smooth seeded blobs,
+# labels = 3 thresholds of the image), the predict phase's 2d plan (batch 10,
+# 256x224, 4 labels), the flagship recipe cut to 3 epochs of 20 steps
+TRAIN_VERB_DATASET = "Dataset996_ChipSmokeTrain"
+TRAIN_VERB_CASES = 10
+TRAIN_VERB_THRESHOLDS = (-0.5, 0.3, 1.0)
+TRAIN_VERB_RECIPE = "nnUNetTrainer_MLAgg_2D_dt_MS_chip_smoke"
+TRAIN_VERB_EPOCHS, TRAIN_VERB_STEPS, TRAIN_VERB_VAL_STEPS, TRAIN_VERB_WARMUP = 3, 20, 5, 1
+TRAIN_VERB_PROFILED_STEPS = 5
+LOADER_RATE_BATCHES = 20                 # timed after the prefetch queue (6) is drained
 
 
 def fail(msg: str) -> None:
@@ -906,12 +942,13 @@ def is_port_kernel(key: str, name: str) -> bool:
     return re.match(rf"(void )?\(anonymous namespace\)::{name}[<(]", key) is not None
 
 
-def profile(torch, label, fn) -> tuple:
+def profile(torch, label, fn, stats: dict = None) -> tuple:
     """Device time by kernel over one call of ``fn`` (which ends in a sync),
     the port's kernels against the rest, and the device's busy share of the
     wall time (torch.profiler, whose own host overhead is in the wall time).
     Returns two dicts, each port kernel's launch count and device ms in the
-    trace ((None, None): no device time recorded)."""
+    trace ((None, None): no device time recorded); ``stats``, when given,
+    receives the wall and busy ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as trace
 
@@ -926,6 +963,8 @@ def profile(torch, label, fn) -> tuple:
         log("  profile: no device time recorded (not measured)")
         return None, None
     busy_ms = sum(t for _, t, _ in dev)
+    if stats is not None:
+        stats.update(wall_ms=wall_ms, busy_ms=busy_ms)
     ours = sum(t for k, t, _ in dev if any(is_port_kernel(k, n) for n in PORT_KERNEL_NAMES))
     log(f"  profile of {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%), {sum(c for *_, c in dev)} device ops; "
@@ -1422,10 +1461,441 @@ def phase_predict(torch, card: str) -> dict:
     return launches
 
 
+def write_train_dataset(root: Path) -> None:
+    """The train verb's raw dataset (imagesTr, labelsTr), its ground truth and
+    its preprocessed 2d cases (the port's ``run_case_save``), written on 8
+    threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from scipy.ndimage import gaussian_filter
+
+    from mlagg_unet_torch.imageio.nifti_io import write_nifti
+    from mlagg_unet_torch.plans.plans_handler import PlansManager
+    from mlagg_unet_torch.preprocessing.preprocessor import DefaultPreprocessor
+    from mlagg_unet_torch.utils.helpers import save_json
+
+    plans = dict(PREDICT_PLANS, dataset_name=TRAIN_VERB_DATASET)
+    dataset = dict(PREDICT_DATASET, numTraining=TRAIN_VERB_CASES)
+    raw, pre = root / "raw" / TRAIN_VERB_DATASET, root / "preprocessed" / TRAIN_VERB_DATASET
+    for d in (raw / "imagesTr", raw / "labelsTr", pre / "gt_segmentations",
+              pre / "nnUNetPlans_2d"):
+        d.mkdir(parents=True)
+    save_json(plans, str(pre / "nnUNetPlans.json"), sort_keys=False)
+    save_json(dataset, str(pre / "dataset.json"), sort_keys=False)
+    rng = np.random.RandomState(0)
+    images = []
+    for _ in range(TRAIN_VERB_CASES):   # smooth blobs a few pixels wide, unit std
+        img = gaussian_filter(rng.randn(10, 320, 260).astype(np.float32), (0, 4, 4))
+        images.append(img / img.std())
+    pm = PlansManager(plans)
+    cm = pm.get_configuration("2d")
+    spacing = PREDICT_SPACING[::-1]
+
+    def write(i):
+        img = images[i]
+        lab = np.digitize(img, TRAIN_VERB_THRESHOLDS).astype(np.uint8)
+        name = f"case_{i:03d}"
+        write_nifti(str(raw / "imagesTr" / f"{name}_0000.nii.gz"), img.transpose(2, 1, 0), spacing)
+        write_nifti(str(raw / "labelsTr" / f"{name}.nii.gz"), lab.transpose(2, 1, 0), spacing)
+        shutil.copyfile(raw / "labelsTr" / f"{name}.nii.gz",
+                        pre / "gt_segmentations" / f"{name}.nii.gz")
+        DefaultPreprocessor().run_case_save(
+            str(pre / "nnUNetPlans_2d" / name), [str(raw / "imagesTr" / f"{name}_0000.nii.gz")],
+            str(raw / "labelsTr" / f"{name}.nii.gz"), pm, cm, dataset)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(TRAIN_VERB_CASES)))
+
+
+def register_train_verb_recipe(epochs: int) -> None:
+    """The flagship recipe cut to ``epochs`` epochs of TRAIN_VERB_STEPS steps,
+    TRAIN_VERB_VAL_STEPS validation steps and TRAIN_VERB_WARMUP warm-up
+    epochs, under its own name (registered here only)."""
+    from dataclasses import replace
+
+    from mlagg_unet_torch.training import registry
+
+    registry.register_trainer(replace(
+        registry.get_trainer_config("nnUNetTrainer_MLAgg_2D_dt_MS"), name=TRAIN_VERB_RECIPE,
+        num_epochs=epochs, num_iterations_per_epoch=TRAIN_VERB_STEPS,
+        num_val_iterations_per_epoch=TRAIN_VERB_VAL_STEPS, warmup_epochs=TRAIN_VERB_WARMUP))
+
+
+@contextlib.contextmanager
+def attribute_launches(_ext, cls, method, counts: dict, calls: list = None):
+    """While active, each call of ``cls.method`` adds the kernel launches it
+    made to ``counts`` (a wrapper launches in the calling thread), and its
+    host (start, end) times to ``calls``."""
+    orig = getattr(cls, method)
+
+    def wrapped(*args, **kwargs):
+        before = {k.name: k.launches for k in _ext.ALL_KERNELS}
+        t0 = time.perf_counter()
+        try:
+            return orig(*args, **kwargs)
+        finally:
+            if calls is not None:
+                calls.append((t0, time.perf_counter()))
+            for k in _ext.ALL_KERNELS:
+                counts[k.name] = counts.get(k.name, 0) + k.launches - before[k.name]
+
+    setattr(cls, method, wrapped)
+    try:
+        yield
+    finally:
+        setattr(cls, method, orig)
+
+
+def loader_figures(torch, trainer, backend: str, profiled_steps: int = 0) -> dict:
+    """The training loader of one backend: its batches/s with nothing
+    consuming them (after its prefetch queue is drained, LOADER_RATE_BATCHES
+    batches timed; a loader that has not delivered them within 120 s, a hung
+    worker, fails the phase), then the ms per step of TRAIN_STEPS steps it
+    feeds (after TRAIN_WARMUP), and with ``profiled_steps`` a profile of as
+    many more (``stats``: wall and device busy ms)."""
+    import os
+    import threading
+
+    old = os.environ.get("MLAGG_DA_BACKEND")
+    os.environ["MLAGG_DA_BACKEND"] = backend
+    try:
+        train, val = trainer.get_dataloaders()
+    finally:
+        if old is None:
+            del os.environ["MLAGG_DA_BACKEND"]
+        else:
+            os.environ["MLAGG_DA_BACKEND"] = old
+    val.stop()
+    out = {}
+
+    def drain():
+        for _ in range(6):
+            train.get_batch()
+        t0 = time.perf_counter()
+        for _ in range(LOADER_RATE_BATCHES):
+            train.get_batch()
+        out["rate"] = LOADER_RATE_BATCHES / (time.perf_counter() - t0)
+
+    def steps(n):
+        for _ in range(n):
+            trainer.step.train_step(*trainer.feed.batch(train.get_batch()))
+        torch.cuda.synchronize()
+
+    try:
+        worker = threading.Thread(target=drain, daemon=True)
+        worker.start()
+        worker.join(timeout=120)
+        if "rate" not in out:
+            fail(f"the {backend} training loader delivered no {6 + LOADER_RATE_BATCHES} "
+                 "batches in 120 s")
+        steps(TRAIN_WARMUP)
+        t0 = time.perf_counter()
+        steps(TRAIN_STEPS)
+        out["step_ms"] = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+        if profiled_steps:
+            out["stats"] = {}
+            counts, _ = profile(torch, f"{profiled_steps} training steps fed by the {backend} "
+                                f"loader", lambda: steps(profiled_steps), out["stats"])
+            if counts is None:
+                fail("the profile of the training steps fed by the loader recorded no "
+                     "device time")
+    finally:
+        train.stop()
+    return out
+
+
+def phase_train_verb(torch, card: str, cached_step_ms=None) -> dict:
+    """The port's train verb end to end on the card on a dataset this phase
+    writes, its resume and the predict verb on the folder it wrote; the
+    kernels at the verb's own batch against their plain twins; the loader,
+    step and epoch figures. Returns the verb run's launches."""
+    import tempfile
+
+    from mlagg_unet_torch import paths
+
+    t_phase = time.perf_counter()
+    saved = (paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        tmp = Path(tmp)
+        paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = (
+            str(tmp / "raw"), str(tmp / "preprocessed"), str(tmp / "results"))
+        try:
+            write_train_dataset(tmp)
+            log(f"[train verb] {TRAIN_VERB_CASES} cases of 1x10x320x260 written and "
+                f"preprocessed in {time.perf_counter() - t_phase:.1f} s")
+            launches, first, step_ms = train_verb_run(torch, card, tmp)
+            train_verb_kernels(torch, card, tmp, first)
+            train_verb_timing(torch, card, tmp, first, step_ms, cached_step_ms)
+        finally:
+            paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = saved
+    log(f"[train verb] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _verb_folder(tmp: Path) -> Path:
+    return tmp / "results" / TRAIN_VERB_DATASET / f"{TRAIN_VERB_RECIPE}__nnUNetPlans__2d"
+
+
+def train_verb_run(torch, card: str, tmp: Path):
+    """The verb, its resume and the predict verb, with their checks. Returns
+    the verb run's launches, the first training and validation batches its
+    loaders produced, and its ms per step with the loader."""
+    from mlagg_unet_torch.cli.entrypoints import predict_from_modelfolder_entry, train_entry
+    from mlagg_unet_torch.imageio.nifti_io import NiftiIO
+    from mlagg_unet_torch.ops import _ext
+    from mlagg_unet_torch.training.checkpoint import load_checkpoint
+    from mlagg_unet_torch.training.trainer import NNUNetTrainer, Trainer
+    from mlagg_unet_torch.utils.helpers import load_json
+
+    verb = ["996", "2d", "0", "-tr", TRAIN_VERB_RECIPE, "-device", "cuda"]
+    folder = _verb_folder(tmp) / "fold_0"
+    first, steps, finals = {}, [], []
+    get_loaders = NNUNetTrainer.get_dataloaders
+
+    def recording_loaders(self):
+        """The verb's loaders, each keeping the first batch it hands out."""
+        loaders = get_loaders(self)
+        for key, loader in zip(("train", "val"), loaders):
+            def get_batch(get=loader.get_batch, key=key):
+                batch = get()
+                first.setdefault(key, batch)
+                return batch
+            loader.get_batch = get_batch
+        return loaders
+
+    register_train_verb_recipe(TRAIN_VERB_EPOCHS)
+    train_c, val_c, final_c = {}, {}, {}
+    NNUNetTrainer.get_dataloaders = recording_loaders
+    try:
+        with attribute_launches(_ext, Trainer, "train_step", train_c, steps), \
+                attribute_launches(_ext, Trainer, "val_step", val_c), \
+                attribute_launches(_ext, NNUNetTrainer, "perform_actual_validation", final_c,
+                                   finals):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _ext.reset_launch_counts()
+            t0 = time.perf_counter()
+            train_entry(verb)
+            verb_s = time.perf_counter() - t0
+            launches = {k.name: k.launches for k in _ext.ALL_KERNELS}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        NNUNetTrainer.get_dataloaders = get_loaders
+    ck = load_checkpoint(str(folder / "checkpoint_final.ckpt"))
+    lg = ck["logging"]
+    epoch_s = [e - s for s, e in zip(lg["epoch_start_timestamps"], lg["epoch_end_timestamps"])]
+    log(f"  verb train {' '.join(verb)}: {verb_s:.1f} s ({TRAIN_VERB_EPOCHS} epochs of "
+        f"{TRAIN_VERB_STEPS} steps + {TRAIN_VERB_VAL_STEPS} validation steps, unpacking, "
+        f"checkpoints and the final validation), peak memory {peak:.2f} GiB | {card}")
+    log(f"  seconds per epoch (training and validation steps): "
+        f"{', '.join(f'{t:.3f}' for t in epoch_s)} | {card}")
+    log(f"  mean loss per epoch: train {['%.5f' % v for v in lg['train_losses']]}, "
+        f"validation {['%.5f' % v for v in lg['val_losses']]}; pseudo dice "
+        f"{['%.4f' % v for v in lg['mean_fg_dice']]}, EMA {['%.4f' % v for v in lg['ema_fg_dice']]}")
+    log(f"  launches in the verb run: {launches}")
+    log(f"  of them in the {len(steps)} training steps: {train_c}")
+    log(f"  in the validation steps: {val_c}")
+    log(f"  in the final validation: {final_c}")
+    if len(steps) != TRAIN_VERB_EPOCHS * TRAIN_VERB_STEPS:
+        fail(f"the verb ran {len(steps)} training steps (want "
+             f"{TRAIN_VERB_EPOCHS * TRAIN_VERB_STEPS})")
+    if not all(math.isfinite(v) for v in lg["train_losses"] + lg["val_losses"]):
+        fail(f"a loss of the verb run is not finite: {lg['train_losses']} {lg['val_losses']}")
+    if ck["current_epoch"] != TRAIN_VERB_EPOCHS:
+        fail(f"checkpoint_final holds epoch {ck['current_epoch']} (want {TRAIN_VERB_EPOCHS})")
+    for name in ("checkpoint_final.ckpt", "checkpoint_best.ckpt", "checkpoint_latest.ckpt"):
+        if not (folder / name).is_file():
+            fail(f"the verb wrote no {name}")
+    summary = load_json(str(folder / "validation" / "summary.json"))
+    dice = {k: v["Dice"] for k, v in summary["mean"].items()}
+    log(f"  validation/summary.json: {len(summary['metric_per_case'])} cases, mean Dice per "
+        f"label {dice}, foreground mean {summary['foreground_mean']['Dice']:.4f}")
+    if sorted(dice) != ["1", "2", "3"]:
+        fail(f"summary.json has Dice for labels {sorted(dice)} (want 1, 2, 3)")
+    for name in TRAIN_KERNELS:
+        if train_c.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched in the verb's training steps")
+    for name in set(launches) - set(TRAIN_KERNELS):
+        if train_c.get(name, 0) != 0:
+            fail(f"kernel {name} was launched in the verb's training steps")
+    for counts, where in ((val_c, "validation steps"), (final_c, "final validation")):
+        for name in SERVE_KERNELS:
+            if counts.get(name, 0) <= 0:
+                fail(f"kernel {name} was not launched in the verb's {where}")
+        for name in ("selective_scan_bwd",) + FUSED_KERNELS:
+            if counts.get(name, 0) != 0:
+                fail(f"kernel {name} was launched in the verb's {where}")
+    for name in ("mlla_front", "mlla_tail"):
+        if launches[name] != val_c[name] + final_c[name]:
+            fail(f"kernel {name} was launched outside the validation steps and the final "
+                 f"validation ({launches[name]} against {val_c[name]} + {final_c[name]})")
+    for name in FUSED_KERNELS:
+        if launches[name] != 0:
+            fail(f"kernel {name} was launched in the verb run")
+
+    # ms per step with the real loader: the steps' start-to-start times in
+    # epochs 2 and 3 (each epoch's first step waits on its loader's start)
+    per_epoch = [[t for t, _ in steps[e * TRAIN_VERB_STEPS:(e + 1) * TRAIN_VERB_STEPS]]
+                 for e in range(TRAIN_VERB_EPOCHS)]
+    gaps = [1e3 * (b - a) for ep in per_epoch[1:] for a, b in zip(ep, ep[1:])]
+    step_ms = statistics.median(gaps)
+    n_val = len(summary["metric_per_case"])
+    log(f"  ms per training step with the loader (median of {len(gaps)} in epochs 2-3): "
+        f"{step_ms:.2f}, {TRAIN_BATCH * 1e3 / step_ms:.3f} images/s | {card}")
+
+    # the resume: one more epoch in the recipe, --c loads checkpoint_final
+    register_train_verb_recipe(TRAIN_VERB_EPOCHS + 1)
+    resumed, resumed_steps = {}, []
+    try:
+        with attribute_launches(_ext, Trainer, "train_step", resumed, resumed_steps), \
+                attribute_launches(_ext, NNUNetTrainer, "perform_actual_validation", {},
+                                   finals):
+            train_entry(verb + ["--c"])
+    finally:
+        register_train_verb_recipe(TRAIN_VERB_EPOCHS)
+    ck2 = load_checkpoint(str(folder / "checkpoint_final.ckpt"))
+    lg2 = ck2["logging"]
+    n_new = len(resumed_steps)
+    log(f"  resumed with --c: checkpoint_final of epoch {ck['current_epoch']}, trained "
+        f"{n_new} steps, now epoch {ck2['current_epoch']}; train losses "
+        f"{['%.5f' % v for v in lg2['train_losses']]}")
+    if n_new != TRAIN_VERB_STEPS or ck2["current_epoch"] != TRAIN_VERB_EPOCHS + 1:
+        fail(f"the resume trained {n_new} steps to epoch {ck2['current_epoch']} (want "
+             f"{TRAIN_VERB_STEPS} to {TRAIN_VERB_EPOCHS + 1})")
+    for key in ("train_losses", "val_losses", "mean_fg_dice", "ema_fg_dice",
+                "epoch_start_timestamps"):
+        if lg2[key][:TRAIN_VERB_EPOCHS] != lg[key] or len(lg2[key]) != TRAIN_VERB_EPOCHS + 1:
+            fail(f"the resumed logger's {key} does not continue the first run's")
+    if not math.isfinite(lg2["train_losses"][-1]):
+        fail("the resumed epoch's loss is not finite")
+    val_s = [b - a for a, b in finals]
+    log(f"  final validation of {n_val} cases (bf16, tile batch 4, mirror (0, 1), export and "
+        f"evaluation included): {', '.join(f'{t:.2f}' for t in val_s)} s in the first run and "
+        f"the resume, {val_s[-1] / n_val:.3f} s per case in the resume | {card}")
+
+    # the predict verb on the folder the train verb wrote
+    cases = tmp / "imagesTs"
+    cases.mkdir()
+    for i in range(2):
+        shutil.copyfile(tmp / "raw" / TRAIN_VERB_DATASET / "imagesTr" / f"case_{i:03d}_0000.nii.gz",
+                        cases / f"case_{i:03d}_0000.nii.gz")
+    out = tmp / "predicted"
+    t0 = time.perf_counter()
+    predict_from_modelfolder_entry(["-i", str(cases), "-o", str(out), "-m",
+                                    str(_verb_folder(tmp)), "-f", "0", "-device", "cuda"])
+    for i in range(2):
+        seg, _ = NiftiIO().read_seg(str(out / f"case_{i:03d}.nii.gz"))
+        labels = np.unique(seg)
+        if seg.shape != (1, 10, 320, 260) or not set(labels) <= {0, 1, 2, 3}:
+            fail(f"predict verb on the trained folder, case {i}: {seg.shape}, labels {labels}")
+    log(f"  predict verb on the trained folder: 2 cases in {time.perf_counter() - t0:.1f} s, "
+        f"shape (1, 10, 320, 260), labels {labels.tolist()}")
+    return launches, first, step_ms
+
+
+def train_verb_kernels(torch, card: str, tmp: Path, first: dict) -> None:
+    """The kernels at the verb's own batches against their plain twins on
+    the card, from the verb's final weights: the fp32 loss and every
+    parameter gradient of the first training batch its loader produced (drop
+    path off), and the first validation batch's logits in bf16 and fp32."""
+    from mlagg_unet_torch.ops import _ext
+    from mlagg_unet_torch.training.checkpoint import load_checkpoint
+    from mlagg_unet_torch.training.trainer import DeviceFeeder, Trainer
+    from mlagg_unet_torch.weights import jax_tree_to_state_dict
+
+    ck = load_checkpoint(str(_verb_folder(tmp) / "fold_0" / "checkpoint_final.ckpt"))
+    tr = Trainer(TRAIN_VERB_RECIPE, TILE, TRAIN_BATCH, 1, 4, batch_dice=True, seed=0,
+                 device="cuda", compute_dtype=torch.float32,
+                 network_overrides=dict(drop_path_rate=0.0, skip_drop_path=0.0))
+    tr.network.load_state_dict(jax_tree_to_state_dict(ck["network_weights"]), strict=True)
+    feed = DeviceFeeder(torch.device("cuda"))
+    x, y = feed.batch(first["train"])
+    log(f"[train verb] kernels vs plain twins on the verb's first training batch "
+        f"{tuple(x.shape)} (augmented; labels {torch.unique(y).tolist()}), fp32, drop path off")
+    _ext.reset_launch_counts()
+    l_got, g_got = train_grads(tr, tr.network, x, y)
+    ran = {k.name: k.launches for k in _ext.ALL_KERNELS}
+    _ext.reset_launch_counts()
+    with plain_twins(_ext):
+        l_ref, g_ref = train_grads(tr, tr.network, x, y)
+    if any(k.launches for k in _ext.ALL_KERNELS):
+        fail("the plain-twin run of the training batch launched a kernel")
+    if any(ran[n] <= 0 for n in TRAIN_KERNELS):
+        fail(f"the training batch ran K1, K4, K5 {[ran[n] for n in TRAIN_KERNELS]} times")
+    log(f"  launches with the kernels: {ran}")
+    compare_grads(torch, "kernels vs plain twins at the verb's batch", l_got, g_got, l_ref, g_ref)
+    del g_got, g_ref
+    xv, _ = feed.batch(first["val"])
+    for tag, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        net = copy.deepcopy(tr.network).to(dtype).eval()
+        with torch.no_grad():
+            _ext.reset_launch_counts()
+            got = net(xv.to(dtype))[0].float()
+            ran = {k.name: k.launches for k in _ext.ALL_KERNELS}
+            _ext.reset_launch_counts()
+            with plain_twins(_ext):
+                ref = net(xv.to(dtype))[0].float()
+        if any(k.launches for k in _ext.ALL_KERNELS):
+            fail(f"the plain-twin run of the {tag} validation batch launched a kernel")
+        if any(ran[n] <= 0 for n in SERVE_KERNELS):
+            fail(f"the {tag} validation batch ran K1-K4 {[ran[n] for n in SERVE_KERNELS]} times")
+        err, peak = (got - ref).abs().max().item(), ref.abs().max().item()
+        l2 = ((got - ref).norm() / ref.norm()).item()
+        ok = l2 <= TOL_SERVE_REL_L2 if tag == "bf16" else err <= TOL_MODEL * peak
+        log(f"  validation batch {tuple(xv.shape)}, {tag}, eval: kernels (K1-K4 "
+            f"{[ran[n] for n in SERVE_KERNELS]} launches) vs plain twins: rel L2 {l2:.3e}, "
+            f"max|diff| {err:.3e} of max {peak:.3e} (tol "
+            + (f"rel L2 {TOL_SERVE_REL_L2:g})" if tag == "bf16" else f"{TOL_MODEL:g} x max)")
+            + f" | {card}")
+        if not ok:
+            fail(f"the {tag} validation batch's logits disagree with the plain twins'")
+        del net, got, ref
+    del tr
+
+
+def train_verb_timing(torch, card: str, tmp: Path, first: dict, step_ms: float,
+                      cached_step_ms) -> None:
+    """The verb's training loader on threads and on fork processes (alone,
+    then feeding steps; a profiled span of steps on threads), and the step
+    on one cached batch."""
+    from mlagg_unet_torch.training.trainer import NNUNetTrainer
+    from mlagg_unet_torch.utils.helpers import load_json
+
+    pre = tmp / "preprocessed" / TRAIN_VERB_DATASET
+    tr = NNUNetTrainer(load_json(str(pre / "nnUNetPlans.json")), "2d", 0,
+                       load_json(str(pre / "dataset.json")), trainer_name=TRAIN_VERB_RECIPE,
+                       device="cuda")
+    tr.initialize()
+    figs = {b: loader_figures(torch, tr, b, TRAIN_VERB_PROFILED_STEPS if b == "threads" else 0)
+            for b in ("threads", "processes")}
+    for b, f in figs.items():
+        log(f"  training loader on {b}{' (the 2D default)' if b == 'threads' else ''}, "
+            f"4 workers, batch {TRAIN_BATCH}, augmented: {f['rate']:.3f} batches/s alone; "
+            f"{f['step_ms']:.2f} ms per step fed by it ({TRAIN_STEPS} steps) | {card}")
+    stats = figs["threads"]["stats"]
+    busy = stats["busy_ms"] / TRAIN_VERB_PROFILED_STEPS
+    log(f"  device busy share of {TRAIN_VERB_PROFILED_STEPS} steps fed by the loader: "
+        f"{100 * stats['busy_ms'] / stats['wall_ms']:.1f} % of the profiled wall time "
+        f"(profiler overhead included); {busy:.1f} ms busy per step = "
+        f"{100 * busy / step_ms:.1f} % of the verb's {step_ms:.2f} ms step | "
+        f"{card}")
+    x, y = tr.feed.batch(first["train"])
+    tr.step.run_steps([(x, y)] * TRAIN_WARMUP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.step.run_steps([(x, y)] * TRAIN_STEPS)   # ends in a host sync
+    cached = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    log(f"  ms per step: {step_ms:.2f} with the loader (the verb's epochs 2-3), "
+        f"{cached:.2f} on its first batch cached on the card"
+        + (f", phase 7's cached synthetic batch {cached_step_ms:.2f}" if cached_step_ms else "")
+        + f" | {card}")
+    del tr
+
+
 def main() -> None:
     global REPO
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
-    ap.add_argument("--only", choices=("predict", "serve-timing"),
+    ap.add_argument("--only", choices=("predict", "serve-timing", "train-verb"),
                     help="run the device and build phases and this one alone, with no "
                          "kernels line and no final line")
     ap.add_argument("--root", type=Path, default=REPO,
@@ -1463,7 +1933,8 @@ def main() -> None:
         log(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s")
 
     if opts.only:
-        (serve_timing if opts.only == "serve-timing" else phase_predict)(torch, card)
+        {"serve-timing": serve_timing, "predict": phase_predict,
+         "train-verb": phase_train_verb}[opts.only](torch, card)
         done(opts.only)
         return
     report = Report(sfu_exp_per_s(torch))
@@ -1485,6 +1956,8 @@ def main() -> None:
     done("train (default)")
     train_f, step_ms_f = phase_train(torch, fused_in=True)
     done("train (fused_instance_norm)")
+    verb = phase_train_verb(torch, card, step_ms)
+    done("train verb")
 
     launches = {**serve, "selective_scan_bwd": train["selective_scan_bwd"],
                 **{k: serve_f[k] for k in FUSED_KERNELS}}
@@ -1495,6 +1968,8 @@ def main() -> None:
     log(f"[train] ms_per_step default {step_ms} fused_instance_norm {step_ms_f}")
     log(f"[predict] verb launches K1 {predict['selective_scan_fwd']}, K2 "
         f"{predict['mlla_front']}, K3 {predict['mlla_tail']}, K4 {predict['flash_attn_fwd']}")
+    log(f"[train verb] verb launches K1 {verb['selective_scan_fwd']}, K2 {verb['mlla_front']}, "
+        f"K3 {verb['mlla_tail']}, K4 {verb['flash_attn_fwd']}, K5 {verb['selective_scan_bwd']}")
     log(f"[train] fused_instance_norm launches per step: K7 "
         f"{train_f['instance_norm_stats'] / TRAIN_STEPS:g}, K8 "
         f"{train_f['instance_norm_apply'] / TRAIN_STEPS:g}")

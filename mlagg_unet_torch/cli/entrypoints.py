@@ -1,11 +1,13 @@
 """Command-line verbs of the port (``mlaggtorch_*``).
 
-Counterparts of ``predict_entry`` and ``predict_from_modelfolder_entry`` in
-``mlagg_unet_tpu/cli/entrypoints.py`` (the upstream ``nnUNetv2_predict``
-and its model-folder form), with the upstream ``-device`` flag: ``cuda``
-(the default) raises without a card, ``cpu`` runs on the CPU. On the CPU a
-tile batch must be given (``-tile_batch_size``); on the card it is chosen
-from the card's memory and timed when not given. Also invocable as
+Counterparts of ``train_entry``, ``predict_entry`` and
+``predict_from_modelfolder_entry`` in ``mlagg_unet_tpu/cli/entrypoints.py``
+(the upstream ``nnUNetv2_train``, ``nnUNetv2_predict`` and its model-folder
+form), with the upstream ``-device`` flag in place of the JAX verb's
+``-num_devices``: ``cuda`` (the default) raises without a card, ``cpu`` runs
+on the CPU. On the CPU the predict verbs need a tile batch
+(``-tile_batch_size``); on the card it is chosen from the card's memory and
+timed when not given. Also invocable as
 ``python -m mlagg_unet_torch.cli.entrypoints <verb> ...``.
 """
 from __future__ import annotations
@@ -14,7 +16,77 @@ import argparse
 import sys
 
 from mlagg_unet_torch import paths
-from mlagg_unet_torch.utils.helpers import join, maybe_convert_to_dataset_name
+from mlagg_unet_torch.utils.helpers import (
+    isfile,
+    join,
+    load_json,
+    maybe_convert_to_dataset_name,
+    maybe_mkdir_p,
+    save_json,
+)
+
+
+def train_entry(args=None):
+    p = argparse.ArgumentParser("mlaggtorch_train")
+    p.add_argument("dataset_name_or_id")
+    p.add_argument("configuration")
+    p.add_argument("fold", help="0-4 or 'all'")
+    p.add_argument("-tr", default="nnUNetTrainer")
+    p.add_argument("-p", default="nnUNetPlans")
+    p.add_argument("--c", action="store_true", help="continue training")
+    p.add_argument("--npz", action="store_true",
+                   help="save softmax of validation predictions")
+    p.add_argument("--val", action="store_true", help="only run validation")
+    p.add_argument("-device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("-pretrained_weights", default=None,
+                   help="checkpoint to transfer name/shape-matched weights from")
+    a = p.parse_args(args)
+
+    from mlagg_unet_torch.training.trainer import NNUNetTrainer
+
+    dataset_name = maybe_convert_to_dataset_name(a.dataset_name_or_id)
+    plans = load_json(join(paths.nnUNet_preprocessed, dataset_name, a.p + ".json"))
+    dataset_json = load_json(join(paths.nnUNet_preprocessed, dataset_name, "dataset.json"))
+    fold = a.fold if a.fold == "all" else int(a.fold)
+    trainer = NNUNetTrainer(plans, a.configuration, fold, dataset_json,
+                            trainer_name=a.tr, device=a.device)
+
+    # plans and dataset json beside the results, for the predictor
+    maybe_mkdir_p(trainer.output_folder_base)
+    save_json(plans, join(trainer.output_folder_base, "plans.json"), sort_keys=False)
+    save_json(dataset_json, join(trainer.output_folder_base, "dataset.json"),
+              sort_keys=False)
+
+    if not a.val:
+        if a.pretrained_weights:
+            trainer.initialize()
+            if a.pretrained_weights.endswith((".pth", ".pt")):
+                # reference torch checkpoints (torch.save state dicts)
+                from mlagg_unet_torch.training.torch_import import (
+                    load_pretrained_torch_weights,
+                )
+
+                n_tr, n_tot = load_pretrained_torch_weights(trainer.step.network,
+                                                            a.pretrained_weights)
+            else:
+                from mlagg_unet_torch.training.load_pretrained_weights import (
+                    load_pretrained_weights,
+                )
+
+                n_tr, n_tot = load_pretrained_weights(trainer.step.network,
+                                                      a.pretrained_weights)
+            print(f"transferred {n_tr}/{n_tot} parameter tensors")
+        if a.c:
+            for name in ("checkpoint_final.ckpt", "checkpoint_latest.ckpt",
+                         "checkpoint_best.ckpt"):
+                f = join(trainer.output_folder, name)
+                if isfile(f):
+                    if not trainer.was_initialized:
+                        trainer.initialize()
+                    trainer.load_checkpoint_file(f)
+                    break
+        trainer.run_training()
+    trainer.perform_actual_validation(save_probabilities=a.npz)
 
 
 def _add_predict_args(p: argparse.ArgumentParser) -> None:
@@ -84,6 +156,7 @@ def predict_from_modelfolder_entry(args=None):
 
 
 _VERBS = {
+    "train": train_entry,
     "predict": predict_entry,
     "predict_from_modelfolder": predict_from_modelfolder_entry,
 }

@@ -3,8 +3,9 @@ resample -> fg-location sampling (reference:
 preprocessing/preprocessors/default_preprocessor.py:38-163).
 
 Copied from ``mlagg_unet_tpu/preprocessing/preprocessor.py``: the per-case
-path (``run_case_npy``, ``run_case``) that prediction runs. The dataset-wide
-``run`` and ``run_case_save`` wait for the preprocess verb.
+path (``run_case_npy``, ``run_case``) that prediction runs, and
+``run_case_save``, which writes one preprocessed training case. The
+dataset-wide ``run`` waits for the preprocess verb.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from mlagg_unet_torch.plans.plans_handler import ConfigurationManager, PlansMana
 from mlagg_unet_torch.preprocessing.cropping import crop_to_nonzero
 from mlagg_unet_torch.preprocessing.normalization import get_normalization_scheme_by_name
 from mlagg_unet_torch.preprocessing.resampling import compute_new_shape
-from mlagg_unet_torch.utils.helpers import load_json
+from mlagg_unet_torch.utils.helpers import load_json, write_pickle
 
 
 class DefaultPreprocessor:
@@ -104,6 +105,21 @@ class DefaultPreprocessor:
             seg = None
         return self.run_case_npy(data, seg, properties, plans_manager,
                                  configuration_manager, dataset_json)
+
+    def run_case_save(
+        self,
+        output_filename_truncated: str,
+        image_files: List[str],
+        seg_file: str,
+        plans_manager: PlansManager,
+        configuration_manager: ConfigurationManager,
+        dataset_json: Union[dict, str],
+    ):
+        data, seg, properties = self.run_case(
+            image_files, seg_file, plans_manager, configuration_manager, dataset_json
+        )
+        np.savez_compressed(output_filename_truncated + ".npz", data=data, seg=seg)
+        write_pickle(properties, output_filename_truncated + ".pkl")
 
     @staticmethod
     def _sample_foreground_locations(

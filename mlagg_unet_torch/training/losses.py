@@ -1,12 +1,14 @@
 """Segmentation losses of the flagship recipe, channels-last.
 
 Counterparts of ``mlagg_unet_tpu/training/losses.py``: the memory-efficient
-soft dice, the robust cross entropy (with an ignore index), DC+CE, the
-deep-supervision wrapper and weights, the nearest-neighbour downsampling of
-the target for deep supervision, and the hard tp/fp/fn/tn of the online
-pseudo dice. Logits are (B, *spatial, C), integer targets (B, *spatial),
-one-hot targets (B, *spatial, C); every sum is fp32. TopK, BCE and region
-losses are not ported yet.
+soft dice, the robust cross entropy (with an ignore index), DC+CE, BCE and
+DC+BCE for region datasets, the deep-supervision wrapper and weights, the
+nearest-neighbour downsampling of the target for deep supervision, and the
+hard tp/fp/fn/tn of the online pseudo dice; and ``convert_seg_to_regions``
+(``mlagg_unet_tpu/training/trainer.py:98-115``). Logits are
+(B, *spatial, C), integer targets (B, *spatial), one-hot targets
+(B, *spatial, C); every sum is fp32. The TopK and CE-only losses are not
+ported yet (ROADMAP queue A, A16).
 """
 from __future__ import annotations
 
@@ -99,6 +101,55 @@ def dc_and_ce_loss(logits: torch.Tensor, target: torch.Tensor,
         if ignore_label is not None:  # no valid voxel: no CE at all
             ce = torch.where(num_fg > 0, ce, torch.zeros_like(ce))
     return weight_ce * ce + weight_dice * dc
+
+
+def bce_with_logits(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Elementwise binary cross entropy with logits (no reduction)."""
+    logits, target = logits.float(), target.float()
+    return (torch.clamp(logits, min=0) - logits * target
+            + torch.log1p(torch.exp(-logits.abs())))
+
+
+def dc_and_bce_loss(logits: torch.Tensor, target: torch.Tensor,
+                    weight_ce: float = 1.0, weight_dice: float = 1.0,
+                    batch_dice: bool = False, smooth: float = 1e-5,
+                    use_ignore_label: bool = False) -> torch.Tensor:
+    """DC_and_BCE_loss for region-based training. target: (B, *spatial,
+    C[+1]) one-hot regions; with use_ignore_label the last channel marks
+    the ignored voxels."""
+    mask = None
+    target_regions = target
+    if use_ignore_label:
+        mask = 1.0 - target[..., -1].float()
+        target_regions = target[..., :-1]
+    dc = (memory_efficient_soft_dice_loss(
+        logits, target_regions, torch.sigmoid, batch_dice, True, smooth, mask)
+        if weight_dice != 0 else 0.0)
+    ce_elem = bce_with_logits(logits, target_regions)
+    if mask is not None:
+        ce = (ce_elem * mask[..., None]).sum() / torch.clamp(
+            mask.sum() * ce_elem.shape[-1], min=1e-8)
+    else:
+        ce = ce_elem.mean()
+    return weight_ce * ce + weight_dice * dc
+
+
+def convert_seg_to_regions(seg: torch.Tensor, regions,
+                           ignore_label: Optional[int] = None) -> torch.Tensor:
+    """(B, *spatial) int -> (B, *spatial, n_regions[+1]) fp32 one-hot region
+    channels; with ignore_label, the ignored voxels' channel comes last."""
+    chans = []
+    for reg in regions:
+        if isinstance(reg, (tuple, list)):
+            m = torch.zeros(seg.shape, dtype=torch.bool, device=seg.device)
+            for r in reg:
+                m = m | (seg == r)
+        else:
+            m = seg == reg
+        chans.append(m)
+    if ignore_label is not None:
+        chans.append(seg == ignore_label)
+    return torch.stack(chans, dim=-1).float()
 
 
 def deep_supervision_loss(loss_fn: Callable, outputs: Sequence[torch.Tensor],

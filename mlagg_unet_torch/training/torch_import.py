@@ -5,8 +5,10 @@ Copied from ``mlagg_unet_tpu/training/torch_import.py``: the reference's
 keys) and the converter to the JAX package's flat layout. Composed with
 ``weights.jax_params_to_state_dict`` they take a reference
 ``fold_X/checkpoint_final.pth``'s ``network_weights`` to a state_dict the
-port's ``MLLAUper`` loads with ``strict=True``. The other families'
-converters wait for their models.
+port's ``MLLAUper`` loads with ``strict=True``, and
+``load_pretrained_torch_weights`` transfers a reference flagship's weights
+for fine-tuning (the train verb's ``-pretrained_weights``). The other
+families' converters wait for their models (ROADMAP queue A, A16).
 """
 from __future__ import annotations
 
@@ -119,3 +121,32 @@ def reference_flagship_state_dict_to_port(state_dict) -> Dict[str, torch.Tensor]
     """A reference ``MLLA_Uper`` state_dict -> the port's ``MLLAUper``
     state_dict (``load_state_dict(strict=True)``)."""
     return jax_params_to_state_dict(convert_reference_flagship_state_dict(state_dict))
+
+
+def load_torch_checkpoint_state_dict(path: str):
+    """The state_dict of a reference ``.pth``/``.pt``: its
+    ``network_weights``, its ``state_dict`` or the file itself."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and "network_weights" in ckpt:
+        return ckpt["network_weights"]
+    if isinstance(ckpt, dict) and "state_dict" in ckpt:
+        return ckpt["state_dict"]
+    return ckpt
+
+
+def load_pretrained_torch_weights(network: torch.nn.Module, torch_checkpoint_path: str,
+                                  verbose: bool = False):
+    """Name- and shape-matched transfer from a reference flagship
+    checkpoint (``MLLA_Uper``, the flagship's key rules) into ``network``
+    in place; returns (n_transferred, n_total). A checkpoint of another
+    family raises: its converters are not ported yet."""
+    from mlagg_unet_torch.training.load_pretrained_weights import transfer_matching
+
+    state_dict = load_torch_checkpoint_state_dict(torch_checkpoint_path)
+    keys = [k[len("module."):] if k.startswith("module.") else k for k in state_dict]
+    if not any(k.startswith("mlla.layers.") for k in keys):
+        raise NotImplementedError(
+            f"{torch_checkpoint_path} is not a reference MLLA_Uper checkpoint: the other "
+            "families' converters are not ported yet (ROADMAP queue A, A16)")
+    return transfer_matching(network, reference_flagship_state_dict_to_port(state_dict),
+                             verbose)
