@@ -9,7 +9,8 @@ failure exits non-zero:
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off;
 2. build: nvcc builds every kernel of the serving and training paths from
    ``csrc/`` into ``mlagg_unet_torch/_build/``, one nvcc per source, in
-   parallel;
+   parallel, and g++ the native resampler (``csrc/resample.cpp``) beside
+   them;
 3. kernels: each kernel against its plain PyTorch twin at the flagship's
    shapes (serving: model batch 16, tile 256x224; the scan backward: the
    training batch 10), fp32 and bf16 I/O, with the tolerances stated below,
@@ -68,10 +69,11 @@ failure exits non-zero:
    ``VolumePredictor`` on the preprocessed case, K1-K4 launched and K5-K8
    never; cases/s through ``predict_from_files`` after a warm-up pass,
    over the 4 cases and over 12 (the last 8 outputs' write times give the
-   steady rate); K1's launch plan at the model batch the verb chose, and
-   on one case that predictor (bf16) and an fp32 one at the same batch
-   against themselves with every kernel wrapper switched to its plain
-   twin on the card (bf16: rel L2 within 5e-2; fp32: within 1e-3 x max);
+   steady rate); on one case that predictor (bf16, the tile batch the
+   verb chose) and an fp32 one at the same batch against themselves with
+   every kernel wrapper switched to its plain twin on the card (bf16: rel
+   L2 within 5e-2; fp32: within 1e-3 x max; K1 launched at that model
+   batch only, its launch plans printed);
    the host-accumulator fallback on one volume (fp32, tile batch 4, a
    budget too small for the accumulator) within 1e-5 x max of the device
    path;
@@ -117,11 +119,49 @@ failure exits non-zero:
    the device busy share of 5 profiled steps fed by the loader, the peak
    memory, the losses and pseudo dice per epoch and the final validation's
    seconds per case;
-9. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
-   ``{"ok": true, "device": {...}}`` as the last line.
+9. pipeline: the nnU-Net pipeline through the port's verbs in this
+   process, from raw files to an evaluated, postprocessed test prediction.
+   A raw dataset of 10 training and 2 test cases of 1x10x320x260
+   ``.nii.gz`` from ``RandomState(1)`` (smooth blobs labelled by 3
+   thresholds of the image; in-plane spacing 0.75 to 0.85 mm from case to
+   case at 3 mm in z, so the 2d preprocessing resamples them through the
+   native resampler); ``plan_and_preprocess_entry`` (``-c 2d
+   --verify_dataset_integrity``, 8 spawned workers): the fingerprint, a 2d
+   configuration with a patch divisible by 32, 10 ``.npz``/``.pkl`` pairs
+   and ``gt_segmentations/``; the preprocess verb again with
+   ``MLAGG_DISABLE_NATIVE=1`` (scipy) into a second root and then native
+   into a third (each native root against scipy's: seg equal, data within
+   1e-6 x max|data|), the three wall times, one case resampled in this
+   process both ways, and what a spawned worker pays to import the package
+   (it must not open the card). Two flagship recipes
+   cut to 1 and 2 epochs of 10 steps and 2 validation steps (registered
+   here only) train folds 0 and 1 with ``--npz`` through ``train_entry``
+   at the planner's patch and batch: K1, K4 and K5 launched in the training
+   steps and no other kernel, K1-K4 in the validation steps and the final
+   validations, K6-K8 never; on the first training batch the loss and every
+   gradient, and the first validation batch's logits, against every wrapper
+   switched to its plain twin (phase 8's helper and tolerances).
+   ``find_best_configuration_entry`` over both recipes and their ensemble:
+   ``inference_information.json`` names the best and its
+   ``postprocessing.pkl`` exists. The predict verb on the test cases for
+   both recipes (folds 0 and 1, probabilities saved); the first recipe's
+   verb's own fold-0 ``VolumePredictor`` (bf16, the planner's patch, the
+   tile batch it chose) and an fp32 one at that batch on a test case, and
+   the final validation's (bf16, tile batch 4) and an fp32 one at tile
+   batch 4 on a validation case of fold 0, each against itself with every
+   wrapper switched to its plain twin (phase 6's tolerances; K1 at the
+   model batch only, its launch plans printed); ``ensemble_entry``,
+   ``apply_postprocessing_entry`` with the chosen pkl on the chosen
+   prediction and ``evaluate_simple_entry`` against the test labels:
+   shapes, labels in {0..3}, a finite Dice. ``export_model_entry`` of the
+   first recipe, ``install_model_entry`` into a fresh results root and the
+   predict verb there: segmentations at least 99.9 % equal to the first
+   prediction's. Each stage's seconds and the peak memory;
+10. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
+    ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--only predict`` runs phases 1, 2 and 6 alone, ``--only train-verb``
-phases 1, 2 and 8; ``--only serve-timing``
+phases 1, 2 and 8, ``--only pipeline`` phases 1, 2 and 9; ``--only serve-timing``
 runs phases 1 and 2 and then phase 5's default timing alone, in two
 windows, from the package under ``--root`` (default: this script's
 directory): run it for two checkouts in turns in one call to compare them.
@@ -280,6 +320,18 @@ TRAIN_VERB_RECIPE = "nnUNetTrainer_MLAgg_2D_dt_MS_chip_smoke"
 TRAIN_VERB_EPOCHS, TRAIN_VERB_STEPS, TRAIN_VERB_VAL_STEPS, TRAIN_VERB_WARMUP = 3, 20, 5, 1
 TRAIN_VERB_PROFILED_STEPS = 5
 LOADER_RATE_BATCHES = 20                 # timed after the prefetch queue (6) is drained
+# the pipeline phase: a raw dataset of 10 training and 2 test cases of
+# 1x10x320x260 (smooth seeded blobs, labels = 3 thresholds of the image) whose
+# in-plane spacing differs from case to case, so that the 2d preprocessing
+# resamples them; two cut flagship recipes on the plan the planner writes
+PIPELINE_DATASET, PIPELINE_ID = "Dataset994_ChipSmokePipeline", "994"
+PIPELINE_CASES, PIPELINE_TEST_CASES = 10, 2
+PIPELINE_Z_SPACING, PIPELINE_INPLANE = 3.0, (0.75, 0.85)   # mm
+PIPELINE_RECIPES = (("nnUNetTrainer_MLAgg_2D_dt_MS_chip_pipeline_A", 1),
+                    ("nnUNetTrainer_MLAgg_2D_dt_MS_chip_pipeline_B", 2))   # (name, epochs)
+PIPELINE_STEPS, PIPELINE_VAL_STEPS = 10, 2
+PIPELINE_FOLDS = ("0", "1")
+TOL_NATIVE_PREPROCESS = 1e-6             # native vs scipy preprocessed data, x max|data|
 
 
 def fail(msg: str) -> None:
@@ -1113,6 +1165,86 @@ def plain_twins(_ext):
         _ext.use_plain = use_plain
 
 
+@contextlib.contextmanager
+def recording_scan_plans(plans: dict):
+    """While active, K1's wrapper keeps each launch plan it makes in
+    ``plans``, keyed by (b, g, d, L, dtype) of its input u."""
+    from mlagg_unet_torch.ops import selective_scan_cuda
+
+    make = selective_scan_cuda.scan_fwd_launch_plan
+
+    def recording(b, g, d, L, dtype, *args, **kwargs):
+        plan = make(b, g, d, L, dtype, *args, **kwargs)
+        plans[(b, g, d, L, str(dtype).replace("torch.", ""))] = plan
+        return plan
+
+    selective_scan_cuda.scan_fwd_launch_plan = recording
+    try:
+        yield
+    finally:
+        selective_scan_cuda.scan_fwd_launch_plan = make
+
+
+def predictors_vs_twins(torch, card: str, label: str, predictors, data, model_batch: int):
+    """Each (tag, VolumePredictor) of ``predictors`` on ``data`` with the
+    kernels, then with every kernel wrapper switched to its plain twin on
+    the card: bf16 within TOL_SERVE_REL_L2 (rel L2), fp32 within TOL_MODEL x
+    max|ref|. Fails unless the kernel run launched each of K1-K4, K1 only at
+    ``model_batch``, and the plain run launched nothing; logs K1's launch
+    plans."""
+    from mlagg_unet_torch.ops import _ext
+
+    for tag, p in predictors:
+        plans = {}
+        _ext.reset_launch_counts()
+        with recording_scan_plans(plans):
+            got = p(data)
+        ran = {k.name: k.launches for k in _ext.ALL_KERNELS}
+        _ext.reset_launch_counts()
+        with plain_twins(_ext):
+            ref = p(data)
+        if any(k.launches for k in _ext.ALL_KERNELS):
+            fail(f"the plain-twin run of the {tag} predictor launched a kernel")
+        for shape, plan in plans.items():
+            log(f"  K1 plan at (b, g, d, L, dtype) {shape} ({tag}): {plan}")
+        batches = sorted({shape[0] for shape in plans})
+        if any(ran[name] <= 0 for name in SERVE_KERNELS) or p.model_batch != model_batch \
+                or batches != [model_batch]:
+            fail(f"the {tag} predictor ran K1-K4 {[ran[n] for n in SERVE_KERNELS]} times, "
+                 f"K1 at batches {batches}, at model batch {p.model_batch} (want > 0 each, "
+                 f"at {model_batch})")
+        err, peak = float(np.abs(got - ref).max()), float(np.abs(ref).max())
+        l2 = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+        agree = float((got.argmax(0) == ref.argmax(0)).mean())
+        ok = l2 <= TOL_SERVE_REL_L2 if tag == "bf16" else err <= TOL_MODEL * peak
+        log(f"  {label}, {tag}, model batch {p.model_batch}: kernels (K1-K4 "
+            f"{[ran[n] for n in SERVE_KERNELS]} launches) vs plain twins on the card: rel L2 "
+            f"{l2:.3e}, max|diff| {err:.3e} of max {peak:.3e}, argmax {100 * agree:.4f} % "
+            f"equal (tol "
+            + (f"rel L2 {TOL_SERVE_REL_L2:g})" if tag == "bf16" else f"{TOL_MODEL:g} x max)")
+            + f" | {card}")
+        if not ok:
+            fail(f"{label}, {tag}: the kernels at model batch {p.model_batch} disagree with "
+                 f"their plain twins")
+
+
+@contextlib.contextmanager
+def recording_selves(cls, method: str, selves: list):
+    """While active, each call of ``cls.method`` appends its instance to
+    ``selves``."""
+    orig = getattr(cls, method)
+
+    def wrapped(self, *args, **kwargs):
+        selves.append(self)
+        return orig(self, *args, **kwargs)
+
+    setattr(cls, method, wrapped)
+    try:
+        yield
+    finally:
+        setattr(cls, method, orig)
+
+
 def synthetic_batch(torch, batch: int, seed: int = 0):
     """A seeded (batch, 256, 224, 1) image of smooth blobs and its 4-class
     label, a fixed function of the image (three thresholds)."""
@@ -1260,7 +1392,6 @@ def phase_predict(torch, card: str) -> dict:
     from mlagg_unet_torch.inference.export import export_prediction_from_logits
     from mlagg_unet_torch.inference.predictor import NNUNetPredictor
     from mlagg_unet_torch.ops import _ext
-    from mlagg_unet_torch.ops.selective_scan_cuda import scan_fwd_launch_plan
     from mlagg_unet_torch.preprocessing.preprocessor import DefaultPreprocessor
     from mlagg_unet_torch.training.checkpoint import save_checkpoint
     from mlagg_unet_torch.utils.helpers import save_json
@@ -1382,40 +1513,11 @@ def phase_predict(torch, card: str) -> dict:
         # twins: the verb's own predictor (bf16, the tile batch it chose) and
         # an fp32 one at that batch, each with every kernel wrapper switched
         # to its plain twin on the card
-        props = torch.cuda.get_device_properties(0)
-        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
-            log(f"  K1 plan at model batch {vp.model_batch} ({tag}): "
-                + str(scan_fwd_launch_plan(vp.model_batch, 2, SCAN_D, SCAN_L, dtype,
-                                           props.multi_processor_count,
-                                           props.shared_memory_per_block_optin)))
         vp32 = VolumePredictor(pred.network, TILE, 4, (0, 1),
                                tile_batch_size=vp.last_tile_batch, device="cuda")
-        for tag, p in (("bf16", vp), ("fp32", vp32)):
-            _ext.reset_launch_counts()
-            got = p(data)
-            ran = {k.name: k.launches for k in _ext.ALL_KERNELS}
-            _ext.reset_launch_counts()
-            with plain_twins(_ext):
-                ref = p(data)
-            if any(k.launches for k in _ext.ALL_KERNELS):
-                fail(f"the plain-twin run of the {tag} predictor launched a kernel")
-            if any(ran[name] <= 0 for name in SERVE_KERNELS) or p.model_batch != vp.model_batch:
-                fail(f"the {tag} predictor ran K1-K4 {[ran[n] for n in SERVE_KERNELS]} times "
-                     f"at model batch {p.model_batch} (want > 0 each at {vp.model_batch})")
-            err, peak = float(np.abs(got - ref).max()), float(np.abs(ref).max())
-            l2 = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
-            agree = float((got.argmax(0) == ref.argmax(0)).mean())
-            ok = l2 <= TOL_SERVE_REL_L2 if tag == "bf16" else err <= TOL_MODEL * peak
-            log(f"  case {PREDICT_CASES - 1}, {tag}, model batch {p.model_batch}: kernels "
-                f"(K1-K4 {[ran[n] for n in SERVE_KERNELS]} launches) vs plain twins on "
-                f"the card: rel L2 {l2:.3e}, max|diff| {err:.3e} of max {peak:.3e}, argmax "
-                f"{100 * agree:.4f} % equal (tol "
-                + (f"rel L2 {TOL_SERVE_REL_L2:g})" if tag == "bf16"
-                   else f"{TOL_MODEL:g} x max)") + f" | {card}")
-            if not ok:
-                fail(f"predict {tag}: the kernels at model batch {p.model_batch} disagree "
-                     f"with their plain twins")
-        del vp32, got, ref
+        predictors_vs_twins(torch, card, f"case {PREDICT_CASES - 1}",
+                            (("bf16", vp), ("fp32", vp32)), data, vp.model_batch)
+        del vp32
 
         # the host-accumulator fallback on one volume: fp32, pinned batch, a
         # budget too small for the accumulator, against the device path
@@ -1546,6 +1648,31 @@ def attribute_launches(_ext, cls, method, counts: dict, calls: list = None):
         setattr(cls, method, orig)
 
 
+@contextlib.contextmanager
+def recording_first_batches(first: dict):
+    """While active, the loaders of ``NNUNetTrainer.get_dataloaders`` keep
+    the first training and validation batch they hand out in ``first``."""
+    from mlagg_unet_torch.training.trainer import NNUNetTrainer
+
+    get_loaders = NNUNetTrainer.get_dataloaders
+
+    def recording_loaders(self):
+        loaders = get_loaders(self)
+        for key, loader in zip(("train", "val"), loaders):
+            def get_batch(get=loader.get_batch, key=key):
+                batch = get()
+                first.setdefault(key, batch)
+                return batch
+            loader.get_batch = get_batch
+        return loaders
+
+    NNUNetTrainer.get_dataloaders = recording_loaders
+    try:
+        yield
+    finally:
+        NNUNetTrainer.get_dataloaders = get_loaders
+
+
 def loader_figures(torch, trainer, backend: str, profiled_steps: int = 0) -> dict:
     """The training loader of one backend: its batches/s with nothing
     consuming them (after its prefetch queue is drained, LOADER_RATE_BATCHES
@@ -1624,7 +1751,8 @@ def phase_train_verb(torch, card: str, cached_step_ms=None) -> dict:
             log(f"[train verb] {TRAIN_VERB_CASES} cases of 1x10x320x260 written and "
                 f"preprocessed in {time.perf_counter() - t_phase:.1f} s")
             launches, first, step_ms = train_verb_run(torch, card, tmp)
-            train_verb_kernels(torch, card, tmp, first)
+            train_verb_kernels(torch, card, first,
+                               _verb_folder(tmp) / "fold_0" / "checkpoint_final.ckpt")
             train_verb_timing(torch, card, tmp, first, step_ms, cached_step_ms)
         finally:
             paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = saved
@@ -1650,37 +1778,21 @@ def train_verb_run(torch, card: str, tmp: Path):
     verb = ["996", "2d", "0", "-tr", TRAIN_VERB_RECIPE, "-device", "cuda"]
     folder = _verb_folder(tmp) / "fold_0"
     first, steps, finals = {}, [], []
-    get_loaders = NNUNetTrainer.get_dataloaders
-
-    def recording_loaders(self):
-        """The verb's loaders, each keeping the first batch it hands out."""
-        loaders = get_loaders(self)
-        for key, loader in zip(("train", "val"), loaders):
-            def get_batch(get=loader.get_batch, key=key):
-                batch = get()
-                first.setdefault(key, batch)
-                return batch
-            loader.get_batch = get_batch
-        return loaders
-
     register_train_verb_recipe(TRAIN_VERB_EPOCHS)
     train_c, val_c, final_c = {}, {}, {}
-    NNUNetTrainer.get_dataloaders = recording_loaders
-    try:
-        with attribute_launches(_ext, Trainer, "train_step", train_c, steps), \
-                attribute_launches(_ext, Trainer, "val_step", val_c), \
-                attribute_launches(_ext, NNUNetTrainer, "perform_actual_validation", final_c,
-                                   finals):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            _ext.reset_launch_counts()
-            t0 = time.perf_counter()
-            train_entry(verb)
-            verb_s = time.perf_counter() - t0
-            launches = {k.name: k.launches for k in _ext.ALL_KERNELS}
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    finally:
-        NNUNetTrainer.get_dataloaders = get_loaders
+    with recording_first_batches(first), \
+            attribute_launches(_ext, Trainer, "train_step", train_c, steps), \
+            attribute_launches(_ext, Trainer, "val_step", val_c), \
+            attribute_launches(_ext, NNUNetTrainer, "perform_actual_validation", final_c,
+                               finals):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _ext.reset_launch_counts()
+        t0 = time.perf_counter()
+        train_entry(verb)
+        verb_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in _ext.ALL_KERNELS}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ck = load_checkpoint(str(folder / "checkpoint_final.ckpt"))
     lg = ck["logging"]
     epoch_s = [e - s for s, e in zip(lg["epoch_start_timestamps"], lg["epoch_end_timestamps"])]
@@ -1793,9 +1905,10 @@ def train_verb_run(torch, card: str, tmp: Path):
     return launches, first, step_ms
 
 
-def train_verb_kernels(torch, card: str, tmp: Path, first: dict) -> None:
+def train_verb_kernels(torch, card: str, first: dict, ckpt: Path, recipe: str = TRAIN_VERB_RECIPE,
+                       patch=TILE, batch: int = TRAIN_BATCH, tag: str = "train verb") -> None:
     """The kernels at the verb's own batches against their plain twins on
-    the card, from the verb's final weights: the fp32 loss and every
+    the card, from the verb's weights in ``ckpt``: the fp32 loss and every
     parameter gradient of the first training batch its loader produced (drop
     path off), and the first validation batch's logits in bf16 and fp32."""
     from mlagg_unet_torch.ops import _ext
@@ -1803,14 +1916,14 @@ def train_verb_kernels(torch, card: str, tmp: Path, first: dict) -> None:
     from mlagg_unet_torch.training.trainer import DeviceFeeder, Trainer
     from mlagg_unet_torch.weights import jax_tree_to_state_dict
 
-    ck = load_checkpoint(str(_verb_folder(tmp) / "fold_0" / "checkpoint_final.ckpt"))
-    tr = Trainer(TRAIN_VERB_RECIPE, TILE, TRAIN_BATCH, 1, 4, batch_dice=True, seed=0,
+    ck = load_checkpoint(str(ckpt))
+    tr = Trainer(recipe, tuple(patch), batch, 1, 4, batch_dice=True, seed=0,
                  device="cuda", compute_dtype=torch.float32,
                  network_overrides=dict(drop_path_rate=0.0, skip_drop_path=0.0))
     tr.network.load_state_dict(jax_tree_to_state_dict(ck["network_weights"]), strict=True)
     feed = DeviceFeeder(torch.device("cuda"))
     x, y = feed.batch(first["train"])
-    log(f"[train verb] kernels vs plain twins on the verb's first training batch "
+    log(f"[{tag}] kernels vs plain twins on the verb's first training batch "
         f"{tuple(x.shape)} (augmented; labels {torch.unique(y).tolist()}), fp32, drop path off")
     _ext.reset_launch_counts()
     l_got, g_got = train_grads(tr, tr.network, x, y)
@@ -1892,10 +2005,458 @@ def train_verb_timing(torch, card: str, tmp: Path, first: dict, step_ms: float,
     del tr
 
 
+def write_pipeline_raw(root: Path) -> Path:
+    """The pipeline's raw dataset under ``root/raw`` and its test labels in
+    ``root/labelsTs``, written on 8 threads; returns the dataset's folder."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from scipy.ndimage import gaussian_filter
+
+    from mlagg_unet_torch.imageio.nifti_io import write_nifti
+    from mlagg_unet_torch.utils.helpers import save_json
+
+    raw = root / "raw" / PIPELINE_DATASET
+    for d in (raw / "imagesTr", raw / "labelsTr", raw / "imagesTs", root / "labelsTs"):
+        d.mkdir(parents=True)
+    save_json(dict(PREDICT_DATASET, numTraining=PIPELINE_CASES), str(raw / "dataset.json"),
+              sort_keys=False)
+    rng = np.random.RandomState(1)
+    n = PIPELINE_CASES + PIPELINE_TEST_CASES
+    noise = [rng.randn(10, 320, 260).astype(np.float32) for _ in range(n)]
+    lo, hi = PIPELINE_INPLANE
+
+    def write(i):
+        img = gaussian_filter(noise[i], (0, 4, 4))
+        img /= img.std()
+        lab = np.digitize(img, TRAIN_VERB_THRESHOLDS).astype(np.uint8)
+        inplane = lo + (hi - lo) * i / (n - 1)
+        spacing = (inplane, inplane, PIPELINE_Z_SPACING)   # (x, y, z) on disk
+        test = i >= PIPELINE_CASES
+        name = f"case_{i:03d}"
+        write_nifti(str(raw / ("imagesTs" if test else "imagesTr") / f"{name}_0000.nii.gz"),
+                    img.transpose(2, 1, 0), spacing)
+        write_nifti(str((root / "labelsTs" if test else raw / "labelsTr") / f"{name}.nii.gz"),
+                    lab.transpose(2, 1, 0), spacing)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(n)))
+    return raw
+
+
+def register_pipeline_recipes() -> None:
+    """The flagship recipe cut to each of PIPELINE_RECIPES' epochs of
+    PIPELINE_STEPS steps and PIPELINE_VAL_STEPS validation steps (registered
+    here only)."""
+    from dataclasses import replace
+
+    from mlagg_unet_torch.training import registry
+
+    for name, epochs in PIPELINE_RECIPES:
+        registry.register_trainer(replace(
+            registry.get_trainer_config("nnUNetTrainer_MLAgg_2D_dt_MS"), name=name,
+            num_epochs=epochs, num_iterations_per_epoch=PIPELINE_STEPS,
+            num_val_iterations_per_epoch=PIPELINE_VAL_STEPS, warmup_epochs=TRAIN_VERB_WARMUP))
+
+
+def spawn_worker_probe() -> tuple:
+    """Run in a spawned preprocessing worker: what it has loaded and whether
+    it opened the card."""
+    import os
+
+    import torch
+
+    return ("mlagg_unet_torch" in sys.modules, torch.cuda.is_initialized(),
+            os.environ.get("CUDA_VISIBLE_DEVICES"))
+
+
+def pipeline_worker_cost() -> None:
+    """What a spawned preprocessing worker pays to start: a bare interpreter
+    importing numpy and scipy against one importing the preprocessor (and
+    with it the package and torch); a worker of the pool must not open the
+    card."""
+    import multiprocessing
+
+    from mlagg_unet_torch.preprocessing.preprocessor import _spawn_worker_init
+
+    def run(code):
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=300)
+        return time.perf_counter() - t0
+
+    bare = run("import numpy, scipy.ndimage")
+    pkg = run("import mlagg_unet_torch.preprocessing.preprocessor")
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(1, initializer=_spawn_worker_init) as pool:
+        loaded, cuda, visible = pool.apply(spawn_worker_probe)
+    first = time.perf_counter() - t0
+    log(f"  a spawned preprocessing worker: interpreter with numpy and scipy {bare:.2f} s, "
+        f"with the preprocessor (the package and torch) {pkg:.2f} s, so {pkg - bare:.2f} s "
+        f"more per worker; a pool of 1 to its first result {first:.2f} s; in the worker "
+        f"CUDA_VISIBLE_DEVICES={visible!r}, torch.cuda.is_initialized() {cuda}")
+    if not loaded or cuda or visible != "":
+        fail(f"a spawned preprocessing worker touched the card or lacks the package "
+             f"(package loaded {loaded}, CUDA initialised {cuda}, visible {visible!r})")
+
+
+def compare_preprocessed(native_dir: Path, scipy_dir: Path) -> tuple:
+    """Seg equal and data within TOL_NATIVE_PREPROCESS x max|data| in every
+    case; returns (cases, the largest error relative to max|data|)."""
+    names = sorted(p.name for p in scipy_dir.glob("*.npz"))
+    if names != sorted(p.name for p in native_dir.glob("*.npz")) or not names:
+        fail(f"native and scipy preprocessing wrote other cases: {names}")
+    worst = 0.0
+    for n in names:
+        a, b = np.load(native_dir / n), np.load(scipy_dir / n)
+        if not np.array_equal(a["seg"], b["seg"]):
+            fail(f"{n}: the native preprocessing's seg differs from scipy's")
+        rel = float(np.abs(a["data"].astype(np.float64) - b["data"]).max()
+                    / np.abs(b["data"]).max())
+        worst = max(worst, rel)
+        if rel > TOL_NATIVE_PREPROCESS:
+            fail(f"{n}: native vs scipy preprocessed data differ by {rel:.3e} x max|data|")
+    return len(names), worst
+
+
+def resample_alone(npz: Path, card: str) -> None:
+    """One preprocessed case resampled in this process by the native
+    resampler and by scipy (best of 2 each): what the resampler alone saves
+    on this host."""
+    import os
+
+    from mlagg_unet_torch.preprocessing.resampling import resample_data_or_seg_to_shape
+
+    data = np.load(npz)["data"]
+    kw = dict(new_shape=(10, 320, 260), current_spacing=(3.0, 0.75, 0.75),
+              new_spacing=(3.0, 0.79, 0.79), is_seg=False, order=3, order_z=0,
+              force_separate_z=None)
+    best = {}
+    for tag in ("native", "scipy", "native", "scipy"):
+        if tag == "scipy":
+            os.environ["MLAGG_DISABLE_NATIVE"] = "1"
+        try:
+            t0 = time.perf_counter()
+            out = resample_data_or_seg_to_shape(data, **kw)
+            best[tag] = min(best.get(tag, math.inf), time.perf_counter() - t0)
+        finally:
+            os.environ.pop("MLAGG_DISABLE_NATIVE", None)
+    log(f"  one case {data.shape} -> {out.shape} (order 3 in-plane, separate z) in this "
+        f"process: native {best['native'] * 1e3:.1f} ms, scipy {best['scipy'] * 1e3:.1f} ms "
+        f"(best of 2 each, {os.cpu_count()} host cores) | {card}")
+
+
+def check_launches(counts: dict, want, never, where: str) -> None:
+    for name in want:
+        if counts.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched in the pipeline's {where}")
+    for name in never:
+        if counts.get(name, 0) != 0:
+            fail(f"kernel {name} was launched in the pipeline's {where}")
+
+
+def read_segs(folder: Path) -> dict:
+    from mlagg_unet_torch.imageio.nifti_io import NiftiIO
+
+    return {p.name: NiftiIO().read_seg(str(p))[0] for p in sorted(folder.glob("*.nii.gz"))}
+
+
+def predict_vs_twins(torch, card: str, verb_preds: list, raw: Path, cases: Path,
+                     pre: Path) -> None:
+    """The kernels at the shapes the pipeline's serving paths give them,
+    against their plain twins on the card: the first recipe's predict verb's
+    own fold-0 VolumePredictor (bf16, the planner's patch, the tile batch it
+    chose) and an fp32 one at that batch on the first test case; then the
+    final validation's predictor (fold 0's weights, bf16, tile batch 4) and
+    an fp32 one at tile batch 4 on fold 0's first validation case."""
+    from mlagg_unet_torch import VolumePredictor
+    from mlagg_unet_torch.preprocessing.preprocessor import DefaultPreprocessor
+    from mlagg_unet_torch.utils.helpers import load_json
+
+    if len(verb_preds) != 1:
+        fail(f"the first recipe's predict verb ran {len(verb_preds)} predictors (want 1)")
+    pred = verb_preds[0]
+    vp = pred._ensure_volume_predictors()[0]
+    patch = tuple(pred.configuration_manager.patch_size)
+    heads = pred.label_manager.num_segmentation_heads
+    mirror = tuple(pred.allowed_mirroring_axes)
+    case = sorted((raw / "imagesTs").glob("*.nii.gz"))[0]
+    data, _, _ = DefaultPreprocessor().run_case([str(case)], None, pred.plans_manager,
+                                                pred.configuration_manager, pred.dataset_json)
+    pred.network.load_state_dict(pred.list_of_parameters[0], strict=True)   # fold 0
+    vp32 = VolumePredictor(pred.network, patch, heads, mirror,
+                           tile_batch_size=vp.last_tile_batch, device="cuda")
+    predictors_vs_twins(torch, card, f"{case.name} {data.shape}, the predict verb's fold-0 "
+                        f"predictor (patch {list(patch)}, tile batch {vp.last_tile_batch})",
+                        (("bf16", vp), ("fp32", vp32)), data, vp.model_batch)
+    del vp32
+    key = load_json(str(pre / "splits_final.json"))[0]["val"][0]
+    data = np.load(cases / f"{key}.npz")["data"]
+    final = [(tag, VolumePredictor(pred.network, patch, heads, mirror, tile_batch_size=4,
+                                   compute_dtype=dtype, device="cuda"))
+             for tag, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32))]
+    predictors_vs_twins(torch, card, f"fold 0's validation case {key} {data.shape} at the "
+                        f"final validation's tile batch 4", final, data, 4 * 2 ** len(mirror))
+
+
+def phase_pipeline(torch, card: str) -> dict:
+    """The nnU-Net pipeline through the port's verbs in this process, from
+    raw files to an evaluated, postprocessed test prediction: plan and
+    preprocess (native resampler, then scipy into a second root), two cut
+    recipes trained on folds 0 and 1, find_best_configuration, predict,
+    ensemble, apply_postprocessing and evaluate_simple on the test cases,
+    and the export/install zip round trip. Returns the phase's launches."""
+    import os
+    import tempfile
+
+    from mlagg_unet_torch import paths
+    from mlagg_unet_torch.cli import entrypoints as cli
+    from mlagg_unet_torch.inference.predictor import NNUNetPredictor
+    from mlagg_unet_torch.ops import _ext
+    from mlagg_unet_torch.preprocessing.preprocessor import DefaultPreprocessor
+    from mlagg_unet_torch.training.trainer import NNUNetTrainer, Trainer
+    from mlagg_unet_torch.utils.helpers import load_json
+
+    t_phase = time.perf_counter()
+    secs = {}
+    saved = (paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results)
+    recipes = [name for name, _ in PIPELINE_RECIPES]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pipeline_") as tmp:
+        tmp = Path(tmp)
+        paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = (
+            str(tmp / "raw"), str(tmp / "preprocessed"), str(tmp / "results"))
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _ext.reset_launch_counts()
+            t0 = time.perf_counter()
+            raw = write_pipeline_raw(tmp)
+            secs["write raw"] = time.perf_counter() - t0
+            log(f"[pipeline] {PIPELINE_CASES} training and {PIPELINE_TEST_CASES} test cases of "
+                f"1x10x320x260 written (in-plane spacing {PIPELINE_INPLANE[0]}-"
+                f"{PIPELINE_INPLANE[1]} mm, z {PIPELINE_Z_SPACING} mm) in "
+                f"{secs['write raw']:.1f} s")
+
+            # 1. plan and preprocess (native resampler), then scipy into a second root
+            pre = tmp / "preprocessed" / PIPELINE_DATASET
+            runs = []
+            t0 = time.perf_counter()
+            with attribute_launches(_ext, DefaultPreprocessor, "run", {}, runs):
+                cli.plan_and_preprocess_entry(["-d", PIPELINE_ID, "-c", "2d",
+                                               "--verify_dataset_integrity"])
+            secs["plan_and_preprocess"] = time.perf_counter() - t0
+            native_s = runs[0][1] - runs[0][0]
+            plans = load_json(str(pre / "nnUNetPlans.json"))
+            cfg = plans["configurations"].get("2d")
+            if not (pre / "dataset_fingerprint.json").is_file() or cfg is None:
+                fail("plan_and_preprocess wrote no fingerprint or no 2d configuration")
+            npz = sorted((pre / cfg["data_identifier"]).glob("*.npz"))
+            if len(npz) != PIPELINE_CASES or not all(p.with_suffix(".pkl").is_file() for p in npz):
+                fail(f"plan_and_preprocess wrote {len(npz)} .npz/.pkl pairs "
+                     f"(want {PIPELINE_CASES})")
+            if len(list((pre / "gt_segmentations").glob("*.nii.gz"))) != PIPELINE_CASES:
+                fail("plan_and_preprocess copied no gt_segmentations")
+            patch, batch = cfg["patch_size"], cfg["batch_size"]
+            log(f"  plan_and_preprocess -c 2d --verify_dataset_integrity: "
+                f"{secs['plan_and_preprocess']:.1f} s, of it the preprocessing "
+                f"(8 spawned workers, native resampler) {native_s:.1f} s | {card}")
+            log(f"  the planner's 2d configuration: patch {patch}, batch {batch}, spacing "
+                f"{cfg['spacing']}, median shape {cfg['median_image_size_in_voxels']}, "
+                f"{len(cfg['pool_op_kernel_sizes'])} stages")
+            if any(p % 32 for p in patch):
+                fail(f"the planner's 2d patch {patch} is not divisible by 32")
+            shapes = sorted({np.load(p)["data"].shape[2:] for p in npz})
+            log(f"  preprocessed in-plane shapes: {shapes}")
+            if len(shapes) < 2:
+                fail("no case was resampled by the 2d preprocessing")
+            def preprocess_into(root: Path, disable_native: bool) -> float:
+                """The preprocess verb on the same plan into ``root``."""
+                (root / PIPELINE_DATASET).mkdir(parents=True)
+                for f in ("dataset_fingerprint.json", "nnUNetPlans.json", "dataset.json"):
+                    shutil.copyfile(pre / f, root / PIPELINE_DATASET / f)
+                paths.nnUNet_preprocessed = str(root)
+                if disable_native:
+                    os.environ["MLAGG_DISABLE_NATIVE"] = "1"
+                t0 = time.perf_counter()
+                try:
+                    cli.preprocess_entry(["-d", PIPELINE_ID, "-c", "2d"])
+                finally:
+                    os.environ.pop("MLAGG_DISABLE_NATIVE", None)
+                    paths.nnUNet_preprocessed = str(tmp / "preprocessed")
+                return time.perf_counter() - t0
+
+            # native, scipy, native: the first native run also reads the raw
+            # files cold, so each side is seen both first and second
+            scipy_pre, native_pre = tmp / "preprocessed_scipy", tmp / "preprocessed_native"
+            secs["preprocess (scipy)"] = preprocess_into(scipy_pre, True)
+            secs["preprocess (native, again)"] = preprocess_into(native_pre, False)
+            worst = 0.0
+            for root in (tmp / "preprocessed", native_pre):
+                n, err = compare_preprocessed(root / PIPELINE_DATASET / cfg["data_identifier"],
+                                              scipy_pre / PIPELINE_DATASET / cfg["data_identifier"])
+                worst = max(worst, err)
+            log(f"  the preprocess verb in turns: native {native_s:.1f} s (inside "
+                f"plan_and_preprocess, first), with MLAGG_DISABLE_NATIVE=1 (scipy) "
+                f"{secs['preprocess (scipy)']:.1f} s, native again "
+                f"{secs['preprocess (native, again)']:.1f} s; both native roots against "
+                f"scipy's: {n} cases, seg equal, data within {worst:.2e} x max|data| "
+                f"(tol {TOL_NATIVE_PREPROCESS:g}) | {card}")
+            resample_alone(npz[-1], card)
+            pipeline_worker_cost()
+
+            # 2. train both recipes on folds 0 and 1, with the planner's batch
+            register_pipeline_recipes()
+            train_c, val_c, final_c, first, steps = {}, {}, {}, {}, []
+            t0 = time.perf_counter()
+            for name in recipes:
+                for fold in PIPELINE_FOLDS:
+                    tf = time.perf_counter()
+                    rec = first if (name, fold) == (recipes[0], "0") else {}
+                    with recording_first_batches(rec), \
+                            attribute_launches(_ext, Trainer, "train_step", train_c, steps), \
+                            attribute_launches(_ext, Trainer, "val_step", val_c), \
+                            attribute_launches(_ext, NNUNetTrainer, "perform_actual_validation",
+                                               final_c):
+                        cli.train_entry([PIPELINE_ID, "2d", fold, "-tr", name, "--npz"])
+                    log(f"  train {name} fold {fold} --npz: {time.perf_counter() - tf:.1f} s")
+            secs["train (2 recipes x 2 folds)"] = time.perf_counter() - t0
+            verbs = {k.name: k.launches for k in _ext.ALL_KERNELS}   # before the comparison
+            want_steps = sum(e for _, e in PIPELINE_RECIPES) * len(PIPELINE_FOLDS) * PIPELINE_STEPS
+            log(f"  launches in the {len(steps)} training steps: {train_c}")
+            log(f"  in the validation steps: {val_c}")
+            log(f"  in the final validations: {final_c}")
+            if len(steps) != want_steps:
+                fail(f"the pipeline trained {len(steps)} steps (want {want_steps})")
+            check_launches(train_c, TRAIN_KERNELS,
+                           set(SERVE_KERNELS + FUSED_KERNELS) - set(TRAIN_KERNELS),
+                           "training steps")
+            for counts, where in ((val_c, "validation steps"), (final_c, "final validations")):
+                check_launches(counts, SERVE_KERNELS, ("selective_scan_bwd",) + FUSED_KERNELS,
+                               where)
+            results = tmp / "results" / PIPELINE_DATASET
+            t0 = time.perf_counter()
+            train_verb_kernels(torch, card, first,
+                               results / f"{recipes[0]}__nnUNetPlans__2d" / "fold_0"
+                               / "checkpoint_final.ckpt",
+                               recipes[0], patch, batch, tag="pipeline")
+            secs["kernels vs plain twins"] = time.perf_counter() - t0
+            _ext.reset_launch_counts()   # the comparison's launches are not the pipeline's
+
+            # 3. find the best configuration
+            t0 = time.perf_counter()
+            cli.find_best_configuration_entry([PIPELINE_ID, "-c", "2d", "-tr", *recipes,
+                                               "-f", *PIPELINE_FOLDS])
+            secs["find_best_configuration"] = time.perf_counter() - t0
+            info = load_json(str(results / "inference_information.json"))
+            best = info["best_model_or_ensemble"]
+            models = [f"{r}__nnUNetPlans__2d" for r in recipes]
+            ensemble = f"ensemble___{models[0]}___{models[1]}___{'_'.join(PIPELINE_FOLDS)}"
+            log(f"  find_best_configuration: {secs['find_best_configuration']:.1f} s; mean "
+                f"foreground Dice {({k: round(v['mean_fg_dice'], 4) for k, v in info['all_results'].items()})}"
+                f"; best {best['identifier']}")
+            if best["identifier"] not in models + [ensemble] or \
+                    set(info["all_results"]) != set(models + [ensemble]):
+                fail(f"inference_information.json: best {best['identifier']}, results "
+                     f"{sorted(info['all_results'])}")
+            pp_file = Path(best["postprocessing_file"])
+            if not pp_file.is_file():
+                fail(f"no {pp_file}")
+
+            # 4. predict the test cases with both recipes, ensemble, postprocess, evaluate
+            preds = {}
+            predict_c = {}
+            verb_preds = []
+            t0 = time.perf_counter()
+            for name, model in zip(recipes, models):
+                preds[model] = tmp / f"predicted_{name}"
+                before = {k.name: k.launches for k in _ext.ALL_KERNELS}
+                with recording_selves(NNUNetPredictor, "predict_from_files",
+                                      verb_preds if name == recipes[0] else []):
+                    cli.predict_entry(["-i", str(raw / "imagesTs"), "-o", str(preds[model]),
+                                       "-d", PIPELINE_DATASET, "-c", "2d", "-tr", name,
+                                       "-f", *PIPELINE_FOLDS, "--save_probabilities"])
+                for k in _ext.ALL_KERNELS:
+                    predict_c[k.name] = predict_c.get(k.name, 0) + k.launches - before[k.name]
+                # the ensembling verb reads plans.json and dataset.json in its
+                # input folders, as the JAX package's does
+                for f in ("plans.json", "dataset.json"):
+                    shutil.copyfile(results / model / f, preds[model] / f)
+            secs["predict (2 recipes)"] = time.perf_counter() - t0
+            check_launches(predict_c, SERVE_KERNELS, ("selective_scan_bwd",) + FUSED_KERNELS,
+                           "predict verbs")
+            t0 = time.perf_counter()
+            counted = {k.name: k.launches for k in _ext.ALL_KERNELS}
+            predict_vs_twins(torch, card, verb_preds, raw, pre / cfg["data_identifier"], pre)
+            for k in _ext.ALL_KERNELS:   # the comparison's launches are not the pipeline's
+                k.launches = counted[k.name]
+            secs["predict kernels vs plain twins"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            preds[ensemble] = tmp / "predicted_ensemble"
+            cli.ensemble_entry(["-i", *(str(preds[m]) for m in models),
+                                "-o", str(preds[ensemble])])
+            final = tmp / "predicted_final"
+            cli.apply_postprocessing_entry(["-i", str(preds[best["identifier"]]), "-o",
+                                            str(final), "-pp_pkl_file", str(pp_file)])
+            cli.evaluate_simple_entry([str(tmp / "labelsTs"), str(final), "-l", "1", "2", "3",
+                                       "-o", str(final / "summary.json")])
+            secs["ensemble, postprocess, evaluate"] = time.perf_counter() - t0
+            pp = load_json(str(pp_file.parent / "postprocessing.json"))
+            for folder in (preds[models[0]], preds[models[1]], preds[ensemble], final):
+                segs = read_segs(folder)
+                if len(segs) != PIPELINE_TEST_CASES:
+                    fail(f"{folder.name} holds {len(segs)} segmentations")
+                for n, seg in segs.items():
+                    if seg.shape != (1, 10, 320, 260) or not set(np.unique(seg)) <= {0, 1, 2, 3}:
+                        fail(f"{folder.name}/{n}: shape {seg.shape}, labels {np.unique(seg)}")
+            summary = load_json(str(final / "summary.json"))
+            dice = summary["foreground_mean"]["Dice"]
+            log(f"  test cases: predicted by both recipes (folds 0 1, probabilities saved) in "
+                f"{secs['predict (2 recipes)']:.1f} s, ensembled, postprocessed with "
+                f"{pp['postprocessing_fns']} ({best['identifier']}) and evaluated in "
+                f"{secs['ensemble, postprocess, evaluate']:.1f} s: mean foreground Dice "
+                f"{dice:.4f}, per label "
+                f"{({k: round(v['Dice'], 4) for k, v in summary['mean'].items()})} | {card}")
+            if not math.isfinite(dice):
+                fail(f"the test cases' mean foreground Dice is {dice}")
+
+            # 5. export recipe A, install it into a fresh results root, predict again
+            t0 = time.perf_counter()
+            zip_file = tmp / "model_A.zip"
+            cli.export_model_entry(["-d", PIPELINE_DATASET, "-o", str(zip_file), "-c", "2d",
+                                    "-tr", recipes[0], "-f", *PIPELINE_FOLDS])
+            paths.nnUNet_results = str(tmp / "results_installed")
+            cli.install_model_entry([str(zip_file)])
+            again = tmp / "predicted_installed"
+            cli.predict_entry(["-i", str(raw / "imagesTs"), "-o", str(again), "-d",
+                               PIPELINE_DATASET, "-c", "2d", "-tr", recipes[0],
+                               "-f", *PIPELINE_FOLDS])
+            secs["export, install, predict"] = time.perf_counter() - t0
+            ref, got = read_segs(preds[models[0]]), read_segs(again)
+            agree = min(float((got[n] == ref[n]).mean()) for n in ref) if \
+                set(got) == set(ref) else 0.0
+            log(f"  export_model_to_zip ({zip_file.stat().st_size / 2 ** 20:.1f} MiB), "
+                f"install_pretrained_model_from_zip into a fresh results root and the predict "
+                f"verb there: {secs['export, install, predict']:.1f} s; segmentations "
+                f"{100 * agree:.3f} % equal to the first prediction's (tol "
+                f"{100 * TOL_PREDICT_AGREE:g} %)")
+            if agree < TOL_PREDICT_AGREE:
+                fail(f"the installed model's segmentations are {100 * agree:.3f} % equal")
+            launches = {k.name: verbs[k.name] + k.launches for k in _ext.ALL_KERNELS}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        finally:
+            paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = saved
+    check_launches(launches, SERVE_KERNELS + ("selective_scan_bwd",), FUSED_KERNELS,
+                   "run")
+    total = time.perf_counter() - t_phase
+    log(f"  seconds per stage: {({k: round(v, 1) for k, v in secs.items()})}; the phase "
+        f"{total:.1f} s, peak memory {peak:.2f} GiB | {card}")
+    log(f"  launches in the pipeline run: {launches}")
+    log(f"[pipeline] phase done in {total:.1f} s")
+    return launches
+
+
 def main() -> None:
     global REPO
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
-    ap.add_argument("--only", choices=("predict", "serve-timing", "train-verb"),
+    ap.add_argument("--only", choices=("predict", "serve-timing", "train-verb", "pipeline"),
                     help="run the device and build phases and this one alone, with no "
                          "kernels line and no final line")
     ap.add_argument("--root", type=Path, default=REPO,
@@ -1925,16 +2486,26 @@ def main() -> None:
     from mlagg_unet_torch.ops import (  # noqa: F401  (registers every kernel)
         flash_attention, fused_norm, mlla_attn_fused, mlla_fused, selective_scan_cuda)
 
-    secs = _ext.build_all()
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mlagg_unet_torch import native
+
+    with ThreadPoolExecutor(1) as pool:   # g++ beside the nvcc builds
+        t0 = time.perf_counter()
+        resampler = pool.submit(native.build)
+        secs = _ext.build_all()
+        resampler.result()
+        native_s = time.perf_counter() - t0
     log(f"[build] {len(_ext.ALL_KERNELS)} kernels from "
-        f"{len({id(k.lib) for k in _ext.ALL_KERNELS})} sources in {secs:.1f} s")
+        f"{len({id(k.lib) for k in _ext.ALL_KERNELS})} sources in {secs:.1f} s; the native "
+        f"resampler ({native.library_path().name}) beside them, all done in {native_s:.1f} s")
 
     def done(phase):
         log(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s")
 
     if opts.only:
         {"serve-timing": serve_timing, "predict": phase_predict,
-         "train-verb": phase_train_verb}[opts.only](torch, card)
+         "train-verb": phase_train_verb, "pipeline": phase_pipeline}[opts.only](torch, card)
         done(opts.only)
         return
     report = Report(sfu_exp_per_s(torch))
@@ -1958,6 +2529,8 @@ def main() -> None:
     done("train (fused_instance_norm)")
     verb = phase_train_verb(torch, card, step_ms)
     done("train verb")
+    pipeline = phase_pipeline(torch, card)
+    done("pipeline")
 
     launches = {**serve, "selective_scan_bwd": train["selective_scan_bwd"],
                 **{k: serve_f[k] for k in FUSED_KERNELS}}
@@ -1970,6 +2543,9 @@ def main() -> None:
         f"{predict['mlla_front']}, K3 {predict['mlla_tail']}, K4 {predict['flash_attn_fwd']}")
     log(f"[train verb] verb launches K1 {verb['selective_scan_fwd']}, K2 {verb['mlla_front']}, "
         f"K3 {verb['mlla_tail']}, K4 {verb['flash_attn_fwd']}, K5 {verb['selective_scan_bwd']}")
+    log(f"[pipeline] launches K1 {pipeline['selective_scan_fwd']}, K2 "
+        f"{pipeline['mlla_front']}, K3 {pipeline['mlla_tail']}, K4 "
+        f"{pipeline['flash_attn_fwd']}, K5 {pipeline['selective_scan_bwd']}")
     log(f"[train] fused_instance_norm launches per step: K7 "
         f"{train_f['instance_norm_stats'] / TRAIN_STEPS:g}, K8 "
         f"{train_f['instance_norm_apply'] / TRAIN_STEPS:g}")

@@ -1,23 +1,35 @@
 """DefaultPreprocessor: per-case read -> transpose -> crop -> normalize ->
-resample -> fg-location sampling (reference:
-preprocessing/preprocessors/default_preprocessor.py:38-163).
+resample -> fg-location sampling -> save (reference:
+preprocessing/preprocessors/default_preprocessor.py:38-261).
 
-Copied from ``mlagg_unet_tpu/preprocessing/preprocessor.py``: the per-case
-path (``run_case_npy``, ``run_case``) that prediction runs, and
-``run_case_save``, which writes one preprocessed training case. The
-dataset-wide ``run`` waits for the preprocess verb.
+Artifact layout is identical to the reference (.npz with 'data'/'seg' +
+properties .pkl) so preprocessed datasets interoperate.
+
+Copied from ``mlagg_unet_tpu/preprocessing/preprocessor.py`` with the imports
+rewritten. The pool of ``run`` spawns its workers with the CUDA card hidden
+(``_spawn_worker_init``): a worker imports the package, and with it torch,
+but preprocessing is numpy only and must not open a context on the card.
 """
 from __future__ import annotations
 
+import multiprocessing
+import os
 from typing import List, Tuple, Union
 
 import numpy as np
 
+from mlagg_unet_torch import paths
 from mlagg_unet_torch.plans.plans_handler import ConfigurationManager, PlansManager
 from mlagg_unet_torch.preprocessing.cropping import crop_to_nonzero
 from mlagg_unet_torch.preprocessing.normalization import get_normalization_scheme_by_name
 from mlagg_unet_torch.preprocessing.resampling import compute_new_shape
-from mlagg_unet_torch.utils.helpers import load_json, write_pickle
+from mlagg_unet_torch.utils.helpers import (
+    join,
+    load_json,
+    maybe_mkdir_p,
+    subfiles,
+    write_pickle,
+)
 
 
 class DefaultPreprocessor:
@@ -167,3 +179,88 @@ class DefaultPreprocessor:
     def modify_seg_fn(self, seg, plans_manager, dataset_json,
                       configuration_manager) -> np.ndarray:
         return seg
+
+    def run(self, dataset_name_or_id: Union[int, str], configuration_name: str,
+            plans_identifier: str = "nnUNetPlans",
+            num_processes: int = 8):
+        """Preprocess a whole dataset into nnUNet_preprocessed
+        (reference :177-261)."""
+        from mlagg_unet_torch.utils.helpers import maybe_convert_to_dataset_name
+
+        dataset_name = maybe_convert_to_dataset_name(dataset_name_or_id)
+        plans_file = join(paths.nnUNet_preprocessed, dataset_name,
+                          plans_identifier + ".json")
+        plans_manager = PlansManager(plans_file)
+        configuration_manager = plans_manager.get_configuration(configuration_name)
+        dataset_json = load_json(
+            join(paths.nnUNet_raw, dataset_name, "dataset.json")
+        )
+
+        output_directory = join(
+            paths.nnUNet_preprocessed, dataset_name,
+            configuration_manager.data_identifier,
+        )
+        maybe_mkdir_p(output_directory)
+
+        # copy ground-truth segmentations for later evaluation
+        # (reference default_preprocessor.py:214-217)
+        import shutil
+
+        gt_dir = join(paths.nnUNet_preprocessed, dataset_name,
+                      "gt_segmentations")
+        maybe_mkdir_p(gt_dir)
+        for f in subfiles(join(paths.nnUNet_raw, dataset_name, "labelsTr"),
+                          join_path=False):
+            if not os.path.isfile(join(gt_dir, f)):
+                shutil.copy(
+                    join(paths.nnUNet_raw, dataset_name, "labelsTr", f),
+                    join(gt_dir, f),
+                )
+
+        from mlagg_unet_torch.data.dataset import get_case_identifiers_from_raw
+
+        identifiers = get_case_identifiers_from_raw(
+            join(paths.nnUNet_raw, dataset_name), dataset_json
+        )
+        file_ending = dataset_json["file_ending"]
+        jobs = []
+        for ident in identifiers:
+            image_files = subfiles(
+                join(paths.nnUNet_raw, dataset_name, "imagesTr"),
+                prefix=ident + "_", suffix=file_ending,
+            )
+            seg_file = join(paths.nnUNet_raw, dataset_name, "labelsTr",
+                            ident + file_ending)
+            jobs.append((join(output_directory, ident), image_files, seg_file))
+
+        if num_processes <= 1:
+            for out, imgs, seg in jobs:
+                self.run_case_save(out, imgs, seg, plans_manager,
+                                   configuration_manager, dataset_json)
+        else:
+            if not os.environ.get("MLAGG_DISABLE_NATIVE"):
+                from mlagg_unet_torch import native
+
+                native.build()   # here once, not in every worker at its first resize
+            ctx = multiprocessing.get_context("spawn")
+            with ctx.Pool(num_processes, initializer=_spawn_worker_init) as pool:
+                pool.starmap(
+                    _run_case_save_star,
+                    [
+                        (self, out, imgs, seg, plans_manager.plans,
+                         configuration_name, dataset_json)
+                        for out, imgs, seg in jobs
+                    ],
+                )
+
+
+def _spawn_worker_init() -> None:
+    """Hide the CUDA card from a preprocessing worker."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+
+
+def _run_case_save_star(preprocessor, out, imgs, seg, plans_dict,
+                        configuration_name, dataset_json):
+    pm = PlansManager(plans_dict)
+    cm = pm.get_configuration(configuration_name)
+    preprocessor.run_case_save(out, imgs, seg, pm, cm, dataset_json)

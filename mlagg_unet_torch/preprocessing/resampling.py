@@ -1,9 +1,9 @@
 """Shape/spacing-aware resampling
 (reference: preprocessing/resampling/default_resampling.py:22-212).
 
-Copied from ``mlagg_unet_tpu/preprocessing/resampling.py`` without its
-native OpenMP branch (``csrc/resample.cpp``): ``_resize`` always takes the
-scipy path, which the JAX package calls identical math.
+Copied from ``mlagg_unet_tpu/preprocessing/resampling.py`` with the imports
+rewritten; ``_resize`` runs the port's own native resampler
+(``mlagg_unet_torch/native``, built from ``mlagg_unet_torch/csrc/resample.cpp``).
 
 skimage is unavailable, so ``_resize`` reimplements skimage.transform.resize's
 spline warp directly with scipy.ndimage.map_coordinates using the identical
@@ -26,12 +26,20 @@ from mlagg_unet_torch.configuration import ANISO_THRESHOLD
 
 
 def _resize(data: np.ndarray, new_shape, order: int = 3) -> np.ndarray:
-    """skimage.transform.resize(mode='edge', anti_aliasing=False) equivalent
-    through scipy map_coordinates."""
+    """skimage.transform.resize(mode='edge', anti_aliasing=False) equivalent.
+    Uses the OpenMP C++ resampler (mlagg_unet_torch.native) for 2D and 3D
+    arrays, scipy map_coordinates otherwise — identical math either way."""
     old_shape = data.shape
     new_shape = tuple(int(i) for i in new_shape)
     if tuple(old_shape) == new_shape:
         return data.astype(float, copy=True)
+
+    if data.ndim in (2, 3):
+        from mlagg_unet_torch.native import native_resize
+
+        out = native_resize(data, new_shape, order)
+        if out is not None:
+            return out
 
     coords = np.meshgrid(
         *[

@@ -63,7 +63,8 @@ from mlagg_unet_torch.training.registry import (
     get_network_builder,
     get_trainer_config,
 )
-from mlagg_unet_torch.utils.helpers import isfile, join, load_json, maybe_mkdir_p, save_json
+from mlagg_unet_torch.utils.helpers import (get_output_folder, isfile, join, load_json,
+                                           maybe_mkdir_p, save_json)
 from mlagg_unet_torch.weights import jax_tree_to_state_dict, state_dict_to_jax_tree
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -354,9 +355,9 @@ class NNUNetTrainer:
             paths.nnUNet_preprocessed, self.plans_manager.dataset_name)
         self.preprocessed_dataset_folder = join(
             self.preprocessed_dataset_folder_base, cm.data_identifier)
-        self.output_folder_base = join(
-            paths.nnUNet_results, self.plans_manager.dataset_name,
-            f"{trainer_name}__{self.plans_manager.plans_name}__{configuration}")
+        self.output_folder_base = get_output_folder(
+            self.plans_manager.dataset_name, trainer_name, self.plans_manager.plans_name,
+            configuration)
         self.output_folder = join(self.output_folder_base, f"fold_{fold}")
 
         self.logger = NNUNetLogger()

@@ -1,12 +1,13 @@
 """Small shared utilities (reference: mlagg/nnunetv2/utilities/helpers.py,
-json_export.py, dataset_name_id_conversion.py).
+json_export.py, file_path_utilities.py, dataset_name_id_conversion.py).
 
-Copied from ``mlagg_unet_tpu/utils/helpers.py``: the file, JSON, pickle and
-dataset-name helpers the predict verbs call."""
+Copied from ``mlagg_unet_tpu/utils/helpers.py``: the file, JSON, pickle,
+dataset-name and output-folder helpers the verbs call."""
 from __future__ import annotations
 
 import json
 import os
+import re
 from typing import Any, List, Union
 
 import numpy as np
@@ -139,3 +140,25 @@ def convert_id_to_dataset_name(dataset_id: Union[int, str]) -> str:
 
 def maybe_convert_to_dataset_name(dataset_name_or_id: Union[int, str]) -> str:
     return convert_id_to_dataset_name(dataset_name_or_id)
+
+
+def extract_dataset_id(dataset_name: str) -> int:
+    m = re.match(r"Dataset(\d+)_", dataset_name)
+    if m is None:
+        raise ValueError(f"not a valid dataset name: {dataset_name}")
+    return int(m.group(1))
+
+
+# ---------------------------------------------------------------------------
+# output folder naming (reference: utilities/file_path_utilities.py:19)
+# ---------------------------------------------------------------------------
+
+def get_output_folder(dataset_name: str, trainer_name: str, plans_identifier: str,
+                      configuration: str, fold: Union[int, str, None] = None) -> str:
+    from mlagg_unet_torch import paths
+
+    folder = join(paths.nnUNet_results, dataset_name,
+                  f"{trainer_name}__{plans_identifier}__{configuration}")
+    if fold is not None:
+        folder = join(folder, f"fold_{fold}")
+    return folder

@@ -138,15 +138,16 @@ def register_tiny_trainer(mp, name: str, **config):
             network=network, **config))
 
 
-def set_paths(mp, root) -> None:
-    """nnUNet_raw / _preprocessed / _results under ``root``, in both packages."""
+def set_paths(mp, root, port_root=None) -> None:
+    """nnUNet_raw / _preprocessed / _results under ``root``, in both
+    packages, or the port's under ``port_root`` when given."""
     from mlagg_unet_tpu import paths as jpaths
     from mlagg_unet_torch import paths as tpaths
 
-    for p in (jpaths, tpaths):
+    for p, base in ((jpaths, root), (tpaths, root if port_root is None else port_root)):
         for var, sub in (("nnUNet_raw", "raw"), ("nnUNet_preprocessed", "preprocessed"),
                          ("nnUNet_results", "results")):
-            mp.setattr(p, var, str(root / sub))
+            mp.setattr(p, var, str(base / sub))
 
 
 def tiny_plans(dataset_name: str, patch=(32, 32), batch: int = 2) -> dict:
