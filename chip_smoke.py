@@ -157,11 +157,39 @@ failure exits non-zero:
    first recipe, ``install_model_entry`` into a fresh results root and the
    predict verb there: segmentations at least 99.9 % equal to the first
    prediction's. Each stage's seconds and the peak memory;
-10. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
+10. unet3d: the default nnU-Net recipe in 3-D, on the plans' ``PlainConvUNet``
+    at ``tools/bench_3d_unet.py``'s topology (6 stages, features 32 to 320,
+    3x3x3 kernels, strides [1,1,1], [2,2,2] x 4, [1,2,2]). fp32 with TF32
+    off: one 64x128x128 tile card against CPU (1e-3 x max).
+    ``nnUNetTrainer``'s loss (1e-5 relative) and every gradient (1e-3 x max
+    + 1e-6) at batch 1 of 32x64x64, the patch cut for the CPU, card against
+    CPU in fp64; in fp32 the loss (1e-5), and each side's largest gradient
+    error against fp64 printed (in fp32 neither side reaches 1e-3 x max on
+    this network, the CPU no more than the card). The tool's
+    workload on ``VolumePredictor``: 4 volumes of 1x96x192x192 after 1
+    warm-up, tile 64x128x128, step 0.5, Gaussian, mirror (0, 1, 2), bf16
+    compute and transfer, automatic tile batch: volumes/s, the chosen batch,
+    each candidate's ms per tile, peak memory, the device busy share of one
+    profiled volume, and bf16 against fp32 rel L2 of volume 0 (5e-2).
+    ``nnUNetTrainerBN`` for 3 bf16 steps on a cached batch: its fp32 running
+    statistics must move; its eval forward card against CPU. The train verb:
+    10 training and 2 test cases of 1x96x192x192 at 1 mm (seeded blobs, 3
+    labels) through ``plan_and_preprocess_entry -c 3d_fullres`` (the plan
+    printed), ``nnUNetTrainer`` cut to 2 epochs of 10 steps and 2 validation
+    steps on fold 0 (seconds per epoch, ms per step with the loader against
+    one cached batch, peak memory), the predict verb on the test cases. The
+    cascade: a hand-written 3d_lowres at 2 mm and 3d_cascade_fullres after
+    it; lowres trains one epoch of 5 steps on fold ``all`` and its final
+    validation writes every case's ``predicted_next_stage``; the cascade
+    stage (1 + 2 input channels) trains one epoch on fold 0; the predict
+    verbs, lowres then the cascade with ``-prev_stage_predictions``. The
+    phase launches none of K1-K8;
+11. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--only predict`` runs phases 1, 2 and 6 alone, ``--only train-verb``
-phases 1, 2 and 8, ``--only pipeline`` phases 1, 2 and 9; ``--only serve-timing``
+phases 1, 2 and 8, ``--only pipeline`` phases 1, 2 and 9, ``--only unet3d``
+phases 1, 2 and 10; ``--only serve-timing``
 runs phases 1 and 2 and then phase 5's default timing alone, in two
 windows, from the package under ``--root`` (default: this script's
 directory): run it for two checkouts in turns in one call to compare them.
@@ -332,6 +360,27 @@ PIPELINE_RECIPES = (("nnUNetTrainer_MLAgg_2D_dt_MS_chip_pipeline_A", 1),
 PIPELINE_STEPS, PIPELINE_VAL_STEPS = 10, 2
 PIPELINE_FOLDS = ("0", "1")
 TOL_NATIVE_PREPROCESS = 1e-6             # native vs scipy preprocessed data, x max|data|
+# phase 10: the default nnU-Net recipe in 3-D. The network: tools/bench_3d_unet.py's
+# topology (6 stages, features 32-320, 3x3x3 kernels) at its tile; the serve: that
+# tool's workload; the train verb: a dataset of 1 mm isotropic volumes planned by the
+# port, nnUNetTrainer cut to 2 epochs of 10 steps and 2 validation steps (from 1000
+# epochs of 250 + 50); the cascade: a hand-written 3d_lowres at 2 mm before it
+UNET3D_TILE = (64, 128, 128)
+UNET3D_FEATURES = (32, 64, 128, 256, 320, 320)
+UNET3D_POOLS = ((1, 1, 1), (2, 2, 2), (2, 2, 2), (2, 2, 2), (2, 2, 2), (1, 2, 2))
+UNET3D_GRAD_PATCH = (32, 64, 64)         # the loss and gradients: the patch cut for the CPU
+UNET3D_VOLUME, UNET3D_VOLUMES = (1, 96, 192, 192), 4
+UNET3D_THRESHOLDS = (0.3, 1.0)           # 3 labels: two thresholds of the image
+UNET3D_DATASET, UNET3D_ID = "Dataset993_ChipSmokeUNet3D", "993"
+UNET3D_DATASET_JSON = {"channel_names": {"0": "MRI"}, "file_ending": ".nii.gz",
+                       "numTraining": 0, "labels": {"background": 0, "a": 1, "b": 2}}
+UNET3D_CASES, UNET3D_TEST_CASES = 10, 2
+UNET3D_RECIPE = "nnUNetTrainer_chip_smoke_3d"
+UNET3D_EPOCHS, UNET3D_STEPS, UNET3D_VAL_STEPS = 2, 10, 2
+UNET3D_BN_STEPS = 3
+UNET3D_CASCADE_RECIPE, UNET3D_CASCADE_STEPS = "nnUNetTrainer_chip_smoke_cascade", 5
+UNET3D_LOWRES_SPACING = 2.0              # mm: 48x96x96 cases, the patch their size
+UNET3D_LOWRES_POOLS = ((1, 1, 1), (2, 2, 2), (2, 2, 2), (2, 2, 2), (1, 2, 2))
 
 
 def fail(msg: str) -> None:
@@ -1260,11 +1309,13 @@ def synthetic_batch(torch, batch: int, seed: int = 0):
 
 def train_grads(trainer, network, x, y):
     """Loss and every parameter's gradient of one batch through ``network``
-    with the trainer's loss."""
+    with the trainer's loss (a parameter the loss does not reach, such as
+    the head of a deep-supervision output of weight 0, has none)."""
     network.zero_grad(set_to_none=True)
     loss = trainer.loss(network(x), y)
     loss.backward()
-    return loss.item(), {k: p.grad.float().cpu() for k, p in network.named_parameters()}
+    return loss.item(), {k: p.grad.float().cpu() for k, p in network.named_parameters()
+                         if p.grad is not None}
 
 
 def compare_grads(torch, label, l_got, g_got, l_ref, g_ref) -> None:
@@ -2453,10 +2504,424 @@ def phase_pipeline(torch, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 10: the 3-D U-Net
+def unet3d_configuration(patch, batch: int = 2):
+    """A ConfigurationManager of tools/bench_3d_unet.py's topology at
+    ``patch`` (the plans' U-Net at full width)."""
+    from mlagg_unet_torch.plans.plans_handler import ConfigurationManager
+
+    return ConfigurationManager({
+        "patch_size": list(patch), "batch_size": batch, "batch_dice": False,
+        "UNet_base_num_features": UNET3D_FEATURES[0],
+        "unet_max_num_features": UNET3D_FEATURES[-1],
+        "conv_kernel_sizes": [[3, 3, 3]] * len(UNET3D_POOLS),
+        "pool_op_kernel_sizes": [list(p) for p in UNET3D_POOLS],
+        "n_conv_per_stage_encoder": [2] * len(UNET3D_POOLS),
+        "n_conv_per_stage_decoder": [2] * (len(UNET3D_POOLS) - 1)})
+
+
+def blobs_3d(torch, shape, seed: int):
+    """A seeded (*shape, 1) image of smooth 3-D blobs, unit std, and its
+    3-class label (two thresholds)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape[0], 1, *shape[1:], generator=g)
+    for _ in range(2):
+        x = torch.nn.functional.avg_pool3d(x, 7, stride=1, padding=3, count_include_pad=False)
+    x = ((x - x.mean()) / x.std()).permute(0, 2, 3, 4, 1).contiguous()
+    return x, torch.bucketize(x[..., 0], torch.tensor(UNET3D_THRESHOLDS))
+
+
+def unet3d_agreement(torch, card: str) -> None:
+    """The bench topology's forward on one tile, fp32 with TF32 off, card
+    against CPU; the default recipe's loss and every gradient at batch 1 of
+    UNET3D_GRAD_PATCH, card against CPU in fp64, and in fp32 the loss, with
+    each side's gradient error against fp64 printed."""
+    from mlagg_unet_torch.training.registry import get_network_builder
+    from mlagg_unet_torch.training.trainer import Trainer
+
+    net = get_network_builder("plans_unet")(unet3d_configuration(UNET3D_TILE), 1, 3, False,
+                                            seed=0, device="cuda")
+    log(f"  the bench topology (tools/bench_3d_unet.py): {len(UNET3D_POOLS)} stages, features "
+        f"{list(UNET3D_FEATURES)}, 3x3x3 kernels, strides {[list(p) for p in UNET3D_POOLS]}: "
+        f"{sum(p.numel() for p in net.parameters())} params")
+    x = torch.from_numpy(np.random.RandomState(0).randn(1, *UNET3D_TILE, 1).astype(np.float32))
+    convs = [m for m in net.modules() if type(m).__name__ in ("Conv", "TransposedConvND")]
+    contiguous = []
+    hooks = [m.register_forward_hook(lambda m, i, o: contiguous.append(o.is_contiguous()))
+             for m in convs]
+    with torch.inference_mode():
+        gpu = net(x.cuda())
+        for h in hooks:
+            h.remove()
+        t0 = time.perf_counter()
+        cpu = copy.deepcopy(net).cpu()(x)
+        cpu_s = time.perf_counter() - t0
+    if gpu.shape != (1, *UNET3D_TILE, 3) or not torch.isfinite(gpu).all():
+        fail(f"3-D U-Net output {tuple(gpu.shape)}, finite={bool(torch.isfinite(gpu).all())}")
+    log(f"  fp32 forward of one {UNET3D_TILE} tile, card vs CPU ({cpu_s:.1f} s on the CPU); "
+        f"{sum(contiguous)} of {len(contiguous)} conv outputs on the card came back "
+        f"channels_last_3d (the (B, D, H, W, C) view contiguous, no copy)")
+    check(f"3-D U-Net tile {tuple(gpu.shape)}", gpu.cpu(), cpu, TOL_MODEL)
+    del net, gpu, cpu
+
+    # the loss and gradients: the card against the CPU in fp64, where both
+    # compute the same numbers; in fp32 neither reaches 1e-3 x max against
+    # fp64 on this network (PERF.md, PR 15), so the fp32 pair is held to the
+    # loss tolerance and its gradients' errors against fp64 are printed
+    cm = unet3d_configuration(UNET3D_GRAD_PATCH, batch=1)
+    xb, yb = blobs_3d(torch, (1, *UNET3D_GRAD_PATCH), seed=1)
+    res = {}
+    for dev, dtype in (("cuda", torch.float64), ("cpu", torch.float64),
+                       ("cuda", torch.float32), ("cpu", torch.float32)):
+        tr = Trainer("nnUNetTrainer", batch_size=1, num_input_channels=1, num_classes=3,
+                     seed=0, device=dev, compute_dtype=torch.float32, configuration_manager=cm)
+        net = tr.network.to(dtype)
+        res[dev, dtype] = train_grads(tr, net, xb.to(tr.device, dtype), yb.to(tr.device))
+    log(f"  nnUNetTrainer's loss (DC+CE, deep supervision at the plans' scales) and every "
+        f"gradient at batch 1 of {UNET3D_GRAD_PATCH} (the patch cut for the CPU)")
+    compare_grads(torch, "3-D U-Net, fp64, card vs CPU", *res["cuda", torch.float64],
+                  *res["cpu", torch.float64])
+    (l_card, g_card), (l_cpu, g_cpu) = res["cuda", torch.float32], res["cpu", torch.float32]
+    d = abs(l_card - l_cpu) / abs(l_cpu)
+    log(f"  loss 3-D U-Net, fp32, card vs CPU: {l_card:.7f} vs {l_cpu:.7f}: rel {d:.3e} "
+        f"(tol {TOL_TRAIN_LOSS:g})")
+    if not d <= TOL_TRAIN_LOSS or not all(torch.isfinite(g).all() for g in g_card.values()):
+        fail(f"fp32 3-D U-Net loss, card vs CPU: rel {d:.3e}, or a gradient not finite")
+    exact = res["cpu", torch.float64][1]
+    for label, grads in (("card", g_card), ("CPU", g_cpu)):
+        # the conv biases' gradients are zero but for rounding (a norm follows)
+        errs = [((grads[k] - r).abs().max().item() / r.abs().max().item(),
+                 ((grads[k] - r).norm() / r.norm()).item(), k)
+                for k, r in exact.items() if k.endswith("weight") and r.abs().max() > 0]
+        worst = max(errs)
+        log(f"  fp32 {label} weight gradients against fp64: the largest |diff| / max|ref| "
+            f"{worst[0]:.3e} ({worst[2]}), the largest rel L2 {max(e[1] for e in errs):.3e}")
+
+
+def unet3d_serve(torch, card: str) -> None:
+    """tools/bench_3d_unet.py's workload on the port: VolumePredictor, bf16
+    compute and transfer, automatic tile batch, mirror (0, 1, 2), Gaussian,
+    step 0.5; 4 volumes after 1 warm-up."""
+    from mlagg_unet_torch import VolumePredictor
+    from mlagg_unet_torch.training.registry import get_network_builder
+
+    net = get_network_builder("plans_unet")(unet3d_configuration(UNET3D_TILE), 1, 3, False,
+                                            seed=0, device="cuda")
+    rng = np.random.RandomState(0)
+    volumes = [rng.rand(*UNET3D_VOLUME).astype(np.float32) for _ in range(UNET3D_VOLUMES)]
+    pred = VolumePredictor(net, UNET3D_TILE, 3, (0, 1, 2), None, compute_dtype=torch.bfloat16,
+                           transfer_dtype=torch.bfloat16, device="cuda")
+    t0 = time.perf_counter()
+    first = pred(volumes[0])   # warm-up: the budget probe and the autotune
+    warm_s = time.perf_counter() - t0
+    tb = pred.last_tile_batch
+    ms = {t: round(v, 4) for t, v in next(iter(pred.autotune_ms.values()), {}).items()}
+    ref32 = VolumePredictor(net, UNET3D_TILE, 3, (0, 1, 2), tb, device="cuda")(volumes[0])
+    d = float(np.linalg.norm(first - ref32) / np.linalg.norm(ref32))
+    log(f"  warm-up volume {time.perf_counter() - t0:.1f} s ({warm_s:.1f} s with the probe and "
+        f"the autotune): tile batch {tb} (model batch {tb * 8}); ms per tile of each candidate "
+        f"{ms}; bf16 vs fp32 serving of volume 0: rel L2 {d:.3e} (tol {TOL_SERVE_REL_L2:g})")
+    if not d <= TOL_SERVE_REL_L2:
+        fail(f"3-D bf16 serving disagrees with fp32 serving: rel L2 {d:.3e}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    outs, elapsed, queued = serve_window(pred, volumes)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for o in outs:
+        if o.shape != (3, *UNET3D_VOLUME[1:]) or not np.isfinite(o).all():
+            fail(f"3-D serve output {o.shape}, finite={bool(np.isfinite(o).all())}")
+    stats = {}
+    profile(torch, "one 3-D volume", lambda: pred(volumes[1]), stats)
+    busy = f"{100 * stats['busy_ms'] / stats['wall_ms']:.1f} %" if stats else "not measured"
+    log(f"  {UNET3D_VOLUMES} volumes of {'x'.join(map(str, UNET3D_VOLUME))}, tile "
+        f"{UNET3D_TILE}, step 0.5, Gaussian, mirror (0, 1, 2), bf16 compute and transfer: "
+        f"{UNET3D_VOLUMES / elapsed:.4f} volumes/s ({elapsed:.3f} s), tile batch {tb}, peak "
+        f"memory {peak:.2f} GiB, device busy {busy} of one profiled volume | {card}")
+
+
+def unet3d_batchnorm(torch, card: str) -> None:
+    """nnUNetTrainerBN for UNET3D_BN_STEPS bf16 steps on one cached batch at
+    the bench tile: the running statistics must move; then the eval forward
+    (on them) card against CPU, fp32, at UNET3D_GRAD_PATCH."""
+    from mlagg_unet_torch.training.trainer import Trainer
+
+    tr = Trainer("nnUNetTrainerBN", batch_size=2, num_input_channels=1, num_classes=3, seed=0,
+                 device="cuda", configuration_manager=unet3d_configuration(UNET3D_TILE))
+    before = {k: b.clone() for k, b in tr.network.named_buffers()}
+    x, y = blobs_3d(torch, (2, *UNET3D_TILE), seed=2)
+    x, y = x.cuda(), y.cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = tr.run_steps([(x, y)] * UNET3D_BN_STEPS)
+    step_ms = 1e3 * (time.perf_counter() - t0) / UNET3D_BN_STEPS
+    moved = {k: (b - before[k]).abs().max().item() for k, b in tr.network.named_buffers()}
+    dtypes = {b.dtype for b in tr.network.buffers()}
+    log(f"  nnUNetTrainerBN, {UNET3D_BN_STEPS} bf16 steps at batch 2 of {UNET3D_TILE} on one "
+        f"cached batch: losses {['%.5f' % v for v in losses]}, {step_ms:.1f} ms per step with "
+        f"the first; {len(moved)} running buffers ({dtypes}), each moved by at least "
+        f"{min(moved.values()):.3e} | {card}")
+    if dtypes != {torch.float32} or not min(moved.values()) > 0:
+        fail(f"the BatchNorm running statistics did not move in fp32: {dtypes}, {moved}")
+    xe, _ = blobs_3d(torch, (1, *UNET3D_GRAD_PATCH), seed=3)
+    net = tr.network.eval()
+    with torch.inference_mode():
+        gpu = net(xe.cuda())[0]
+        cpu = copy.deepcopy(net).cpu()(xe)[0]
+    check(f"BatchNorm eval forward (running statistics) {tuple(gpu.shape)}, card vs CPU",
+          gpu.cpu(), cpu, TOL_MODEL)
+
+
+def write_unet3d_raw(root: Path) -> Path:
+    """The 3-D dataset: UNET3D_CASES training and UNET3D_TEST_CASES test cases
+    of UNET3D_VOLUME at 1 mm isotropic (seeded smooth blobs, 3 labels),
+    written on 8 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from scipy.ndimage import gaussian_filter
+
+    from mlagg_unet_torch.imageio.nifti_io import write_nifti
+    from mlagg_unet_torch.utils.helpers import save_json
+
+    raw = root / "raw" / UNET3D_DATASET
+    for d in (raw / "imagesTr", raw / "labelsTr", raw / "imagesTs"):
+        d.mkdir(parents=True)
+    save_json(dict(UNET3D_DATASET_JSON, numTraining=UNET3D_CASES), str(raw / "dataset.json"),
+              sort_keys=False)
+    rng = np.random.RandomState(2)
+    n = UNET3D_CASES + UNET3D_TEST_CASES
+    noise = [rng.randn(*UNET3D_VOLUME[1:]).astype(np.float32) for _ in range(n)]
+
+    def write(i):
+        img = gaussian_filter(noise[i], 4)
+        img /= img.std()
+        name = f"case_{i:03d}"
+        test = i >= UNET3D_CASES
+        write_nifti(str(raw / ("imagesTs" if test else "imagesTr") / f"{name}_0000.nii.gz"),
+                    img.transpose(2, 1, 0), (1.0, 1.0, 1.0))
+        if not test:
+            lab = np.digitize(img, UNET3D_THRESHOLDS).astype(np.uint8)
+            write_nifti(str(raw / "labelsTr" / f"{name}.nii.gz"), lab.transpose(2, 1, 0),
+                        (1.0, 1.0, 1.0))
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(n)))
+    return raw
+
+
+def register_unet3d_recipe(name: str, epochs: int, steps: int, val_steps: int) -> None:
+    """nnUNetTrainer cut to ``epochs`` epochs of ``steps`` steps and
+    ``val_steps`` validation steps (registered here only)."""
+    from dataclasses import replace
+
+    from mlagg_unet_torch.training import registry
+
+    registry.register_trainer(replace(
+        registry.get_trainer_config("nnUNetTrainer"), name=name, num_epochs=epochs,
+        num_iterations_per_epoch=steps, num_val_iterations_per_epoch=val_steps))
+
+
+def check_segs(folder: Path, names, where: str) -> None:
+    segs = read_segs(folder)
+    if sorted(segs) != sorted(names):
+        fail(f"{where}: {sorted(segs)} written (want {sorted(names)})")
+    for n, seg in segs.items():
+        if seg.shape != UNET3D_VOLUME or not set(np.unique(seg)) <= {0, 1, 2}:
+            fail(f"{where}, {n}: shape {seg.shape}, labels {np.unique(seg)}")
+
+
+def unet3d_train_verb(torch, card: str, tmp: Path, raw: Path) -> None:
+    """plan_and_preprocess -c 3d_fullres, the train verb (nnUNetTrainer cut
+    to UNET3D_EPOCHS epochs of UNET3D_STEPS steps) on fold 0, the predict
+    verb on the test cases; the step on one cached batch."""
+    from mlagg_unet_torch.cli import entrypoints as cli
+    from mlagg_unet_torch.ops import _ext
+    from mlagg_unet_torch.plans.plans_handler import PlansManager
+    from mlagg_unet_torch.training.checkpoint import load_checkpoint
+    from mlagg_unet_torch.training.trainer import Trainer
+    from mlagg_unet_torch.utils.helpers import load_json
+
+    t0 = time.perf_counter()
+    cli.plan_and_preprocess_entry(["-d", UNET3D_ID, "-c", "3d_fullres"])
+    pre = tmp / "preprocessed" / UNET3D_DATASET
+    plans = load_json(str(pre / "nnUNetPlans.json"))
+    cfg = plans["configurations"]["3d_fullres"]
+    log(f"  plan_and_preprocess -c 3d_fullres: {time.perf_counter() - t0:.1f} s; the plan's "
+        f"3d_fullres: patch {cfg['patch_size']}, batch {cfg['batch_size']}, spacing "
+        f"{cfg['spacing']}, {len(cfg['pool_op_kernel_sizes'])} stages, pools "
+        f"{cfg['pool_op_kernel_sizes']}, kernels {cfg['conv_kernel_sizes']}, features "
+        f"{cfg['UNet_base_num_features']}-{cfg['unet_max_num_features']}")
+    register_unet3d_recipe(UNET3D_RECIPE, UNET3D_EPOCHS, UNET3D_STEPS, UNET3D_VAL_STEPS)
+    first, steps = {}, []
+    verb = [UNET3D_ID, "3d_fullres", "0", "-tr", UNET3D_RECIPE]
+    with recording_first_batches(first), \
+            attribute_launches(_ext, Trainer, "train_step", {}, steps):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cli.train_entry(verb)
+        verb_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    folder = tmp / "results" / UNET3D_DATASET / f"{UNET3D_RECIPE}__nnUNetPlans__3d_fullres"
+    ck = load_checkpoint(str(folder / "fold_0" / "checkpoint_final.ckpt"))
+    lg = ck["logging"]
+    epoch_s = [e - s for s, e in zip(lg["epoch_start_timestamps"], lg["epoch_end_timestamps"])]
+    if len(steps) != UNET3D_EPOCHS * UNET3D_STEPS or not all(
+            math.isfinite(v) for v in lg["train_losses"] + lg["val_losses"]):
+        fail(f"the 3-D train verb ran {len(steps)} steps, losses {lg['train_losses']} "
+             f"{lg['val_losses']}")
+    summary = load_json(str(folder / "fold_0" / "validation" / "summary.json"))
+    gaps = [1e3 * (b[0] - a[0]) for a, b in zip(steps[UNET3D_STEPS:], steps[UNET3D_STEPS + 1:])]
+    step_ms = statistics.median(gaps)
+    # the same step on one cached batch: the loader's first, on the card
+    cm = PlansManager(plans).get_configuration("3d_fullres")
+    tr = Trainer(UNET3D_RECIPE, num_input_channels=1, num_classes=3, seed=0, device="cuda",
+                 batch_size=cm.batch_size, batch_dice=cm.batch_dice, configuration_manager=cm)
+    x = torch.from_numpy(np.ascontiguousarray(first["train"]["data"])).cuda()
+    y = torch.from_numpy(np.ascontiguousarray(first["train"]["target"])).cuda()
+    tr.run_steps([(x, y)] * 2)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tr.run_steps([(x, y)] * UNET3D_STEPS)
+    cached_ms = 1e3 * (time.perf_counter() - t1) / UNET3D_STEPS
+    log(f"  train verb {' '.join(verb)}: {verb_s:.1f} s ({UNET3D_EPOCHS} epochs of "
+        f"{UNET3D_STEPS} steps + {UNET3D_VAL_STEPS} validation steps, unpacking, checkpoints "
+        f"and the final validation of {len(summary['metric_per_case'])} cases); seconds per "
+        f"epoch {', '.join(f'{t:.3f}' for t in epoch_s)}; ms per step with the loader "
+        f"(median of {len(gaps)} in epoch 2) {step_ms:.1f}, on one cached batch "
+        f"{cached_ms:.1f}; peak memory {peak:.2f} GiB | {card}")
+    log(f"  losses: train {['%.5f' % v for v in lg['train_losses']]}, validation "
+        f"{['%.5f' % v for v in lg['val_losses']]}; pseudo dice "
+        f"{['%.4f' % v for v in lg['mean_fg_dice']]}; final validation mean foreground Dice "
+        f"{summary['foreground_mean']['Dice']:.4f}")
+    del tr, x, y
+    out = tmp / "predicted_3d"
+    t0 = time.perf_counter()
+    cli.predict_entry(["-i", str(raw / "imagesTs"), "-o", str(out), "-d", UNET3D_ID, "-c",
+                       "3d_fullres", "-tr", UNET3D_RECIPE, "-f", "0"])
+    check_segs(out, [f"case_{i:03d}.nii.gz" for i in range(UNET3D_CASES, UNET3D_CASES +
+                                                           UNET3D_TEST_CASES)],
+               "the 3-D predict verb")
+    log(f"  predict verb (bf16, automatic tile batch, mirror (0, 1, 2)) on the "
+        f"{UNET3D_TEST_CASES} test cases: {time.perf_counter() - t0:.1f} s | {card}")
+
+
+def unet3d_cascade(torch, card: str, tmp: Path, raw: Path) -> None:
+    """A hand-written 3d_lowres (at UNET3D_LOWRES_SPACING) and
+    3d_cascade_fullres pair: the lowres stage trains one short epoch on all
+    cases (fold 'all') and its final validation writes predicted_next_stage
+    for every case; the cascade stage trains one short epoch on fold 0 from
+    them; then the predict verbs: lowres, then the cascade with
+    -prev_stage_predictions."""
+    from mlagg_unet_torch.cli import entrypoints as cli
+    from mlagg_unet_torch.training.checkpoint import load_checkpoint
+    from mlagg_unet_torch.utils.helpers import load_json, save_json
+
+    pre = tmp / "preprocessed" / UNET3D_DATASET
+    plans = load_json(str(pre / "nnUNetPlans.json"))
+    full = plans["configurations"]["3d_fullres"]
+    shape = [int(round(s / UNET3D_LOWRES_SPACING)) for s in UNET3D_VOLUME[1:]]
+    plans["configurations"]["3d_lowres"] = {
+        **full, "data_identifier": "nnUNetPlans_3d_lowres", "batch_size": 2,
+        "spacing": [UNET3D_LOWRES_SPACING] * 3, "median_image_size_in_voxels": shape,
+        "patch_size": shape, "pool_op_kernel_sizes": [list(p) for p in UNET3D_LOWRES_POOLS],
+        "conv_kernel_sizes": [[3, 3, 3]] * len(UNET3D_LOWRES_POOLS),
+        "n_conv_per_stage_encoder": [2] * len(UNET3D_LOWRES_POOLS),
+        "n_conv_per_stage_decoder": [2] * (len(UNET3D_LOWRES_POOLS) - 1),
+        "batch_dice": False, "next_stage": "3d_cascade_fullres"}
+    plans["configurations"]["3d_cascade_fullres"] = {"inherits_from": "3d_fullres",
+                                                     "previous_stage": "3d_lowres"}
+    save_json(plans, str(pre / "nnUNetPlans.json"), sort_keys=False)
+    t0 = time.perf_counter()
+    cli.preprocess_entry(["-d", UNET3D_ID, "-c", "3d_lowres"])
+    log(f"  3d_lowres at {UNET3D_LOWRES_SPACING} mm (patch {shape}, "
+        f"{len(UNET3D_LOWRES_POOLS)} stages) and 3d_cascade_fullres after it written into the "
+        f"plans; 3d_lowres preprocessed in {time.perf_counter() - t0:.1f} s")
+    register_unet3d_recipe(UNET3D_CASCADE_RECIPE, 1, UNET3D_CASCADE_STEPS, 1)
+    secs = {}
+    t0 = time.perf_counter()
+    cli.train_entry([UNET3D_ID, "3d_lowres", "all", "-tr", UNET3D_CASCADE_RECIPE])
+    secs["3d_lowres train + validation (fold all)"] = time.perf_counter() - t0
+    base = tmp / "results" / UNET3D_DATASET
+    nxt = base / f"{UNET3D_CASCADE_RECIPE}__nnUNetPlans__3d_lowres" / "predicted_next_stage" \
+        / "3d_cascade_fullres"
+    written = sorted(p.name for p in nxt.glob("*.npz"))
+    if len(written) != UNET3D_CASES:
+        fail(f"the lowres stage wrote {len(written)} next-stage segmentations (want "
+             f"{UNET3D_CASES})")
+    seg = np.load(nxt / written[0])["seg"]
+    if seg.shape != (1, *UNET3D_VOLUME[1:]) or not set(np.unique(seg)) <= {0, 1, 2}:
+        fail(f"next-stage segmentation {written[0]}: shape {seg.shape}, labels {np.unique(seg)}")
+    t0 = time.perf_counter()
+    cli.train_entry([UNET3D_ID, "3d_cascade_fullres", "0", "-tr", UNET3D_CASCADE_RECIPE])
+    secs["3d_cascade_fullres train + validation (fold 0)"] = time.perf_counter() - t0
+    cas = base / f"{UNET3D_CASCADE_RECIPE}__nnUNetPlans__3d_cascade_fullres" / "fold_0"
+    w = load_checkpoint(str(cas / "checkpoint_final.ckpt"))["network_weights"][
+        "encoder_stage0"]["conv0"]["conv"]["kernel"]
+    summary = load_json(str(cas / "validation" / "summary.json"))
+    if w.shape[3] != 1 + 2:
+        fail(f"the cascade stage's first conv takes {w.shape[3]} channels (want 1 + 2)")
+    low_out, cas_out = tmp / "predicted_lowres", tmp / "predicted_cascade"
+    t0 = time.perf_counter()
+    cli.predict_entry(["-i", str(raw / "imagesTs"), "-o", str(low_out), "-d", UNET3D_ID, "-c",
+                       "3d_lowres", "-tr", UNET3D_CASCADE_RECIPE, "-f", "all"])
+    cli.predict_entry(["-i", str(raw / "imagesTs"), "-o", str(cas_out), "-d", UNET3D_ID, "-c",
+                       "3d_cascade_fullres", "-tr", UNET3D_CASCADE_RECIPE, "-f", "0",
+                       "-prev_stage_predictions", str(low_out)])
+    secs["predict lowres, then cascade"] = time.perf_counter() - t0
+    names = [f"case_{i:03d}.nii.gz" for i in range(UNET3D_CASES, UNET3D_CASES + UNET3D_TEST_CASES)]
+    check_segs(low_out, names, "the lowres predict verb")
+    check_segs(cas_out, names, "the cascade predict verb")
+    log(f"  cascade: {len(written)} next-stage segmentations of {seg.shape[1:]}; the cascade "
+        f"stage's input 1 + 2 channels, its final validation mean foreground Dice "
+        f"{summary['foreground_mean']['Dice']:.4f}; seconds "
+        f"{({k: round(v, 1) for k, v in secs.items()})} | {card}")
+
+
+def phase_unet3d(torch, card: str) -> None:
+    """Phase 10: the default nnU-Net recipe in 3-D on the card. None of
+    K1-K8 may be launched."""
+    import tempfile
+
+    from mlagg_unet_torch import paths
+    from mlagg_unet_torch.ops import _ext
+
+    t_phase = time.perf_counter()
+    _ext.reset_launch_counts()
+    log("[unet3d] the plans U-Net at full width: fp32 agreement, card vs CPU")
+    unet3d_agreement(torch, card)
+    log(f"[unet3d] serve (tools/bench_3d_unet.py's workload) | {card}")
+    unet3d_serve(torch, card)
+    log(f"[unet3d] BatchNorm (nnUNetTrainerBN) | {card}")
+    unet3d_batchnorm(torch, card)
+    torch.cuda.empty_cache()
+    saved = (paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_unet3d_") as tmp:
+        tmp = Path(tmp)
+        paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = (
+            str(tmp / "raw"), str(tmp / "preprocessed"), str(tmp / "results"))
+        try:
+            t0 = time.perf_counter()
+            raw = write_unet3d_raw(tmp)
+            log(f"[unet3d] the train verb: {UNET3D_CASES} training and {UNET3D_TEST_CASES} "
+                f"test cases of {'x'.join(map(str, UNET3D_VOLUME))} at 1 mm written in "
+                f"{time.perf_counter() - t0:.1f} s")
+            unet3d_train_verb(torch, card, tmp, raw)
+            log("[unet3d] the cascade: 3d_lowres -> 3d_cascade_fullres")
+            unet3d_cascade(torch, card, tmp, raw)
+        finally:
+            paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = saved
+    launched = {k.name: k.launches for k in _ext.ALL_KERNELS if k.launches}
+    if launched:
+        fail(f"the 3-D U-Net phase launched port kernels: {launched}")
+    log(f"  launches of K1-K8 in the phase: none of {len(_ext.ALL_KERNELS)} | {card}")
+    log(f"[unet3d] phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     global REPO
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
-    ap.add_argument("--only", choices=("predict", "serve-timing", "train-verb", "pipeline"),
+    ap.add_argument("--only", choices=("predict", "serve-timing", "train-verb", "pipeline",
+                                       "unet3d"),
                     help="run the device and build phases and this one alone, with no "
                          "kernels line and no final line")
     ap.add_argument("--root", type=Path, default=REPO,
@@ -2505,7 +2970,8 @@ def main() -> None:
 
     if opts.only:
         {"serve-timing": serve_timing, "predict": phase_predict,
-         "train-verb": phase_train_verb, "pipeline": phase_pipeline}[opts.only](torch, card)
+         "train-verb": phase_train_verb, "pipeline": phase_pipeline,
+         "unet3d": phase_unet3d}[opts.only](torch, card)
         done(opts.only)
         return
     report = Report(sfu_exp_per_s(torch))
@@ -2531,6 +2997,8 @@ def main() -> None:
     done("train verb")
     pipeline = phase_pipeline(torch, card)
     done("pipeline")
+    phase_unet3d(torch, card)
+    done("unet3d")
 
     launches = {**serve, "selective_scan_bwd": train["selective_scan_bwd"],
                 **{k: serve_f[k] for k in FUSED_KERNELS}}

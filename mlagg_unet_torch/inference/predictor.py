@@ -4,13 +4,16 @@ Counterpart of ``mlagg_unet_tpu/inference/predictor.py``: initialize from
 a trained model folder (the checkpoint carries the trainer name and init
 args, so the right architecture is rebuilt, :83-99), fold ensembling by
 logits averaging on the device (:261-324), num_parts/part_id case striping
-(:185-187) and optional probability export. Preprocessing runs on host
-threads while the card predicts; export runs on other host threads.
+(:185-187), the cascade's previous-stage segmentations stacked on the
+input as one-hot channels (:162-178, ``folder_with_segs_from_prev_stage``)
+and optional probability export. Preprocessing runs on host threads while
+the card predicts; export runs on other host threads.
 
 A folder's checkpoints are either the JAX package's ``.ckpt`` (read
-without JAX, ``training/checkpoint.py``) or the reference's ``.pth``
-(converted by ``training/torch_import.py``, the flagship only). The cascade
-(``previous_stage``) is not ported yet.
+without JAX, ``training/checkpoint.py``; with BatchNorm's running
+statistics in ``model_state``) or the reference's ``.pth`` (converted by
+``training/torch_import.py``, the flagship only). The network is built from
+the checkpoint's configuration in the plans, as the trainer built it.
 """
 from __future__ import annotations
 
@@ -33,16 +36,16 @@ from mlagg_unet_torch.plans.fingerprint import (
     create_lists_from_splitted_dataset_folder,
     get_identifiers_from_splitted_dataset_folder,
 )
-from mlagg_unet_torch.plans.label_handling import determine_num_input_channels
+from mlagg_unet_torch.plans.label_handling import (
+    convert_labelmap_to_one_hot,
+    determine_num_input_channels,
+)
 from mlagg_unet_torch.plans.plans_handler import PlansManager
 from mlagg_unet_torch.preprocessing.preprocessor import DefaultPreprocessor
 from mlagg_unet_torch.training.checkpoint import load_checkpoint
 from mlagg_unet_torch.training.registry import get_network_builder, get_trainer_config
 from mlagg_unet_torch.utils.helpers import isfile, join, load_json, maybe_mkdir_p
-from mlagg_unet_torch.weights import jax_tree_to_state_dict
-
-_CASCADE = ("the cascade (previous_stage) is not ported yet: it comes with the "
-            "3D U-Net cascade (queue A, A13)")
+from mlagg_unet_torch.weights import jax_variables_to_state_dict
 
 
 class NNUNetPredictor:
@@ -109,15 +112,11 @@ class NNUNetPredictor:
                 ckpt = torch.load(path, map_location="cpu", weights_only=False)
             else:
                 ckpt = load_checkpoint(path)
-                if ckpt.get("model_state"):
-                    raise NotImplementedError(
-                        f"{path} holds running statistics (BatchNorm): no ported "
-                        "network has them yet")
             if trainer_name is None:
                 trainer_name = ckpt["trainer_name"]
                 configuration_name = ckpt["init_args"]["configuration"]
                 mirroring = ckpt.get("inference_allowed_mirroring_axes") or ()
-            parameters.append(ckpt["network_weights"])
+            parameters.append((ckpt["network_weights"], ckpt.get("model_state")))
 
         configuration_manager = plans_manager.get_configuration(configuration_name)
         num_input_channels = determine_num_input_channels(
@@ -125,7 +124,7 @@ class NNUNetPredictor:
         cfg = get_trainer_config(trainer_name)
         label_manager = plans_manager.get_label_manager(dataset_json)
         network = get_network_builder(cfg.network)(
-            configuration_manager.patch_size, num_input_channels,
+            configuration_manager, num_input_channels,
             label_manager.num_segmentation_heads, cfg.enable_deep_supervision,
             device="cpu")
         if is_torch:
@@ -137,9 +136,9 @@ class NNUNetPredictor:
                 reference_flagship_state_dict_to_port,
             )
 
-            state_dicts = [reference_flagship_state_dict_to_port(sd) for sd in parameters]
+            state_dicts = [reference_flagship_state_dict_to_port(sd) for sd, _ in parameters]
         else:
-            state_dicts = [jax_tree_to_state_dict(tree) for tree in parameters]
+            state_dicts = [jax_variables_to_state_dict(*p) for p in parameters]
         for sd in state_dicts:  # every fold must load exactly
             network.load_state_dict(sd, strict=True)
 
@@ -232,13 +231,13 @@ class NNUNetPredictor:
         save_or_return_probabilities: bool = False,
     ):
         """reference :354-436."""
-        if segmentation_previous_stage is not None:
-            raise NotImplementedError(_CASCADE)
         preprocessor = DefaultPreprocessor(verbose=self.verbose)
         data, _, properties = preprocessor.run_case_npy(
             input_image, None, dict(image_properties), self.plans_manager,
             self.configuration_manager, self.dataset_json,
         )
+        if segmentation_previous_stage is not None:
+            data = self._stack_prev_stage(data, segmentation_previous_stage)
         logits = self.predict_logits_from_preprocessed_data(data)
         if output_file_truncated is not None:
             export_prediction_from_logits(
@@ -253,6 +252,20 @@ class NNUNetPredictor:
             return_probabilities=save_or_return_probabilities,
         )
 
+    def _stack_prev_stage(self, data: np.ndarray, prev_stage_seg: np.ndarray,
+                          current_spacing=None) -> np.ndarray:
+        """The cascade's input: the previous stage's segmentation resampled
+        to the preprocessed grid (from ``current_spacing``, by default the
+        configuration's) and one-hot over the foreground labels, stacked
+        after the image channels (reference PreprocessAdapter :58-60)."""
+        cm = self.configuration_manager
+        prev = cm.resampling_fn_seg(
+            prev_stage_seg[None].astype(np.int8), data.shape[1:],
+            cm.spacing if current_spacing is None else current_spacing, cm.spacing)[0]
+        onehot = convert_labelmap_to_one_hot(prev, self.label_manager.foreground_labels,
+                                             data.dtype)
+        return np.vstack([data, onehot])
+
     # ------------------------------------------------------------------
     def predict_from_files(
         self,
@@ -264,9 +277,11 @@ class NNUNetPredictor:
         part_id: int = 0,
         folder_with_segs_from_prev_stage: str = None,
     ):
-        if self.configuration_manager.previous_stage_name is not None \
-                or folder_with_segs_from_prev_stage is not None:
-            raise NotImplementedError(_CASCADE)
+        prev_stage_name = self.configuration_manager.previous_stage_name
+        if prev_stage_name is not None and folder_with_segs_from_prev_stage is None:
+            raise ValueError(f"this configuration is the cascade stage after "
+                             f"{prev_stage_name!r}: give folder_with_segs_from_prev_stage "
+                             "(-prev_stage_predictions), that stage's predictions")
         dataset_json = self.dataset_json
         file_ending = dataset_json["file_ending"]
 
@@ -294,20 +309,28 @@ class NNUNetPredictor:
         rw = self.plans_manager.image_reader_writer_class()
         preprocessor = DefaultPreprocessor(verbose=self.verbose)
 
-        def _load_and_preprocess(image_files):
-            """Reading and preprocessing of one case (a host thread)."""
+        def _load_and_preprocess(image_files, ident):
+            """Reading and preprocessing of one case (a host thread); in a
+            cascade the previous stage's segmentation, resampled from the
+            case's own spacing and stacked one-hot (predictor.py:318-339)."""
             data, props = rw.read_images(image_files)
+            seg_prev = None
+            if prev_stage_name is not None:
+                seg_prev = rw.read_seg(join(folder_with_segs_from_prev_stage,
+                                            ident + file_ending))[0][0]
             pdata, _, pprops = preprocessor.run_case_npy(
                 data, None, props, self.plans_manager,
                 self.configuration_manager, self.dataset_json,
             )
+            if seg_prev is not None:
+                pdata = self._stack_prev_stage(pdata, seg_prev, props["spacing"])
             return pdata, pprops
 
         # Pipeline: preprocessing of case k+1..k+depth and export of finished
         # cases overlap the card predicting case k (reference
         # predict_from_raw_data.py:211-254, incl. the export busy-throttle
         # :231-254 that bounds pending exports).
-        todo = [(f, o) for f, o in zip(lists, out_truncated)
+        todo = [(f, o, i) for f, o, i in zip(lists, out_truncated, identifiers)
                 if overwrite or not isfile(o + file_ending)]
         n_pre = max(1, int(os.environ.get("MLAGG_PREPROCESS_WORKERS", "3")))
         n_exp = max(1, int(os.environ.get("MLAGG_EXPORT_WORKERS", "3")))
@@ -318,8 +341,8 @@ class NNUNetPredictor:
             pending = deque()
             next_i = 0
             while next_i < len(todo) and len(pending) <= n_pre:
-                f, o = todo[next_i]
-                pending.append((pre_pool.submit(_load_and_preprocess, f), o))
+                f, o, i = todo[next_i]
+                pending.append((pre_pool.submit(_load_and_preprocess, f, i), o))
                 next_i += 1
             export_futs = []
             # 1-deep device pipeline: volume k's copy to the host and its
@@ -340,8 +363,8 @@ class NNUNetPredictor:
                 fut, out_trunc = pending.popleft()
                 pdata, pprops = fut.result()
                 if next_i < len(todo):
-                    f, o = todo[next_i]
-                    pending.append((pre_pool.submit(_load_and_preprocess, f), o))
+                    f, o, i = todo[next_i]
+                    pending.append((pre_pool.submit(_load_and_preprocess, f, i), o))
                     next_i += 1
                 dev = self._predict_logits_device(pdata)
                 if inflight is not None:

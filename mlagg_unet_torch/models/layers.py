@@ -1,12 +1,17 @@
-"""Shared layers of the flagship network, NHWC.
+"""Shared layers of the port's networks, channels-last.
 
-Counterparts of ``mlagg_unet_tpu/models/layers.py``. Activations are
-channels-last ``(B, H, W, C)`` as in the JAX package; convolutions permute to
-NCHW only around ``F.conv2d``. The flax defaults the JAX model uses are kept:
-LayerNorm eps 1e-6 with the fast variance ``E[x^2] - E[x]^2``, Dense as
-``x @ kernel + bias``, symmetric padding for stride-2 convs, and the flipped
-kernel of a transposed conv (``F.conv_transpose2d`` already correlates with
-the flipped kernel).
+Counterparts of ``mlagg_unet_tpu/models/layers.py`` and of the flax layers
+the JAX networks use. Activations are channels-last, ``(B, H, W, C)`` or
+``(B, D, H, W, C)``, as in the JAX package; convolutions permute to
+channels-first only around ``F.conv2d`` / ``F.conv3d``. A contiguous
+channels-last tensor permuted so is a view in ``torch.channels_last`` /
+``torch.channels_last_3d``, which cuDNN convolves in place and answers in the
+same layout, so the permute back is a view too and no activation is copied.
+The flax defaults the JAX models use are kept: LayerNorm eps 1e-6 with the
+fast variance ``E[x^2] - E[x]^2``, Dense as ``x @ kernel + bias``, symmetric
+padding for strided convs, the flipped kernel of a transposed conv
+(``F.conv_transpose2d`` already correlates with the flipped kernel), and
+BatchNorm's running averages updated with the biased batch variance.
 
 Submodules are named after the flax scopes (``Conv_0``, ``GroupNorm_0``,
 ``Dense_0``...), so ``weights.jax_params_to_state_dict`` only changes layouts.
@@ -24,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-IntOr2 = Union[int, Sequence[int]]
+IntOrN = Union[int, Sequence[int]]
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -32,8 +37,8 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
-def _pair(v: IntOr2) -> Tuple[int, int]:
-    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+def _ntuple(v: IntOrN, n: int) -> Tuple[int, ...]:
+    return tuple(int(i) for i in v) if isinstance(v, (tuple, list)) else (int(v),) * n
 
 
 def _empty(*shape: int) -> nn.Parameter:
@@ -148,34 +153,46 @@ class PointwiseConv(Dense):
 
 # ---------------------------------------------------------------- convs
 
-def _nchw(x):
-    return x.permute(0, 3, 1, 2)
+def _channels_first(x):
+    """(B, *spatial, C) -> (B, C, *spatial), a view."""
+    return x.permute(0, x.ndim - 1, *range(1, x.ndim - 1))
 
 
-def _nhwc(x):
-    return x.permute(0, 2, 3, 1)
+def _channels_last(x):
+    """(B, C, *spatial) -> (B, *spatial, C), a view."""
+    return x.permute(0, *range(2, x.ndim), 1)
+
+
+_CONV = {2: F.conv2d, 3: F.conv3d}
+_CONV_T = {2: F.conv_transpose2d, 3: F.conv_transpose3d}
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv`` on NHWC with symmetric integer padding (``padding=1``
-    or the SAME padding ``k // 2`` of an odd kernel at stride 1). ``weight``
-    is (out, in / groups, kh, kw)."""
+    """flax ``nn.Conv`` on channels-last 2-D or 3-D input with symmetric
+    integer padding (``padding=1``, or by default ``k // 2`` per axis, the
+    SAME padding of an odd kernel at stride 1). The kernel's length sets the
+    dimension (an int kernel is 2-D); strides may differ per axis. ``weight``
+    is (out, in / groups, *kernel); ``bias=False`` drops the bias, as flax's
+    ``use_bias=False`` does."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: IntOr2,
-                 stride: IntOr2 = 1, padding: Optional[IntOr2] = None,
-                 groups: int = 1, torch_bias: bool = False):
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: IntOrN,
+                 stride: IntOrN = 1, padding: Optional[IntOrN] = None,
+                 groups: int = 1, torch_bias: bool = False, bias: bool = True):
         super().__init__()
-        k = _pair(kernel_size)
-        self.stride = _pair(stride)
-        self.padding = _pair(padding) if padding is not None else (k[0] // 2, k[1] // 2)
+        k = _ntuple(kernel_size, 2)
+        self.stride = _ntuple(stride, len(k))
+        self.padding = (_ntuple(padding, len(k)) if padding is not None
+                        else tuple(i // 2 for i in k))
         self.groups = groups
         self.torch_bias = torch_bias
         self.weight = _empty(out_channels, in_channels // groups, *k)
-        self.bias = _empty(out_channels)
+        self.bias = _empty(out_channels) if bias else None
 
     def init_parameters(self, gen):
         fan_in = self.weight[0].numel()
         lecun_normal_(self.weight, fan_in, gen)
+        if self.bias is None:
+            return
         if self.torch_bias:
             torch_bias_(self.bias, fan_in, gen)
         else:
@@ -183,9 +200,9 @@ class Conv(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x):
-        y = F.conv2d(_nchw(x), self.weight, self.bias, self.stride,
-                     self.padding, 1, self.groups)
-        return _nhwc(y)
+        y = _CONV[self.weight.ndim - 2](_channels_first(x), self.weight, self.bias,
+                                       self.stride, self.padding, 1, self.groups)
+        return _channels_last(y)
 
 
 class DepthwiseConv(Conv):
@@ -210,16 +227,17 @@ class DWConv2d(nn.Module):
 
 class ConvTransposeTorch(nn.Module):
     """Transposed conv with torch's output size ``(in - 1) s - 2p + k``
-    (``layers.py:239``). ``weight`` is torch's (in, out, kh, kw); the JAX
-    kernel (kh, kw, in, out) is the same array, and JAX flips it in its
-    forward because ``conv_transpose2d`` does. Groups are not on the
-    flagship's path and are not supported."""
+    (``layers.py:239``), 2-D or 3-D as the kernel's length says. ``weight``
+    is torch's (in, out, *kernel); the JAX kernel (*kernel, in, out) is the
+    same array, and JAX flips it in its forward because
+    ``conv_transpose2d`` / ``conv_transpose3d`` do. Groups are not
+    supported."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: IntOr2, stride: IntOr2, padding: IntOr2 = 0):
+                 kernel_size: IntOrN, stride: IntOrN, padding: IntOrN = 0):
         super().__init__()
-        k = _pair(kernel_size)
-        self.stride, self.padding = _pair(stride), _pair(padding)
+        k = _ntuple(kernel_size, 2)
+        self.stride, self.padding = _ntuple(stride, len(k)), _ntuple(padding, len(k))
         self.weight = _empty(in_channels, out_channels, *k)
         self.bias = _empty(out_channels)
 
@@ -229,9 +247,9 @@ class ConvTransposeTorch(nn.Module):
             self.bias.zero_()
 
     def forward(self, x):
-        y = F.conv_transpose2d(_nchw(x), self.weight, self.bias, self.stride,
-                               self.padding)
-        return _nhwc(y)
+        y = _CONV_T[self.weight.ndim - 2](_channels_first(x), self.weight, self.bias,
+                                         self.stride, self.padding)
+        return _channels_last(y)
 
 
 def pad_top_left(x: torch.Tensor, amount: int = 1) -> torch.Tensor:
@@ -243,6 +261,11 @@ def pad_top_left(x: torch.Tensor, amount: int = 1) -> torch.Tensor:
 
 def _norm_dtype(x: torch.Tensor, w: Optional[torch.Tensor]) -> torch.dtype:
     return x.dtype if w is None else torch.promote_types(x.dtype, w.dtype)
+
+
+def _stats_dtype(x: torch.Tensor) -> torch.dtype:
+    """flax's statistics dtype: at least fp32 (fp64 input stays fp64)."""
+    return torch.promote_types(x.dtype, torch.float32)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -291,20 +314,77 @@ class RMSNorm(nn.Module):
 class InstanceNorm(nn.Module):
     """flax ``GroupNorm(num_groups=C)`` == InstanceNorm with affine
     (``layers.py:199``; also ``ChannelGroupNorm``). Params in a child
-    ``GroupNorm_0``; fp32 stats over H, W with the fast variance."""
+    ``GroupNorm_0``; stats over every spatial axis in at least fp32, the
+    variance flax's fast ``E[x^2] - E[x]^2`` (clipped at 0), or with
+    ``two_pass`` ``E[(x - E[x])^2]`` from ``torch.var_mean``: the same
+    function, which needs no squared copy and keeps two fp32 temporaries of
+    the activation where the fast form keeps four (the 3-D U-Net's
+    activations are large), and does not cancel where a channel's mean is
+    large against its spread."""
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5, two_pass: bool = False):
         super().__init__()
         self.eps = eps
+        self.two_pass = two_pass
         self.GroupNorm_0 = _Affine(channels)
 
     def forward(self, x):
         p = self.GroupNorm_0
-        xf = x.float()
-        mu = xf.mean((1, 2), keepdim=True)
-        var = torch.clamp((xf * xf).mean((1, 2), keepdim=True) - mu * mu, min=0.0)
-        y = (xf - mu) * (torch.rsqrt(var + self.eps) * p.weight.float()) + p.bias.float()
+        xf = x.to(_stats_dtype(x))
+        axes = tuple(range(1, x.ndim - 1))
+        if self.two_pass:
+            # one reduction kernel and no squared copy; xf is dropped once
+            # it is centred, so the fp32 temporaries are two, not four
+            var, mu = torch.var_mean(xf, axes, correction=0, keepdim=True)
+            d = xf - mu
+            del xf
+            scale = torch.rsqrt(var + self.eps) * p.weight.to(d.dtype)
+            return torch.addcmul(p.bias.to(d.dtype), d, scale).to(_norm_dtype(x, p.weight))
+        mu = xf.mean(axes, keepdim=True)
+        var = torch.clamp((xf * xf).mean(axes, keepdim=True) - mu * mu, min=0.0)
+        y = (xf - mu) * (torch.rsqrt(var + self.eps) * p.weight.to(xf.dtype)) \
+            + p.bias.to(xf.dtype)
         return y.to(_norm_dtype(x, p.weight))
+
+
+class BatchNorm(_Affine):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over every axis but
+    the channels. In training mode it normalises by the batch's fp32 mean
+    and biased variance (the fast variance ``E[x^2] - E[x]^2``, clipped at
+    0) and updates the running buffers ``mean`` and ``var`` (flax's
+    ``batch_stats``) as flax does, ``ra = momentum ra + (1 - momentum) s``
+    with the biased variance: torch's ``F.batch_norm`` would update with the
+    unbiased one, n / (n - 1) larger. In eval mode it normalises by the
+    running buffers. The arithmetic is at least fp32; the output takes the
+    promoted input/param dtype."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9):
+        super().__init__(channels)
+        self.eps, self.momentum = eps, momentum
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def init_parameters(self, gen):
+        super().init_parameters(gen)
+        with torch.no_grad():
+            self.mean.zero_()
+            self.var.fill_(1.0)
+
+    def forward(self, x):
+        xf = x.to(_stats_dtype(x))
+        if self.training:
+            axes = tuple(range(x.ndim - 1))
+            mu = xf.mean(axes)
+            var = torch.clamp((xf * xf).mean(axes) - mu * mu, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mu.detach())
+                self.var.copy_(m * self.var + (1 - m) * var.detach())
+        else:
+            mu, var = self.mean.to(xf.dtype), self.var.to(xf.dtype)
+        y = (xf - mu) * (torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)) \
+            + self.bias.to(xf.dtype)
+        return y.to(_norm_dtype(x, self.weight))
 
 
 # ---------------------------------------------------------------- blocks

@@ -1,14 +1,14 @@
-"""Segmentation losses of the flagship recipe, channels-last.
+"""Segmentation losses of the recipes, channels-last.
 
 Counterparts of ``mlagg_unet_tpu/training/losses.py``: the memory-efficient
-soft dice, the robust cross entropy (with an ignore index), DC+CE, BCE and
-DC+BCE for region datasets, the deep-supervision wrapper and weights, the
-nearest-neighbour downsampling of the target for deep supervision, and the
-hard tp/fp/fn/tn of the online pseudo dice; and ``convert_seg_to_regions``
+soft dice, the robust cross entropy (with an ignore index), the TopK cross
+entropy (with label smoothing), DC+CE, DC+TopK, BCE and DC+BCE for region
+datasets, the deep-supervision wrapper and weights, the nearest-neighbour
+downsampling of the target for deep supervision, and the hard tp/fp/fn/tn
+of the online pseudo dice; and ``convert_seg_to_regions``
 (``mlagg_unet_tpu/training/trainer.py:98-115``). Logits are
 (B, *spatial, C), integer targets (B, *spatial), one-hot targets
-(B, *spatial, C); every sum is fp32. The TopK and CE-only losses are not
-ported yet (ROADMAP queue A, A16).
+(B, *spatial, C); every sum is fp32.
 """
 from __future__ import annotations
 
@@ -79,6 +79,30 @@ def robust_cross_entropy_loss(logits: torch.Tensor, target: torch.Tensor,
     return (nll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
 
 
+def topk_cross_entropy_loss(logits: torch.Tensor, target: torch.Tensor,
+                            k_percent: float = 10.0, label_smoothing: float = 0.0,
+                            ignore_index: Optional[int] = None) -> torch.Tensor:
+    """The mean cross entropy of the hardest ``k = max(1, int(n k% / 100))``
+    of the n voxels of the whole batch. ``label_smoothing`` mixes in the mean
+    of -log p over the classes, as torch's CE does; voxels at
+    ``ignore_index`` are zeroed before the selection. A label outside the
+    classes (an ignore label the caller did not name) selects nothing and
+    gives 0, as JAX's one-hot contraction does."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    tgt = target if ignore_index is None else torch.where(
+        target == ignore_index, torch.zeros_like(target), target)
+    in_range = (tgt >= 0) & (tgt < logp.shape[-1])
+    nll = -torch.where(in_range, _select_class_logp(logp, torch.where(
+        in_range, tgt, torch.zeros_like(tgt))), torch.zeros((), device=logp.device))
+    if label_smoothing > 0.0:
+        nll = (1.0 - label_smoothing) * nll + label_smoothing * -logp.mean(-1)
+    if ignore_index is not None:
+        nll = torch.where(target == ignore_index, torch.zeros_like(nll), nll)
+    flat = nll.reshape(-1)
+    k = max(1, int(flat.shape[0] * k_percent / 100.0))
+    return torch.topk(flat, k, sorted=False).values.mean()
+
+
 def dc_and_ce_loss(logits: torch.Tensor, target: torch.Tensor,
                    weight_ce: float = 1.0, weight_dice: float = 1.0,
                    batch_dice: bool = False, smooth: float = 1e-5,
@@ -100,6 +124,25 @@ def dc_and_ce_loss(logits: torch.Tensor, target: torch.Tensor,
         ce = robust_cross_entropy_loss(logits, target, ignore_label)
         if ignore_label is not None:  # no valid voxel: no CE at all
             ce = torch.where(num_fg > 0, ce, torch.zeros_like(ce))
+    return weight_ce * ce + weight_dice * dc
+
+
+def dc_and_topk_loss(logits: torch.Tensor, target: torch.Tensor,
+                     weight_ce: float = 1.0, weight_dice: float = 1.0,
+                     batch_dice: bool = False, smooth: float = 1e-5, do_bg: bool = False,
+                     k_percent: float = 10.0,
+                     ignore_label: Optional[int] = None) -> torch.Tensor:
+    """DC_and_topk_loss: the dice with the ignored voxels masked out, plus
+    TopK CE on the raw target (``losses.py:231-254``)."""
+    mask = None
+    target_dice = target
+    if ignore_label is not None:
+        mask = (target != ignore_label).float()
+        target_dice = torch.where(target == ignore_label, torch.zeros_like(target), target)
+    dc = (memory_efficient_soft_dice_loss(
+        logits, target_dice, _softmax, batch_dice, do_bg, smooth, mask)
+        if weight_dice != 0 else 0.0)
+    ce = topk_cross_entropy_loss(logits, target, k_percent) if weight_ce != 0 else 0.0
     return weight_ce * ce + weight_dice * dc
 
 

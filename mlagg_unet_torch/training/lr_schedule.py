@@ -1,10 +1,11 @@
 """Learning-rate schedules: functions epoch -> lr, stepped once per epoch.
 
 Counterparts of ``mlagg_unet_tpu/training/lr_schedule.py``:
-``poly_lr`` (nnU-Net's PolyLRScheduler, lr0 (1 - e / E)^0.9) and
+``poly_lr`` (nnU-Net's PolyLRScheduler, lr0 (1 - e / E)^0.9),
 ``cosine_warmup_lr`` (timm's CosineLRScheduler as the flagship trainer sets
 it up: linear warmup from ``warmup_lr_init`` over ``warmup_epochs``, then a
-cosine to ``lr_min`` at ``max_epochs``). ``epoch_schedule_to_step_schedule``
+cosine to ``lr_min`` at ``max_epochs``) and ``constant_lr``
+(``mlagg_unet_tpu/training/trainer.py:272-273``). ``epoch_schedule_to_step_schedule``
 holds the lr constant within an epoch for a per-step optimizer. The cosine
 schedule's arithmetic is fp32 with Python-float constants, as the JAX
 package's is.
@@ -38,6 +39,13 @@ def cosine_warmup_lr(initial_lr: float, max_epochs: int, lr_min: float = 1e-6,
         t = torch.clamp((epoch - warmup_epochs) / max(max_epochs - warmup_epochs, 1),
                         0.0, 1.0)
         return float(lr_min + 0.5 * (initial_lr - lr_min) * (1 + torch.cos(math.pi * t)))
+
+    return schedule
+
+
+def constant_lr(initial_lr: float) -> Callable:
+    def schedule(epoch):
+        return initial_lr
 
     return schedule
 

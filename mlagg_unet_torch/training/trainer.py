@@ -1,39 +1,48 @@
-"""Training: the flagship recipe's train and validation steps, and the
-nnU-Net training run around them.
+"""Training: the recipes' train and validation steps, and the nnU-Net
+training run around them.
 
-``Trainer`` holds one network, its AdamW chain and the step functions of
-``NNUNetTrainerTPU._build_step_fns`` (``mlagg_unet_tpu/training/trainer.py:
-350-467``): the loss for labels, regions and the ignore label with the
-deep-supervision scales fixed by the recipe or taken from the plans, the
-train step and the validation step with its online pseudo-dice counts.
+``Trainer`` holds one network, its optimizer chain and the step functions
+of ``NNUNetTrainerTPU._build_step_fns`` (``mlagg_unet_tpu/training/
+trainer.py:350-467``): the recipe's loss for labels, regions and the ignore
+label with the deep-supervision scales fixed by the recipe or taken from
+the plans, the train step and the validation step with its online
+pseudo-dice counts.
 
 ``NNUNetTrainer`` is the counterpart of ``NNUNetTrainerTPU`` (``:117-949``)
 built around one ``Trainer``: the output folders, the 5-fold split, the data
 loaders with augmentation, the epoch loop with the online pseudo dice and
 its EMA, checkpoints (final, latest, best) and resume, and the final
 sliding-window validation with its evaluation into
-``validation/summary.json``.
+``validation/summary.json``. A stage of a cascade reads the previous
+stage's segmentations (``predicted_next_stage/<configuration>`` beside the
+previous stage's folds) as 1 + n_fg input channels, and a stage with a next
+stage writes its validation cases' segmentations there for it.
 
 A train step runs the network in the recipe's compute dtype (bf16): the fp32
 master parameters are cast inside ``torch.func.functional_call``, as the
 JAX step casts its param tree (``:412-417``), so the gradients reach the
-fp32 masters. Stochastic depth draws from the trainer's own
-``torch.Generator`` on the device. The deep-supervision loss is fp32, then
-the gradients are clipped to a global norm of 12 and AdamW steps with the
-cosine schedule at the step's epoch.
+fp32 masters; the buffers (BatchNorm's running statistics) are not cast,
+stay fp32 and are updated once per training step by that bf16 forward, as
+JAX's ``mutable`` apply updates ``batch_stats`` (``:419-440``); the
+validation step normalises by them. Stochastic depth draws from the
+trainer's own ``torch.Generator`` on the device. The deep-supervision loss
+is fp32, then the gradients are clipped to the recipe's global norm and the
+recipe's optimizer steps (``optim.OptimizerChain``) with its schedule at
+the step's epoch.
 
 Checkpoints keep the JAX package's format (``training/checkpoint.py``):
-``network_weights`` is the JAX param tree (``weights.state_dict_to_jax_tree``),
-so both packages' predictors read them. ``opt_state`` is the port's own:
-``{"count": steps taken, "adamw": torch.optim.AdamW.state_dict()}`` with
-numpy arrays for tensors; an optax state from a JAX checkpoint is not
-converted, and a resume from one starts fresh AdamW moments at the epoch's
-step of the schedule.
+``network_weights`` is the JAX param tree and ``model_state`` the
+``batch_stats`` tree of the running statistics, or ``{}``
+(``weights.module_to_jax_variables``), so both packages' trainers and
+predictors read them. ``opt_state`` is the port's own:
+``{"count": steps taken, <optimizer>: the torch optimizer's state_dict}``
+with numpy arrays for tensors; an optax state from a JAX checkpoint is not
+converted, and a resume from one starts fresh moments at the epoch's step
+of the schedule.
 
 Not ported yet, and raised as such: on-device augmentation
-(``MLAGG_DEVICE_AUG``, A15), the cascade (``previous_stage_name`` or
-``next_stage_names``, A13), optimizers other than AdamW (A13, A16), losses
-other than DC+CE / DC+BCE (A16) and running statistics in checkpoints (A13).
+(``MLAGG_DEVICE_AUG``, A15), multi-GPU training (A14) and the model zoo's
+networks (A16).
 """
 from __future__ import annotations
 
@@ -53,19 +62,21 @@ from mlagg_unet_torch.training import losses
 from mlagg_unet_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from mlagg_unet_torch.training.logger import NNUNetLogger
 from mlagg_unet_torch.training.lr_schedule import (
+    constant_lr,
     cosine_warmup_lr,
     epoch_schedule_to_step_schedule,
     poly_lr,
 )
-from mlagg_unet_torch.training.optim import AdamWChain
+from mlagg_unet_torch.training.optim import OPTIMIZERS, OptimizerChain
 from mlagg_unet_torch.training.registry import (
+    NETWORK_BUILDERS,
     TrainerConfig,
     get_network_builder,
     get_trainer_config,
 )
 from mlagg_unet_torch.utils.helpers import (get_output_folder, isfile, join, load_json,
                                            maybe_mkdir_p, save_json)
-from mlagg_unet_torch.weights import jax_tree_to_state_dict, state_dict_to_jax_tree
+from mlagg_unet_torch.weights import jax_variables_to_state_dict, module_to_jax_variables
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -76,16 +87,26 @@ def _epoch_schedule(cfg: TrainerConfig):
     if cfg.lr_scheduler == "cosine_warmup":
         return cosine_warmup_lr(cfg.initial_lr, cfg.num_epochs,
                                 warmup_epochs=cfg.warmup_epochs)
-    raise NotImplementedError(f"lr scheduler {cfg.lr_scheduler!r} is not ported yet "
-                              "(ROADMAP queue A, A13)")
+    if cfg.lr_scheduler == "constant":
+        return constant_lr(cfg.initial_lr)
+    raise ValueError(f"lr scheduler {cfg.lr_scheduler!r}: 'poly', 'cosine_warmup' or "
+                     "'constant'")
+
+
+LOSSES = ("default", "ce", "dice", "dc_topk", "topk10", "topk10_ls01")
 
 
 def _check_ported(cfg: TrainerConfig) -> None:
-    if cfg.optimizer != "adamw":
-        raise NotImplementedError(f"optimizer {cfg.optimizer!r} is not ported yet: only "
-                                  "adamw (SGD with A13, adan and adamw_amsgrad with A16)")
-    if cfg.loss != "default":
-        raise NotImplementedError(f"loss {cfg.loss!r} is not ported yet (ROADMAP queue A, A16)")
+    if cfg.network not in NETWORK_BUILDERS:
+        raise NotImplementedError(
+            f"trainer {cfg.name!r}: network {cfg.network!r} is not ported yet (the model "
+            f"zoo, ROADMAP queue A, A16); ported: {sorted(NETWORK_BUILDERS)}")
+    if cfg.optimizer not in OPTIMIZERS:
+        raise ValueError(f"trainer {cfg.name!r}: optimizer {cfg.optimizer!r}, not one "
+                         f"of {OPTIMIZERS}")
+    if cfg.loss not in LOSSES:
+        raise ValueError(f"trainer {cfg.name!r}: loss {cfg.loss!r}, not one of {LOSSES}")
+    _epoch_schedule(cfg)
 
 
 def kfold_like_sklearn(keys: List[str], n_splits: int = 5, seed: int = 12345
@@ -136,7 +157,7 @@ def deep_supervision_loss_weights(cfg: TrainerConfig, num_outputs: int) -> List[
 
 
 class Trainer:
-    """One network, its AdamW chain and its train / validation steps.
+    """One network, its optimizer chain and its train / validation steps.
 
     ``data`` is (batch, *patch, channels) float and ``target`` (batch, *patch)
     integer labels, both on the trainer's device. ``regions`` (the label
@@ -179,9 +200,9 @@ class Trainer:
             seed=seed, device=self.device, **(network_overrides or {})).train()
         schedule = epoch_schedule_to_step_schedule(
             _epoch_schedule(self.cfg), self.cfg.num_iterations_per_epoch)
-        self.optimizer = AdamWChain(self.network.parameters(), schedule,
-                                    self.cfg.grad_clip_norm, self.cfg.adam_eps,
-                                    self.cfg.weight_decay)
+        self.optimizer = OptimizerChain(self.network.parameters(), self.cfg.optimizer,
+                                        schedule, self.cfg.grad_clip_norm,
+                                        self.cfg.adam_eps, self.cfg.weight_decay)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
     # ------------------------------------------------------------- steps
@@ -197,7 +218,8 @@ class Trainer:
 
     def forward(self, data: torch.Tensor):
         """The network on ``data`` in the compute dtype, differentiable in
-        the fp32 master parameters."""
+        the fp32 master parameters. Only the parameters are cast: buffers
+        (running statistics) stay fp32 and are updated in place."""
         cdt = self.compute_dtype
         if cdt == torch.float32:
             return self.network(data.float(), self.generator)
@@ -206,15 +228,34 @@ class Trainer:
                                {"generator": self.generator})
 
     def _single_loss(self, out: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        """The recipe's loss of one output (``trainer.py:350-391``)."""
+        il, kind = self.ignore_label, self.cfg.loss
         if self.regions is not None:
-            t_regions = losses.convert_seg_to_regions(target, self.regions, self.ignore_label)
+            t_regions = losses.convert_seg_to_regions(target, self.regions, il)
             return losses.dc_and_bce_loss(out, t_regions, batch_dice=self.batch_dice,
-                                          use_ignore_label=self.ignore_label is not None)
+                                          use_ignore_label=il is not None)
+        if kind == "ce":
+            return losses.robust_cross_entropy_loss(out, target, ignore_index=il)
+        if kind == "dice":
+            mask = td = None
+            if il is not None:
+                mask = (target != il).float()
+                td = torch.where(target == il, torch.zeros_like(target), target)
+            return losses.memory_efficient_soft_dice_loss(
+                out, target if td is None else td, batch_dice=self.batch_dice, do_bg=False,
+                smooth=1e-5, loss_mask=mask)
+        if kind == "dc_topk":
+            return losses.dc_and_topk_loss(out, target, batch_dice=self.batch_dice,
+                                           do_bg=False, ignore_label=il)
+        if kind in ("topk10", "topk10_ls01"):
+            return losses.topk_cross_entropy_loss(
+                out, target, k_percent=10.0,
+                label_smoothing=0.1 if kind == "topk10_ls01" else 0.0, ignore_index=il)
         return losses.dc_and_ce_loss(out, target, batch_dice=self.batch_dice, do_bg=False,
-                                     ignore_label=self.ignore_label)
+                                     ignore_label=il)
 
     def loss(self, outputs, target: torch.Tensor) -> torch.Tensor:
-        """DC+CE (no background in the dice), or DC+BCE for regions, fp32,
+        """The recipe's loss (DC+CE by default, DC+BCE for regions), fp32,
         summed over the deep-supervision scales with their weights
         (``trainer.py:350-404``)."""
         if self.cfg.enable_deep_supervision and isinstance(outputs, (list, tuple)):
@@ -231,7 +272,7 @@ class Trainer:
         return self.loss(self.forward(data), target)
 
     def train_step(self, data: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-        """Forward, loss, backward, clip and one AdamW step. Returns the
+        """Forward, loss, backward, clip and one optimizer step. Returns the
         loss as a 0-d tensor on the device (no host sync)."""
         self.optimizer.zero_grad()
         loss = self.forward_loss(data, target)
@@ -340,10 +381,7 @@ class NNUNetTrainer:
         self.cfg: TrainerConfig = get_trainer_config(trainer_name)
         _check_ported(self.cfg)
         cm = self.configuration_manager
-        if cm.previous_stage_name is not None or cm.next_stage_names:
-            raise NotImplementedError(
-                f"configuration {configuration!r} is a stage of a cascade: the cascade "
-                "is not ported yet (ROADMAP queue A, A13)")
+        self.is_cascaded = cm.previous_stage_name is not None
         self.device = resolve_device(device)
         self.unpack_data = unpack_data
 
@@ -434,6 +472,16 @@ class NNUNetTrainer:
         }
         save_json(dct, join(self.output_folder, "debug.json"))
 
+    def previous_stage_folder(self) -> Optional[str]:
+        """Where the previous stage of a cascade wrote this configuration's
+        inputs (``trainer.py:521-528``); None outside a cascade."""
+        prev = self.configuration_manager.previous_stage_name
+        if prev is None:
+            return None
+        return join(self.output_folder_base.replace(f"__{self.configuration_name}",
+                                                    f"__{prev}"),
+                    "predicted_next_stage", self.configuration_name)
+
     def _device_name(self) -> str:
         return (torch.cuda.get_device_name(self.device) if self.device.type == "cuda"
                 else "cpu")
@@ -495,12 +543,13 @@ class NNUNetTrainer:
             self.inference_allowed_mirroring_axes = allowed
 
         tr_keys, val_keys = self.do_split()
-        ds_tr = nnUNetDataset(self.preprocessed_dataset_folder, tr_keys)
-        ds_val = nnUNetDataset(self.preprocessed_dataset_folder, val_keys)
+        prev = self.previous_stage_folder()
+        ds_tr = nnUNetDataset(self.preprocessed_dataset_folder, tr_keys, prev)
+        ds_val = nnUNetDataset(self.preprocessed_dataset_folder, val_keys, prev)
 
         fg_labels = self.label_manager.foreground_labels
         if self.cfg.disable_da:
-            tr_transforms = ValidationTransforms(patch_size, False, fg_labels)
+            tr_transforms = ValidationTransforms(patch_size, self.is_cascaded, fg_labels)
             sample_patch = list(patch_size)
         else:
             tf_cls = DA5TrainingTransforms if self.cfg.da_level == "DA5" else TrainingTransforms
@@ -509,9 +558,9 @@ class NNUNetTrainer:
                 self.configuration_manager.use_mask_for_norm,
                 order_resampling_data=self.cfg.order_resampling_data,
                 order_resampling_seg=self.cfg.order_resampling_seg,
-                foreground_labels=fg_labels)
+                is_cascaded=self.is_cascaded, foreground_labels=fg_labels)
             sample_patch = list(initial_patch_size)
-        val_transforms = ValidationTransforms(patch_size, False, fg_labels)
+        val_transforms = ValidationTransforms(patch_size, self.is_cascaded, fg_labels)
 
         annotated_key = tuple(self.label_manager.all_labels)
         loader_cls = nnUNetDataLoader2D if dim == 2 else nnUNetDataLoader3D
@@ -568,11 +617,11 @@ class NNUNetTrainer:
     # checkpoints
     # ------------------------------------------------------------------
     def save_checkpoint(self, filename: str):
-        opt = self.step.optimizer
+        params, model_state = module_to_jax_variables(self.step.network)
         state = {
-            "network_weights": state_dict_to_jax_tree(self.step.network.state_dict()),
-            "model_state": {},
-            "opt_state": {"count": opt.count, "adamw": opt.opt.state_dict()},
+            "network_weights": params,
+            "model_state": model_state,
+            "opt_state": self.step.optimizer.state_dict(),
             "current_epoch": self.current_epoch + 1,
             "logging": self.logger.get_checkpoint(),
             "_best_ema": self._best_ema,
@@ -585,22 +634,19 @@ class NNUNetTrainer:
 
     def load_checkpoint_file(self, path: str):
         ckpt = load_checkpoint(path)
-        if ckpt.get("model_state"):
-            raise NotImplementedError(f"{path} holds running statistics (BatchNorm): no "
-                                      "ported network has them yet (ROADMAP queue A, A13)")
-        self.step.network.load_state_dict(
-            jax_tree_to_state_dict(ckpt["network_weights"]), strict=True)
+        self.step.network.load_state_dict(jax_variables_to_state_dict(
+            ckpt["network_weights"], ckpt.get("model_state")), strict=True)
         self.current_epoch = ckpt["current_epoch"]
         opt, opt_state = self.step.optimizer, ckpt.get("opt_state")
-        if isinstance(opt_state, dict) and "adamw" in opt_state:
-            opt.opt.load_state_dict(_to_tensors(opt_state["adamw"]))
-            opt.count = int(opt_state["count"])
+        if opt.holds_state(opt_state):
+            opt.load_state_dict(_to_tensors(opt_state))
         else:
-            # an optax state (a JAX checkpoint): fresh moments, the schedule
-            # at the checkpoint's epoch
+            # an optax state (a JAX checkpoint) or another optimizer's: fresh
+            # moments, the schedule at the checkpoint's epoch
             opt.count = self.current_epoch * self.cfg.num_iterations_per_epoch
-            self.print_to_log_file(f"{path}: optimizer state not in the port's format; "
-                                   f"AdamW restarts its moments at step {opt.count}")
+            self.print_to_log_file(f"{path}: optimizer state not in the port's {opt.kind} "
+                                   f"format; {opt.kind} restarts its moments at step "
+                                   f"{opt.count}")
         self.logger.load_checkpoint(ckpt["logging"])
         self._best_ema = ckpt["_best_ema"]
         self.inference_allowed_mirroring_axes = ckpt.get("inference_allowed_mirroring_axes")
@@ -725,11 +771,19 @@ class NNUNetTrainer:
         (reference :1056-1200): each case predicted with the final weights,
         mirror TTA over the allowed axes, tile batch 4, bf16; exported through
         the inverse preprocessing; metrics against the ground truth into
-        ``validation/summary.json``."""
+        ``validation/summary.json``. A cascade stage stacks the previous
+        stage's one-hot segmentation on the case, as the reference does
+        (:1110-1113; the JAX package leaves it out); a stage with next stages
+        writes each case's segmentation at the next stage's shape into
+        ``predicted_next_stage/<next>`` (:1146-1181)."""
         from mlagg_unet_torch.data.dataset import nnUNetDataset
         from mlagg_unet_torch.evaluation.metrics import compute_metrics_on_folder
-        from mlagg_unet_torch.inference.export import export_prediction_from_logits
+        from mlagg_unet_torch.inference.export import (
+            export_prediction_from_logits,
+            resample_and_save,
+        )
         from mlagg_unet_torch.inference.sliding_window import VolumePredictor
+        from mlagg_unet_torch.plans.label_handling import convert_labelmap_to_one_hot
 
         if not self.was_initialized:
             self.initialize()
@@ -740,7 +794,8 @@ class NNUNetTrainer:
         validation_output_folder = join(self.output_folder, "validation")
         maybe_mkdir_p(validation_output_folder)
         _, val_keys = self.do_split()
-        ds_val = nnUNetDataset(self.preprocessed_dataset_folder, val_keys)
+        ds_val = nnUNetDataset(self.preprocessed_dataset_folder, val_keys,
+                               self.previous_stage_folder())
 
         mirror_axes = getattr(self, "inference_allowed_mirroring_axes", None)
         if mirror_axes is None:
@@ -749,13 +804,29 @@ class NNUNetTrainer:
             self.step.network, self.configuration_manager.patch_size,
             self.label_manager.num_segmentation_heads, tuple(mirror_axes),
             tile_batch_size=4, compute_dtype=torch.bfloat16, device=self.device)
+        next_stages = self.configuration_manager.next_stage_names or []
         for k in val_keys:
-            data, _, properties = ds_val.load_case(k)
-            logits = predictor(np.array(data))   # a writable copy of an unpacked memmap
+            data, seg, properties = ds_val.load_case(k)
+            data = np.array(data)   # a writable copy of an unpacked memmap
+            if self.is_cascaded:
+                data = np.vstack([data, convert_labelmap_to_one_hot(
+                    seg[-1], self.label_manager.foreground_labels, data.dtype)])
+            logits = predictor(data)
             export_prediction_from_logits(
                 logits, properties, self.configuration_manager, self.plans_manager,
                 self.dataset_json, join(validation_output_folder, k),
                 save_probabilities=save_probabilities)
+            for ns in next_stages:
+                next_cm = self.plans_manager.get_configuration(ns)
+                next_dir = join(self.preprocessed_dataset_folder_base, next_cm.data_identifier)
+                if not isfile(join(next_dir, k + ".npz")):
+                    continue
+                d_next, _, _ = nnUNetDataset(next_dir, [k]).load_case(k)
+                out_dir = join(self.output_folder_base, "predicted_next_stage", ns)
+                maybe_mkdir_p(out_dir)
+                resample_and_save(logits, d_next.shape[1:], join(out_dir, k + ".npz"),
+                                  self.plans_manager, self.configuration_manager,
+                                  properties, self.dataset_json)
 
         gt_folder = join(self.preprocessed_dataset_folder_base, "gt_segmentations")
         if not os.path.isdir(gt_folder):

@@ -5,24 +5,32 @@ The port's submodules are named after the flax scopes, so a flat JAX key
 ``"mlla.layer0.block0.attn_pool.kv.weight"``. Only layouts change:
 
 - a Dense kernel (in, out) is transposed to (out, in);
-- a conv kernel (kh, kw, in / g, out) becomes (out, in / g, kh, kw);
-- a transposed-conv kernel (kh, kw, in, out) becomes torch's (in, out, kh, kw);
+- a conv kernel (*k, in / g, out), 2-D or 3-D, becomes (out, in / g, *k);
+- a transposed-conv kernel (*k, in, out) becomes torch's (in, out, *k);
 - ``scale`` becomes ``weight``;
 - raw params (``A_logs``, ``Ds``, ``x_proj_weight``, ``dt_projs_*``,
   ``lambda_*``, ``grn_*``) and biases keep the JAX shape.
 
-Transposed convs are told apart by their scope names in the flagship
-(``up_*/conv1``, ``up_*/res_conv``, ``transp_conv``).
+Transposed convs are told apart by their scope names (the flagship's
+``up_*/conv1``, ``up_*/res_conv`` and ``transp_conv``, the U-Net's
+``decoder_transp*``).
+
+BatchNorm's running statistics, flax's ``batch_stats`` collection
+(``.../norm/mean``, ``.../norm/var``), are the port's module buffers of the
+same names: ``module_to_jax_variables`` splits a module into the param tree
+and the ``model_state`` that the JAX package's checkpoints hold, and
+``jax_variables_to_state_dict`` joins them again.
 """
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-_TRANSPOSED = re.compile(r"(^|/)(up_\d+/(conv1|res_conv)|transp_conv)/kernel$")
+_TRANSPOSED = re.compile(
+    r"(^|/)(up_\d+/(conv1|res_conv)|transp_conv|decoder_transp\d+)/kernel$")
 
 
 def _torch_name(key: str) -> str:
@@ -36,8 +44,10 @@ def _kernel_perm(key: str, ndim: int):
     """Axis order taking a JAX kernel to the port's layout."""
     if ndim == 2:
         return (1, 0)
-    if ndim == 4:
-        return (2, 3, 0, 1) if _TRANSPOSED.search(key) else (3, 2, 0, 1)
+    if ndim in (4, 5):
+        spatial = tuple(range(ndim - 2))
+        io = (ndim - 2, ndim - 1) if _TRANSPOSED.search(key) else (ndim - 1, ndim - 2)
+        return io + spatial
     raise ValueError(f"{key}: kernel of rank {ndim}")
 
 
@@ -104,3 +114,24 @@ def jax_tree_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
 
     walk(tree, "")
     return jax_params_to_state_dict(flat)
+
+
+def module_to_jax_variables(module: torch.nn.Module) -> Tuple[dict, dict]:
+    """(param tree, model_state) of a module as the JAX package's checkpoints
+    hold them: its parameters as ``network_weights``, and its buffers (the
+    BatchNorm running statistics) as ``{"batch_stats": tree}``, or ``{}``
+    for a network without them."""
+    params = state_dict_to_jax_tree(dict(module.named_parameters()))
+    buffers = dict(module.named_buffers())
+    return params, ({"batch_stats": state_dict_to_jax_tree(buffers)} if buffers else {})
+
+
+def jax_variables_to_state_dict(params: Mapping, model_state: Optional[Mapping] = None
+                                ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``module_to_jax_variables``: a param tree and a
+    ``model_state`` (its collections, e.g. ``batch_stats``) to one state_dict
+    for ``load_state_dict(strict=True)``."""
+    out = jax_tree_to_state_dict(params)
+    for tree in (model_state or {}).values():
+        out.update(jax_tree_to_state_dict(tree))
+    return out

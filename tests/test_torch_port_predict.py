@@ -217,7 +217,9 @@ def test_verb_main_bf16_writes_every_case(served, form, tmp_path, monkeypatch):
 
 def test_verb_needs_the_card_unless_told(served, tmp_path, monkeypatch):
     """Without ``-device`` the verb runs on the card and raises without one;
-    on the CPU the tile batch must be given."""
+    on the CPU the tile batch must be given. ``-prev_stage_predictions``
+    only matters to a cascade stage: this configuration has no previous
+    stage and ignores it, as the JAX predictor does."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = ["predict_from_modelfolder", "-i", served["cases"], "-o", str(tmp_path / "o"),
             "-m", served["model"]]
@@ -225,9 +227,10 @@ def test_verb_needs_the_card_unless_told(served, tmp_path, monkeypatch):
         entrypoints.main(args)
     with pytest.raises(ValueError, match="tile_batch_size"):
         entrypoints.main(args + ["-device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A13"):
-        entrypoints.main(args + ["-device", "cpu", "-tile_batch_size", "2",
-                                 "-prev_stage_predictions", str(tmp_path)])
+    entrypoints.main(args + ["-device", "cpu", "-tile_batch_size", "2",
+                             "-prev_stage_predictions", str(tmp_path / "nothing")])
+    assert sorted(os.listdir(tmp_path / "o")) == sorted(
+        f for f in os.listdir(served["jax_out"]) if f.endswith(".nii.gz"))
 
 
 def test_step_size_other_than_half_warns():

@@ -155,22 +155,28 @@ def test_pretrained_weights_are_transferred(trained, tmp_path):
 
 def test_verb_needs_the_card_unless_told(trained, monkeypatch):
     """Without ``-device`` the verb runs on the card and raises without one;
-    what is not ported raises naming its queue item."""
+    what is not ported raises naming its queue item; a stage of a cascade
+    reads its previous stage's predictions from beside that stage's folds."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         entrypoints.main(["train", "995", "2d", "0", "-tr", TR])
-    monkeypatch.setitem(treg.TRAINER_REGISTRY, TR + "_sgd",
-                        replace(treg.TRAINER_REGISTRY[TR], name=TR + "_sgd", optimizer="sgd"))
-    with pytest.raises(NotImplementedError, match="A13"):
-        entrypoints.main(["train", "995", "2d", "0", "-tr", TR + "_sgd", "-device", "cpu"])
+    monkeypatch.setitem(treg.TRAINER_REGISTRY, TR + "_zoo", replace(
+        treg.TRAINER_REGISTRY[TR], name=TR + "_zoo", network="umamba_bot"))
+    with pytest.raises(NotImplementedError, match="A16"):
+        entrypoints.main(["train", "995", "2d", "0", "-tr", TR + "_zoo", "-device", "cpu"])
     monkeypatch.setenv("MLAGG_DEVICE_AUG", "ord3")
     tr = NNUNetTrainer(PLANS, "2d", 0, TINY_DATASET_JSON, trainer_name=TR, device="cpu")
     with pytest.raises(NotImplementedError, match="A15"):
         tr.get_dataloaders()
     cascade = tiny_plans(DATASET)
-    cascade["configurations"]["2d"]["next_stage"] = "3d_cascade_fullres"
-    with pytest.raises(NotImplementedError, match="A13"):
-        NNUNetTrainer(cascade, "2d", 0, TINY_DATASET_JSON, trainer_name=TR, device="cpu")
+    cascade["configurations"]["2d"]["next_stage"] = "2d_cascade"
+    cascade["configurations"]["2d_cascade"] = {"inherits_from": "2d", "previous_stage": "2d"}
+    first = NNUNetTrainer(cascade, "2d", 0, TINY_DATASET_JSON, trainer_name=TR, device="cpu")
+    second = NNUNetTrainer(cascade, "2d_cascade", 0, TINY_DATASET_JSON, trainer_name=TR,
+                           device="cpu")
+    assert first.previous_stage_folder() is None and first.num_input_channels == 1
+    assert second.num_input_channels == 1 + 2 and second.previous_stage_folder() == os.path.join(
+        first.output_folder_base, "predicted_next_stage", "2d_cascade")
     with pytest.raises(NotImplementedError, match="A16"):
         entrypoints.main(["train", "995", "2d", "0", "-tr", TR, "-device", "cpu",
                           "-pretrained_weights", _other_family_pth(trained["root"])])

@@ -21,7 +21,7 @@ from mlagg_unet_tpu.training.registry import get_trainer_config as j_trainer_con
 from mlagg_unet_torch.models.layers import DropPath
 from mlagg_unet_torch.training import losses as TLoss
 from mlagg_unet_torch.training import lr_schedule as TLR
-from mlagg_unet_torch.training.optim import AdamWChain
+from mlagg_unet_torch.training.optim import OptimizerChain
 from mlagg_unet_torch.training.registry import get_trainer_config
 from mlagg_unet_torch.training.trainer import Trainer
 from mlagg_unet_torch.weights import state_dict_to_jax_params
@@ -145,7 +145,7 @@ def test_clip_adamw_matches_optax():
     jp = {k: jnp.asarray(v) for k, v in params.items()}
     state = opt.init(jp)
     tp = {k: torch.nn.Parameter(T(v.copy())) for k, v in params.items()}
-    chain = AdamWChain(tp.values(), sched_t, 12.0, 1e-4, 3e-5)
+    chain = OptimizerChain(tp.values(), "adamw", sched_t, 12.0, 1e-4, 3e-5)
     for g in grads:
         upd, state = opt.update({k: jnp.asarray(v) for k, v in g.items()}, state, jp)
         jp = optax.apply_updates(jp, upd)
