@@ -184,12 +184,39 @@ failure exits non-zero:
     stage (1 + 2 input channels) trains one epoch on fold 0; the predict
     verbs, lowres then the cascade with ``-prev_stage_predictions``. The
     phase launches none of K1-K8;
-11. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
+11. mamba: the Mamba zoo's first family on nnU-Net's default 2d plan at
+    320x320 (7 stages, features 32 to 512, batch 4): the six trainers'
+    networks (U-Mamba Bot and Enc, VM-UNet, Mamba-UNet, Swin-UMamba and
+    Swin-UMamba-D) at full width, seeded. (a) One fp32 forward and backward
+    of each at batch 4, and of an SS2D v04 cell in bf16, record every
+    (b, g, d, L, dtype, reverse) at which K1 and K5 run (L 25 to 102,400,
+    g = 2 reversed, bf16); at each, K1 with its states and K5 against their
+    plain twins (phase 3's tolerances); K1 and K5 timed at U-Mamba Enc's
+    stage 0 at batch 4 beside their plain twins and bound. (b) Each
+    network's 320x320 tile, fp32, card vs CPU (1e-3 x max); U-Mamba Bot,
+    Enc and VM-UNet served by ``VolumePredictor`` (2 volumes of
+    1x10x320x320 after 1 warm-up, step 0.5, mirror (0, 1), bf16, automatic
+    tile batch): volumes/s, peak memory, K1 launches per volume, the
+    warm-up volume with the kernels against the plain twins in bf16 (rel L2
+    5e-2) and in fp32 at the chosen batch (1e-3 x max), bf16 against fp32
+    (VM-UNet held to 5e-2, the U-Mambas to ``MAMBA_BF16_TOL``).
+    (c) ``nnUNetTrainerUMambaEnc`` through ``train_entry`` on phase 8's 10
+    cases with that plan, cut to 1 epoch of 10 steps and 2 validation steps
+    on fold 0: the loss and every gradient of its first batch from its final
+    weights, with the network in fp64 around the fp32 scans and in fp32: the
+    loss kernels against plain twins (1e-5), the gradients against the
+    network and scans in fp64 (``hold_mamba_grads``: the whole gradient to
+    twice the twins' distance, each to a quarter of its max or twice the
+    twins' distance), and K1 / K5
+    on that batch's own operands against their twins; ms per
+    step with the loader and on one cached batch, the predict verb on its
+    folder for 2 cases. Only K1 and K5 run;
+12. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--only predict`` runs phases 1, 2 and 6 alone, ``--only train-verb``
 phases 1, 2 and 8, ``--only pipeline`` phases 1, 2 and 9, ``--only unet3d``
-phases 1, 2 and 10; ``--only serve-timing``
+phases 1, 2 and 10, ``--only mamba`` phases 1, 2 and 11; ``--only serve-timing``
 runs phases 1 and 2 and then phase 5's default timing alone, in two
 windows, from the package under ``--root`` (default: this script's
 directory): run it for two checkouts in turns in one call to compare them.
@@ -215,8 +242,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import gc
 import json
 import math
+import multiprocessing
+import os
 import re
 import shutil
 import statistics
@@ -378,6 +408,49 @@ UNET3D_CASES, UNET3D_TEST_CASES = 10, 2
 UNET3D_RECIPE = "nnUNetTrainer_chip_smoke_3d"
 UNET3D_EPOCHS, UNET3D_STEPS, UNET3D_VAL_STEPS = 2, 10, 2
 UNET3D_BN_STEPS = 3
+# phase 11: the Mamba zoo's first family. Its plan: nnU-Net's default 2d
+# topology at 320x320 as phase 9's planner wrote it (7 stages, features 32 to
+# 512, 3x3 kernels, batch 4); U-Mamba Enc scans 102,400 tokens at stage 0, 6,400
+# at stage 2 and channels at stages 4 and 6, U-Mamba Bot the 5x5 bottleneck
+MAMBA_PATCH, MAMBA_BATCH = (320, 320), 4
+MAMBA_POOLS = ((1, 1),) + ((2, 2),) * 6
+MAMBA_FEATURES = (32, 512)               # base, max
+MAMBA_CLASSES = 4
+MAMBA_SERVED = ("nnUNetTrainerUMambaBot", "nnUNetTrainerUMambaEnc", "nnUNetTrainer_VMUNet")
+MAMBA_TRAINERS = MAMBA_SERVED + ("nnUNetTrainer_MambaUNet", "nnUNetTrainerSwinUMambaScratch",
+                                 "nnUNetTrainerSwinUMambaDScratch")
+MAMBA_VOLUME, MAMBA_VOLUMES = (1, 10, 320, 320), 2
+# bf16 against fp32 serving is held to TOL_SERVE_REL_L2, except for the
+# U-Mambas: at random weights bf16 moves the reference's own networks further
+# (JAX's U-Mamba Bot by 1.119e-01, Enc by 5.015e-01 rel L2 at full width on a
+# 160x160 6-stage cut of this plan on the CPU, tests/port_bf16_gap.py; the
+# port's by 1.094e-01 and 4.908e-01 there), so each is held to twice JAX's
+MAMBA_BF16_TOL = {"nnUNetTrainerUMambaBot": 2 * 1.119e-01,
+                  "nnUNetTrainerUMambaEnc": 2 * 5.015e-01}
+# U-Mamba Enc's first train batch against the network and scans in fp64.
+# fp32 scans do not determine single gradients to TOL_TRAIN_GRAD x max: with
+# the kernels and with the plain twins they sat up to ~120x that from the
+# reference, and either run's distance against the other's varied with the
+# trained weights (up to 10x) on an H100 80GB HBM3 at 700 W. So the whole
+# gradient is held to MAMBA_GRAD_TWIN_FACTOR times the twins' rel L2, and
+# each gradient to MAMBA_GRAD_LEAF_TOL x its max or MAMBA_GRAD_TWIN_FACTOR
+# times the twins' distance, which a scan gradient wired to the wrong
+# operand or direction would exceed (hold_mamba_grads)
+MAMBA_GRAD_TWIN_FACTOR = 2.0
+MAMBA_GRAD_LEAF_TOL = 0.25
+MAMBA_GRAD_BATCH = MAMBA_BATCH           # the forward and backward that record the scan shapes
+MAMBA_KERNELS = ("selective_scan_fwd", "selective_scan_bwd")
+MAMBA_DATASET, MAMBA_ID = "Dataset990_ChipSmokeMamba", "990"
+MAMBA_RECIPE = "nnUNetTrainerUMambaEnc_chip_smoke"
+MAMBA_STEPS, MAMBA_VAL_STEPS, MAMBA_CACHED_STEPS = 10, 2, 5
+MAMBA_PLANS = copy.deepcopy(PREDICT_PLANS)
+MAMBA_PLANS["configurations"]["2d"].update(
+    patch_size=list(MAMBA_PATCH), batch_size=MAMBA_BATCH,
+    UNet_base_num_features=MAMBA_FEATURES[0], unet_max_num_features=MAMBA_FEATURES[1],
+    conv_kernel_sizes=[[3, 3]] * len(MAMBA_POOLS),
+    pool_op_kernel_sizes=[list(p) for p in MAMBA_POOLS],
+    n_conv_per_stage_encoder=[2] * len(MAMBA_POOLS),
+    n_conv_per_stage_decoder=[2] * (len(MAMBA_POOLS) - 1))
 UNET3D_CASCADE_RECIPE, UNET3D_CASCADE_STEPS = "nnUNetTrainer_chip_smoke_cascade", 5
 UNET3D_LOWRES_SPACING = 2.0              # mm: 48x96x96 cases, the patch their size
 UNET3D_LOWRES_POOLS = ((1, 1, 1), (2, 2, 2), (2, 2, 2), (2, 2, 2), (1, 2, 2))
@@ -1614,10 +1687,10 @@ def phase_predict(torch, card: str) -> dict:
     return launches
 
 
-def write_train_dataset(root: Path) -> None:
+def write_train_dataset(root: Path, name: str = TRAIN_VERB_DATASET, plans: dict = None) -> None:
     """The train verb's raw dataset (imagesTr, labelsTr), its ground truth and
     its preprocessed 2d cases (the port's ``run_case_save``), written on 8
-    threads."""
+    threads, under ``name`` with ``plans`` (default: the predict phase's)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from scipy.ndimage import gaussian_filter
@@ -1627,9 +1700,9 @@ def write_train_dataset(root: Path) -> None:
     from mlagg_unet_torch.preprocessing.preprocessor import DefaultPreprocessor
     from mlagg_unet_torch.utils.helpers import save_json
 
-    plans = dict(PREDICT_PLANS, dataset_name=TRAIN_VERB_DATASET)
+    plans = dict(plans or PREDICT_PLANS, dataset_name=name)
     dataset = dict(PREDICT_DATASET, numTraining=TRAIN_VERB_CASES)
-    raw, pre = root / "raw" / TRAIN_VERB_DATASET, root / "preprocessed" / TRAIN_VERB_DATASET
+    raw, pre = root / "raw" / name, root / "preprocessed" / name
     for d in (raw / "imagesTr", raw / "labelsTr", pre / "gt_segmentations",
               pre / "nnUNetPlans_2d"):
         d.mkdir(parents=True)
@@ -1731,7 +1804,6 @@ def loader_figures(torch, trainer, backend: str, profiled_steps: int = 0) -> dic
     worker, fails the phase), then the ms per step of TRAIN_STEPS steps it
     feeds (after TRAIN_WARMUP), and with ``profiled_steps`` a profile of as
     many more (``stats``: wall and device busy ms)."""
-    import os
     import threading
 
     old = os.environ.get("MLAGG_DA_BACKEND")
@@ -2112,7 +2184,6 @@ def register_pipeline_recipes() -> None:
 def spawn_worker_probe() -> tuple:
     """Run in a spawned preprocessing worker: what it has loaded and whether
     it opened the card."""
-    import os
 
     import torch
 
@@ -2125,7 +2196,6 @@ def pipeline_worker_cost() -> None:
     importing numpy and scipy against one importing the preprocessor (and
     with it the package and torch); a worker of the pool must not open the
     card."""
-    import multiprocessing
 
     from mlagg_unet_torch.preprocessing.preprocessor import _spawn_worker_init
 
@@ -2172,7 +2242,6 @@ def resample_alone(npz: Path, card: str) -> None:
     """One preprocessed case resampled in this process by the native
     resampler and by scipy (best of 2 each): what the resampler alone saves
     on this host."""
-    import os
 
     from mlagg_unet_torch.preprocessing.resampling import resample_data_or_seg_to_shape
 
@@ -2255,7 +2324,6 @@ def phase_pipeline(torch, card: str) -> dict:
     recipes trained on folds 0 and 1, find_best_configuration, predict,
     ensemble, apply_postprocessing and evaluate_simple on the test cases,
     and the export/install zip round trip. Returns the phase's launches."""
-    import os
     import tempfile
 
     from mlagg_unet_torch import paths
@@ -2917,11 +2985,621 @@ def phase_unet3d(torch, card: str) -> None:
     log(f"[unet3d] phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
+def mamba_configuration(batch: int = MAMBA_BATCH):
+    """The ConfigurationManager of the family's 2d plan (MAMBA_PLANS)."""
+    from mlagg_unet_torch.plans.plans_handler import ConfigurationManager
+
+    return ConfigurationManager(dict(MAMBA_PLANS["configurations"]["2d"], batch_size=batch))
+
+
+def mamba_networks(torch) -> dict:
+    """The six trainers' networks at full width, seeded, fp32, on the card,
+    as their trainers build them for the family's plan."""
+    from mlagg_unet_torch.training.registry import get_network_builder, get_trainer_config
+
+    cm, nets = mamba_configuration(), {}
+    for name in MAMBA_TRAINERS:
+        cfg = get_trainer_config(name)
+        net = get_network_builder(cfg.network)(cm, 1, MAMBA_CLASSES, cfg.enable_deep_supervision,
+                                               seed=0, device="cuda")
+        nets[name] = net
+        log(f"  {name} ({cfg.network}): {sum(p.numel() for p in net.parameters())} params, "
+            f"{type(net).__name__}")
+    return nets
+
+
+@contextlib.contextmanager
+def recording_scan_calls(calls: dict):
+    """While active, every K1 launch (``_launch_fwd``) and K5 call
+    (``selective_scan_bwd``) adds its kernel to ``calls[(b, g, d, L, dtype,
+    reverse)]``."""
+    from mlagg_unet_torch.ops import selective_scan_cuda as ssc
+
+    fwd, bwd = ssc._launch_fwd, ssc.selective_scan_bwd
+
+    def key(u, reverse):
+        return (*u.shape, str(u.dtype).replace("torch.", ""), bool(reverse))
+
+    def rec_fwd(u, delta, A, B, C, D, delta_bias, delta_softplus, reverse, with_states):
+        calls.setdefault(key(u, reverse), set()).add("K1")
+        return fwd(u, delta, A, B, C, D, delta_bias, delta_softplus, reverse, with_states)
+
+    def rec_bwd(u, *args, **kwargs):
+        reverse = kwargs["reverse"] if "reverse" in kwargs else args[7]
+        calls.setdefault(key(u, reverse), set()).add("K5")
+        return bwd(u, *args, **kwargs)
+
+    ssc._launch_fwd, ssc.selective_scan_bwd = rec_fwd, rec_bwd
+    try:
+        yield
+    finally:
+        ssc._launch_fwd, ssc.selective_scan_bwd = fwd, bwd
+
+
+@contextlib.contextmanager
+def fp64_plain_scans():
+    """While active, the scan's plain twins compute in fp64: their operands
+    widened, y returned in fp64 and the gradients in the operands' dtypes.
+    The exact scan of the operands a network hands them."""
+    import torch
+
+    from mlagg_unet_torch.ops import selective_scan_cuda as ssc
+
+    fwd, bwd = ssc.selective_scan, ssc.selective_scan_bwd_plain
+
+    def wide(args):
+        return [a.double() if torch.is_tensor(a) else a for a in args]
+
+    def bwd64(*args, **kwargs):
+        grads = bwd(*wide(args), **dict(zip(kwargs, wide(kwargs.values()))))
+        return tuple(None if g is None else g.to(a.dtype) for g, a in zip(grads, args))
+
+    ssc.selective_scan = lambda *args, **kwargs: fwd(*wide(args), **kwargs)
+    ssc.selective_scan_bwd_plain = bwd64
+    try:
+        yield
+    finally:
+        ssc.selective_scan, ssc.selective_scan_bwd_plain = fwd, bwd
+
+
+@contextlib.contextmanager
+def plain_scan_chunks(chunk: int):
+    """While active, the scan's plain twins run in chunks of ``chunk`` steps
+    (256 by default): the same function, summed in another order."""
+    import functools
+
+    from mlagg_unet_torch.ops import selective_scan_cuda as ssc
+
+    fwd, bwd = ssc.selective_scan, ssc.selective_scan_bwd_plain
+    ssc.selective_scan = functools.partial(fwd, chunk_size=chunk)
+    ssc.selective_scan_bwd_plain = functools.partial(bwd, chunk_size=chunk)
+    try:
+        yield
+    finally:
+        ssc.selective_scan, ssc.selective_scan_bwd_plain = fwd, bwd
+
+
+@contextlib.contextmanager
+def keeping_scan_bwd_calls(kept: list):
+    """While active, each K5 call's operands and flags are appended to
+    ``kept``."""
+    from mlagg_unet_torch.ops import selective_scan_cuda as ssc
+
+    bwd = ssc.selective_scan_bwd
+
+    def keeping(*args, **kwargs):
+        kept.append((args, kwargs))
+        return bwd(*args, **kwargs)
+
+    ssc.selective_scan_bwd = keeping
+    try:
+        yield
+    finally:
+        ssc.selective_scan_bwd = bwd
+
+
+def scan_fp64(u, delta, A, B, C, D, delta_bias, delta_softplus, reverse):
+    """The scan's y in fp64 (the plain twin on fp64 operands): the yardstick
+    of both fp32 scans' rounding."""
+    from mlagg_unet_torch.ops.selective_scan import selective_scan
+
+    return selective_scan(*(None if t is None else t.double()
+                            for t in (u, delta, A, B, C, D, delta_bias)),
+                          delta_softplus, reverse=reverse)
+
+
+def scan_calls_vs_twins(torch, kept: list) -> None:
+    """K1 (with states) and K5 on the operands a network handed them,
+    against their plain twins (phase 3's tolerances), and both scans' y
+    against the scan in fp64. No autograd: the kept operands are tensors of
+    the network's graph."""
+    log(f"    device memory: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    with torch.no_grad():
+        for args, kwargs in kept:
+            scan_call_vs_twins(torch, args[:9], args[9] if len(args) > 9 else kwargs["gy"])
+
+
+def scan_call_vs_twins(torch, ops: tuple, gy) -> None:
+    from mlagg_unet_torch.ops.selective_scan import selective_scan_bwd_plain
+    from mlagg_unet_torch.ops.selective_scan_cuda import (
+        scan_fwd_plain, selective_scan_bwd, selective_scan_fwd_states)
+
+    names = ("du", "ddelta", "dA", "dB", "dC", "dD", "dbias")
+    y, states = selective_scan_fwd_states(*ops)
+    y_plain = scan_fwd_plain(*ops)
+    e1 = rel_err(y, y_plain)[1]
+    got = selective_scan_bwd(*ops, gy, states)
+    ref = selective_scan_bwd_plain(*ops, gy.float())
+    errs = {nm: rel_err(a, r_)[1] for nm, a, r_ in zip(names, got, ref) if a is not None}
+    del got, ref, states
+    delta = torch.nn.functional.softplus(ops[1].float() + ops[6].float()[None, :, :, None])
+    y64 = scan_fp64(*ops)
+    log(f"    on the network's operands {tuple(ops[0].shape)} {ops[0].dtype}: K1 rel "
+        f"{e1:.2e}; K5 " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f"; softplus(delta) in [{delta.min().item():.2e}, {delta.max().item():.2e}]; "
+        f"y against the scan in fp64: K1 rel {rel_err(y, y64)[1]:.2e}, plain twin "
+        f"{rel_err(y_plain, y64)[1]:.2e}")
+    tol = TOL_SCAN_GRAD if ops[0].dtype == torch.float32 else TOL_SCAN_GRAD_BF16
+    if not (e1 <= TOL_SCAN and all(v <= tol for v in errs.values())):
+        fail(f"K1/K5 on the network's operands {tuple(ops[0].shape)}: K1 {e1:.3e}, K5 {errs}")
+
+
+def mamba_scan_shapes(torch, nets: dict) -> dict:
+    """Every (b, g, d, L, dtype, reverse) at which one fp32 forward and one
+    backward of each network at batch MAMBA_GRAD_BATCH (and of the SS2D
+    cell's bf16 scan type v04 at VM-UNet's first stage) calls K1 and K5."""
+    from mlagg_unet_torch.models.layers import init_parameters
+    from mlagg_unet_torch.models.mamba_block import SS2D
+
+    calls, per_model = {}, {}
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(MAMBA_GRAD_BATCH, *MAMBA_PATCH, 1, generator=g).cuda()
+    for name, net in nets.items():
+        seen = {}
+        with recording_scan_calls(seen):
+            outs = net(x)
+            outs = outs if isinstance(outs, (list, tuple)) else [outs]
+            sum(o.float().square().mean() for o in outs).backward()
+        net.zero_grad(set_to_none=True)
+        per_model[name] = sorted(seen)
+        for k, v in seen.items():
+            calls.setdefault(k, set()).update(v)
+    cell = init_parameters(SS2D(96, forward_type="v04"), torch.Generator().manual_seed(0))
+    cell = cell.to("cuda", torch.bfloat16)
+    xc = torch.randn(MAMBA_GRAD_BATCH, 80, 80, 96, generator=g).to("cuda", torch.bfloat16)
+    seen = {}
+    with recording_scan_calls(seen):
+        cell(xc).float().square().mean().backward()
+    per_model["SS2D v04 (bf16 scan) at VM-UNet's stage 0"] = sorted(seen)
+    for k, v in seen.items():
+        calls.setdefault(k, set()).update(v)
+    torch.cuda.synchronize()
+    for name, keys in per_model.items():
+        log(f"  {name}: K1/K5 at (b, g, d, L, dtype, reverse) " + ", ".join(map(str, keys)))
+    return calls
+
+
+def mamba_scan_checks(torch, card: str, calls: dict) -> None:
+    """K1 (with its tile-entry states) and K5 against their plain twins at
+    every recorded shape, phase 3's tolerances; the shapes must include L <
+    64, L % 8 != 0, L >= 1e5, g = 2 reversed and a bf16 scan. Then K1 and K5
+    timed at the family's largest shape (U-Mamba Enc's stage 0 at the
+    training batch) beside their plain twins and their bound."""
+    from mlagg_unet_torch.ops.selective_scan import selective_scan_bwd_plain
+    from mlagg_unet_torch.ops.selective_scan_cuda import (
+        STATE_EVERY, scan_fwd_plain, selective_scan_bwd, selective_scan_fwd_states)
+
+    want = {"L < 64": lambda k: k[3] < 64, "L % 8 != 0": lambda k: k[3] % 8 != 0,
+            "L >= 1e5": lambda k: k[3] >= 100_000, "g = 2 reversed": lambda k: k[1] == 2 and k[5],
+            "bf16": lambda k: k[4] == "bfloat16"}
+    missing = [w for w, f in want.items() if not any(f(k) for k in calls)]
+    if missing or any(v != {"K1", "K5"} for v in calls.values()):
+        fail(f"the family's scans miss {missing} or a shape ran K1 or K5 only: {calls}")
+    rs = np.random.RandomState(11)
+    dev = torch.device("cuda")
+    names = ("du", "ddelta", "dA", "dB", "dC", "dD", "dbias")
+
+    def operands(b, g, d, L, dtype):
+        def T(a, dt=torch.float32):
+            return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
+        n = 16
+        A = T(-np.tile(np.arange(1, n + 1, dtype=np.float32), (g, d, 1)))
+        dt0 = np.exp(rs.rand(g, d) * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+        bias, Dp = T(dt0 + np.log(-np.expm1(-dt0))), T(1 + 0.1 * rs.randn(g, d))
+        u, dl = (T(rs.randn(b, g, d, L) * s, dtype) for s in (1.0, 0.5))
+        Bm, Cm = (T(rs.randn(b, g, n, L), dtype) for _ in range(2))
+        return (u, dl, A, Bm, Cm, Dp, bias), T(rs.randn(b, g, d, L))
+
+    log(f"  {len(calls)} distinct shapes; holding K1 and K5 to their plain twins at each")
+    for (b, g, d, L, dt, rev) in sorted(calls):
+        dtype = getattr(torch, dt)
+        ops, gy = operands(b, g, d, L, dtype)
+        args = (*ops, True, rev)
+        y, states = selective_scan_fwd_states(*args)
+        e1 = rel_err(y, scan_fwd_plain(*args))[1]
+        got = selective_scan_bwd(*args, gy, states)
+        ref = selective_scan_bwd_plain(*args, gy)
+        errs = {nm: rel_err(a, r_)[1] for nm, a, r_ in zip(names, got, ref)}
+        tol = TOL_SCAN_GRAD if dtype == torch.float32 else TOL_SCAN_GRAD_BF16
+        log(f"    ({b}, {g}, {d}, {L}) {dt} reverse={rev}: K1 rel {e1:.2e} (tol {TOL_SCAN:g}); "
+            f"K5 worst {max(errs, key=errs.get)} rel {max(errs.values()):.2e} (tol {tol:g})")
+        if not (e1 <= TOL_SCAN and all(math.isfinite(v) and v <= tol for v in errs.values())):
+            fail(f"K1/K5 at ({b}, {g}, {d}, {L}) {dt} reverse={rev}: K1 {e1:.3e}, K5 {errs}")
+        del y, states, got, ref, ops, gy
+
+    # the largest shape: U-Mamba Enc's stage 0 at the training batch
+    b, g, d, L = MAMBA_BATCH, 1, 2 * MAMBA_FEATURES[0], MAMBA_PATCH[0] * MAMBA_PATCH[1]
+    ops, gy = operands(b, g, d, L, torch.float32)
+    args = (*ops, True, False)
+    _, states = selective_scan_fwd_states(*args)
+    k1 = time_ms(lambda: selective_scan_fwd_states(*args), reps=10)
+    k5 = time_ms(lambda: selective_scan_bwd(*args, gy, states), reps=10)
+    p1 = time_ms(lambda: scan_fwd_plain(*args), reps=3, warmup=1)
+    p5 = time_ms(lambda: selective_scan_bwd_plain(*args, gy), reps=3, warmup=1)
+    el, bc, n = b * g * d * L, b * g * 16 * L, 16
+    st = b * g * math.ceil(L / STATE_EVERY) * d * n * 4
+    par = (g * d * n + 2 * g * d) * 4
+    exp_rate = sfu_exp_per_s(torch)
+    # each input read once and each output written once, fp32 operands;
+    # K1 writes y and the tile-entry states, K5 reads them and gy and writes
+    # the seven gradients
+    b1 = bound_ms(2 * el * 4 + 2 * bc * 4 + par + el * 4 + st, el * (6 * n + 7), "fp32",
+                  el * n, exp_rate)
+    b5 = bound_ms(2 * el * 4 + 2 * bc * 4 + el * 4 + st + 2 * par + 2 * el * 4 + 2 * bc * 4,
+                  15 * el * n + 10 * el, "fp32", el * n, exp_rate)
+    log(f"  K1 with states at ({b}, {g}, {d}, {L}) fp32 (U-Mamba Enc stage 0, training batch): "
+        f"{k1:.4f} ms, plain {p1:.3f} ms, bound {b1[0]:.4f} ms ({b1[1]}) | {card}")
+    log(f"  K5 at ({b}, {g}, {d}, {L}) fp32: {k5:.4f} ms, plain {p5:.3f} ms, bound "
+        f"{b5[0]:.4f} ms ({b5[1]}) | {card}")
+
+
+def mamba_tile_agreement(torch, card: str, nets: dict) -> None:
+    """Each network on one tile, fp32 with TF32 off, card (the kernels)
+    against the CPU (the plain twins): the first output within 1e-3 x max."""
+    x = torch.from_numpy(np.random.RandomState(5).randn(1, *MAMBA_PATCH, 1).astype(np.float32))
+    for name, net in nets.items():
+        with torch.inference_mode():
+            gpu = net(x.cuda())
+            gpu = (gpu[0] if isinstance(gpu, (list, tuple)) else gpu).cpu()
+            t0 = time.perf_counter()
+            cpu = copy.deepcopy(net).cpu()(x)
+            cpu = cpu[0] if isinstance(cpu, (list, tuple)) else cpu
+            cpu_s = time.perf_counter() - t0
+        if gpu.shape != (1, *MAMBA_PATCH, MAMBA_CLASSES) or not torch.isfinite(gpu).all():
+            fail(f"{name}: output {tuple(gpu.shape)}, finite={bool(torch.isfinite(gpu).all())}")
+        check(f"{name} one {MAMBA_PATCH} tile fp32, card vs CPU ({cpu_s:.1f} s on the CPU)",
+              gpu, cpu, TOL_MODEL)
+
+
+def mamba_serve(torch, card: str, name: str, net) -> None:
+    """VolumePredictor on MAMBA_VOLUMES volumes of MAMBA_VOLUME after one
+    warm-up: tile MAMBA_PATCH, step 0.5, Gaussian, mirror (0, 1), bf16
+    compute and transfer, automatic tile batch; the warm-up volume with the
+    kernels against every wrapper on its plain twin, in bf16 and in fp32 at
+    the chosen batch, and bf16 against fp32 serving; K1's
+    launches per volume in the timed window, and no other kernel."""
+    from mlagg_unet_torch import VolumePredictor
+    from mlagg_unet_torch.ops import _ext
+
+    rng = np.random.RandomState(6)
+    volumes = [rng.rand(*MAMBA_VOLUME).astype(np.float32) for _ in range(MAMBA_VOLUMES + 1)]
+    pred = VolumePredictor(net, MAMBA_PATCH, MAMBA_CLASSES, (0, 1), None,
+                           compute_dtype=torch.bfloat16, transfer_dtype=torch.bfloat16,
+                           device="cuda")
+    t0 = time.perf_counter()
+    first = pred(volumes[0])   # warm-up: the budget probe and the autotune
+    warm_s = time.perf_counter() - t0
+    tb = pred.last_tile_batch
+    ms = {t: round(v, 4) for t, v in next(iter(pred.autotune_ms.values()), {}).items()}
+    with plain_twins(_ext):
+        twins16 = pred(volumes[0])
+    d16 = float(np.linalg.norm(first - twins16) / np.linalg.norm(twins16))
+    pred32 = VolumePredictor(net, MAMBA_PATCH, MAMBA_CLASSES, (0, 1), tb, device="cuda")
+    ref32 = pred32(volumes[0])
+    d = float(np.linalg.norm(first - ref32) / np.linalg.norm(ref32))
+    with plain_twins(_ext):
+        twins = pred32(volumes[0])
+    dk, peak32 = float(np.abs(ref32 - twins).max()), float(np.abs(twins).max())
+    del pred32, ref32, twins, twins16
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _ext.reset_launch_counts()
+    outs, elapsed, _ = serve_window(pred, volumes[1:])
+    ran = {k.name: k.launches for k in _ext.ALL_KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for o in outs:
+        if o.shape != (MAMBA_CLASSES, *MAMBA_VOLUME[1:]) or not np.isfinite(o).all():
+            fail(f"{name} serve output {o.shape}, finite={bool(np.isfinite(o).all())}")
+    log(f"  {name}: {MAMBA_VOLUMES} volumes of {'x'.join(map(str, MAMBA_VOLUME))} after 1 "
+        f"warm-up ({warm_s:.1f} s with the probe and the autotune), step 0.5, mirror (0, 1), "
+        f"bf16: {MAMBA_VOLUMES / elapsed:.4f} volumes/s ({elapsed:.3f} s), tile batch {tb} "
+        f"(model batch {4 * tb}), ms per tile of each candidate {ms}, peak memory "
+        f"{peak:.2f} GiB, K1 launches per volume {ran['selective_scan_fwd'] / MAMBA_VOLUMES:g}; "
+        f"the warm-up volume, kernels vs every wrapper on its plain twin: bf16 rel L2 "
+        f"{d16:.3e} (tol {TOL_SERVE_REL_L2:g}), fp32 at that batch max|diff| {dk:.3e} of max "
+        f"{peak32:.3e} (tol {TOL_MODEL:g} x max); bf16 vs fp32 serving: rel L2 {d:.3e} (tol "
+        f"{MAMBA_BF16_TOL.get(name, TOL_SERVE_REL_L2):g}) | {card}")
+    if not (dk <= TOL_MODEL * peak32 and d16 <= TOL_SERVE_REL_L2):
+        fail(f"{name}: serving with the kernels disagrees with the plain twins: fp32 "
+             f"{dk:.3e}, bf16 rel L2 {d16:.3e}")
+    if not d <= MAMBA_BF16_TOL.get(name, TOL_SERVE_REL_L2):
+        fail(f"{name}: bf16 serving disagrees with fp32 serving: rel L2 {d:.3e}")
+    others = {k: v for k, v in ran.items() if v and k != "selective_scan_fwd"}
+    if ran["selective_scan_fwd"] <= 0 or others:
+        fail(f"{name} serving launched K1 {ran['selective_scan_fwd']} times and {others}")
+    stats = {}
+    profile(torch, f"one {name} volume", lambda: pred(volumes[1]), stats)
+    log(f"  {name}: device busy "
+        + (f"{100 * stats['busy_ms'] / stats['wall_ms']:.1f} %" if stats else "not measured")
+        + f" of one profiled volume | {card}")
+    del pred, outs
+
+
+def hold_mamba_grads(torch, label: str, kernels, twins, reordered, ref, card: str) -> bool:
+    """The loss with the kernels against the plain twins' (TOL_TRAIN_LOSS);
+    the whole gradient with the kernels against the reference (the network
+    and the scans in fp64): its rel L2 within TOL_TRAIN_GRAD, or
+    MAMBA_GRAD_TWIN_FACTOR times the twins'; each gradient within
+    MAMBA_GRAD_LEAF_TOL x max|ref| + 1e-6 of it, or MAMBA_GRAD_TWIN_FACTOR
+    times the twins' distance. Reported beside them: how
+    many gradients lie within TOL_TRAIN_GRAD x max + 1e-6 of the reference,
+    and the largest distance with the kernels, and with ``reordered`` (the
+    twins' scans summed in chunks of 128), against twice the twins'. Logs,
+    and returns whether the gated part held."""
+    (l_k, g_k), (l_t, g_t), (_, g_o), (_, g_r) = kernels, twins, reordered, ref
+    d = abs(l_k - l_t) / abs(l_t)
+    f = MAMBA_GRAD_TWIN_FACTOR
+    rows, moved, sq = [], [], np.zeros(3)
+    for k, r in g_r.items():
+        if not torch.isfinite(g_k[k]).all():
+            fail(f"gradient {k} not finite ({label})")
+        top = r.abs().max().item()
+        bound = TOL_TRAIN_GRAD * top + 1e-6
+        e_k, e_t, e_o = ((g[k] - r).abs().max().item() for g in (g_k, g_t, g_o))
+        rows.append((e_k / max(MAMBA_GRAD_LEAF_TOL * top + 1e-6, f * e_t), k, e_k / bound,
+                     e_t / bound, e_k / max(bound, f * e_t)))
+        moved.append(e_o / max(bound, f * e_t))
+        sq += [(g[k].double() - r.double()).pow(2).sum().item() for g in (g_k, g_t)] + [
+            r.double().pow(2).sum().item()]
+    r_k, r_t = (math.sqrt(v / sq[2]) for v in sq[:2])
+    rows.sort(reverse=True)
+    log(f"  {label}: loss kernels vs twins {l_k:.9f} vs {l_t:.9f}: rel {d:.3e} (tol "
+        f"{TOL_TRAIN_LOSS:g}); the whole gradient's rel L2 to the fp64 reference: kernels "
+        f"{r_k:.3e}, twins {r_t:.3e} (limit {max(TOL_TRAIN_GRAD, f * r_t):.3e}); each gradient "
+        f"within max({MAMBA_GRAD_LEAF_TOL:g} x max + 1e-6, {f:g} x the twins' distance) of it: "
+        "the closest " + ", ".join(
+            f"{k} {q:.3f} of that ({e:.2f} / {t:.2f} x {TOL_TRAIN_GRAD:g} x max, kernels / "
+            "twins)" for q, k, e, t, _ in rows[:3])
+        + f"; within {TOL_TRAIN_GRAD:g} x max + 1e-6: {sum(e <= 1 for _, _, e, _, _ in rows)} "
+        f"of {len(rows)} with the kernels, {sum(t <= 1 for _, _, _, t, _ in rows)} with the "
+        f"twins; beyond max(that, {f:g} x the twins' distance) (not gated): "
+        f"{sum(x > 1 for *_, x in rows)} with the kernels (largest {max(x for *_, x in rows):.3f}), "
+        f"{sum(m > 1 for m in moved)} with the twins summed in chunks of 128 (largest "
+        f"{max(moved):.3f}) | {card}")
+    return d <= TOL_TRAIN_LOSS and rows[0][0] <= 1.0 and r_k <= max(TOL_TRAIN_GRAD, f * r_t)
+
+
+def mamba_train_verb(torch, card: str, tmp: Path) -> None:
+    """nnUNetTrainerUMambaEnc through the train verb on the train verb's 10
+    cases with the family's plan, cut to 1 epoch of MAMBA_STEPS steps and
+    MAMBA_VAL_STEPS validation steps on fold 0: launches, the first batch's
+    loss and gradients with the kernels against every wrapper on its plain
+    twin (fp64 around the scans), ms per step with the loader against one
+    cached batch, then the predict verb on its folder."""
+    from dataclasses import replace
+
+    from mlagg_unet_torch.cli.entrypoints import predict_from_modelfolder_entry, train_entry
+    from mlagg_unet_torch.imageio.nifti_io import NiftiIO
+    from mlagg_unet_torch.ops import _ext
+    from mlagg_unet_torch.training import registry
+    from mlagg_unet_torch.training.checkpoint import load_checkpoint
+    from mlagg_unet_torch.training.trainer import DeviceFeeder, NNUNetTrainer, Trainer
+    from mlagg_unet_torch.utils.helpers import load_json
+    from mlagg_unet_torch.weights import jax_tree_to_state_dict
+
+    t0 = time.perf_counter()
+    write_train_dataset(tmp, MAMBA_DATASET, MAMBA_PLANS)
+    log(f"  {TRAIN_VERB_CASES} cases of 1x10x320x260 written and preprocessed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    registry.register_trainer(replace(
+        registry.get_trainer_config("nnUNetTrainerUMambaEnc"), name=MAMBA_RECIPE, num_epochs=1,
+        num_iterations_per_epoch=MAMBA_STEPS, num_val_iterations_per_epoch=MAMBA_VAL_STEPS))
+    base = tmp / "results" / MAMBA_DATASET / f"{MAMBA_RECIPE}__nnUNetPlans__2d"
+    first, steps = {}, []
+    train_c, val_c, final_c = {}, {}, {}
+    with recording_first_batches(first), \
+            attribute_launches(_ext, Trainer, "train_step", train_c, steps), \
+            attribute_launches(_ext, Trainer, "val_step", val_c), \
+            attribute_launches(_ext, NNUNetTrainer, "perform_actual_validation", final_c):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _ext.reset_launch_counts()
+        t0 = time.perf_counter()
+        train_entry([MAMBA_ID, "2d", "0", "-tr", MAMBA_RECIPE, "-device", "cuda"])
+        verb_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in _ext.ALL_KERNELS}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gc.collect()
+    torch.cuda.empty_cache()
+    ck = load_checkpoint(str(base / "fold_0" / "checkpoint_final.ckpt"))
+    lg = ck["logging"]
+    gaps = [1e3 * (b[0] - a[0]) for a, b in zip(steps[1:], steps[2:])]
+    step_ms = statistics.median(gaps)
+    summary = load_json(str(base / "fold_0" / "validation" / "summary.json"))
+    log(f"  verb train {MAMBA_ID} 2d 0 -tr {MAMBA_RECIPE}: {verb_s:.1f} s (1 epoch of "
+        f"{MAMBA_STEPS} steps at batch {MAMBA_BATCH} of {MAMBA_PATCH} + {MAMBA_VAL_STEPS} "
+        f"validation steps, the final validation of {len(summary['metric_per_case'])} cases), "
+        f"peak memory {peak:.2f} GiB; loss train {lg['train_losses']}, validation "
+        f"{lg['val_losses']}, pseudo dice {lg['mean_fg_dice']}; foreground Dice "
+        f"{summary['foreground_mean']['Dice']:.4f} | {card}")
+    log(f"  launches in the training steps {train_c}, the validation steps {val_c}, the final "
+        f"validation {final_c}")
+    if len(steps) != MAMBA_STEPS or not all(math.isfinite(v) for v in
+                                            lg["train_losses"] + lg["val_losses"]):
+        fail(f"the U-Mamba verb ran {len(steps)} steps, losses {lg['train_losses']} "
+             f"{lg['val_losses']}")
+    for counts, where, want in ((train_c, "training steps", MAMBA_KERNELS),
+                                (val_c, "validation steps", ("selective_scan_fwd",)),
+                                (final_c, "final validation", ("selective_scan_fwd",))):
+        bad = {k: v for k, v in counts.items() if v and k not in want}
+        if bad or any(counts.get(k, 0) <= 0 for k in want):
+            fail(f"the U-Mamba verb's {where} launched {counts} (want {want} only)")
+    if any(v for k, v in launches.items() if k not in MAMBA_KERNELS):
+        fail(f"the U-Mamba verb run launched {launches}")
+
+    # the first training batch from the verb's final weights. The reference:
+    # the network in fp64 with the plain scans in fp64 (the exact scan of the
+    # fp32 operands the MambaBlock hands the scan). With the network in fp64
+    # around the fp32 scans, then in fp32, the loss with the kernels is held
+    # to the plain twins' and every gradient to the reference (see
+    # hold_mamba_grads); K1 / K5 on the batch's own operands to their twins
+    tr = Trainer(MAMBA_RECIPE, batch_size=MAMBA_BATCH, num_input_channels=1,
+                 num_classes=MAMBA_CLASSES, batch_dice=True, seed=0, device="cuda",
+                 compute_dtype=torch.float32, configuration_manager=mamba_configuration())
+    tr.network.load_state_dict(jax_tree_to_state_dict(ck["network_weights"]), strict=True)
+    x, y = DeviceFeeder(torch.device("cuda")).batch(first["train"])
+    log(f"  device memory before the batch: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+        "allocated")
+    net = tr.network.to(torch.float64)
+    with plain_twins(_ext), fp64_plain_scans():
+        ref = train_grads(tr, net, x.double(), y)
+    res, k5_calls = {}, []
+    for dtype in (torch.float64, torch.float32):
+        net = tr.network.to(dtype)
+        _ext.reset_launch_counts()
+        with keeping_scan_bwd_calls(k5_calls if dtype == torch.float64 else []):
+            res[dtype, "kernels"] = train_grads(tr, net, x.to(dtype), y)
+        if dtype == torch.float64:   # K1 / K5 on this batch's own operands, then let go
+            scan_calls_vs_twins(torch, k5_calls)
+            k5_calls.clear()
+        ran = {k.name: k.launches for k in _ext.ALL_KERNELS}
+        _ext.reset_launch_counts()
+        with plain_twins(_ext):
+            res[dtype, "twins"] = train_grads(tr, net, x.to(dtype), y)
+            with plain_scan_chunks(128):
+                res[dtype, "twins 128"] = train_grads(tr, net, x.to(dtype), y)
+        if any(k.launches for k in _ext.ALL_KERNELS) or any(ran[k] <= 0 for k in MAMBA_KERNELS):
+            fail(f"the U-Mamba batch ran {ran} with the kernels, or the plain run launched one")
+    log(f"  the verb's first training batch {tuple(x.shape)} from its final weights: kernels "
+        f"({ran['selective_scan_fwd']} K1, {ran['selective_scan_bwd']} K5 launches) vs plain "
+        "twins on the card; K1 / K5 on that batch's own operands above")
+    held = [hold_mamba_grads(torch, label, *(res[dtype, t] for t in ("kernels", "twins",
+                                                                      "twins 128")), ref, card)
+            for dtype, label in ((torch.float64, "fp64 around the scans"), (torch.float32, "fp32"))]
+    if not all(held):
+        fail("U-Mamba Enc's loss or gradients with the kernels beyond their limits (above)")
+    tr.network.zero_grad(set_to_none=True)
+    del tr, net, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ms per step: the verb's with the loader, and one cached batch
+    plans, dataset = (load_json(str(tmp / "preprocessed" / MAMBA_DATASET / f))
+                      for f in ("nnUNetPlans.json", "dataset.json"))
+    vt = NNUNetTrainer(plans, "2d", 0, dataset, trainer_name=MAMBA_RECIPE, device="cuda")
+    vt.initialize()
+    xb, yb = vt.feed.batch(first["train"])
+    vt.step.run_steps([(xb, yb)] * 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vt.step.run_steps([(xb, yb)] * MAMBA_CACHED_STEPS)
+    cached = (time.perf_counter() - t0) / MAMBA_CACHED_STEPS * 1e3
+    stats = {}
+    profile(torch, "one cached U-Mamba Enc step",
+            lambda: vt.step.run_steps([(xb, yb)]), stats)
+    log(f"  ms per step (bf16, batch {MAMBA_BATCH} of {MAMBA_PATCH}): {step_ms:.2f} with the "
+        f"loader (median of the verb's steps 2-{MAMBA_STEPS}), {cached:.2f} on its first batch "
+        f"cached on the card (device busy "
+        + (f"{stats['busy_ms']:.1f} ms of one profiled step" if stats else "not measured")
+        + f"); {MAMBA_BATCH * 1e3 / step_ms:.3f} images/s; "
+        f"{len(multiprocessing.active_children())} child processes alive | {card}")
+    del vt
+
+    cases = tmp / "mamba_imagesTs"
+    cases.mkdir()
+    for i in range(2):
+        shutil.copyfile(tmp / "raw" / MAMBA_DATASET / "imagesTr" / f"case_{i:03d}_0000.nii.gz",
+                        cases / f"case_{i:03d}_0000.nii.gz")
+    out = tmp / "mamba_predicted"
+    t0 = time.perf_counter()
+    _ext.reset_launch_counts()
+    predict_from_modelfolder_entry(["-i", str(cases), "-o", str(out), "-m", str(base), "-f", "0",
+                                    "-device", "cuda"])
+    ran = {k.name: k.launches for k in _ext.ALL_KERNELS if k.launches}
+    for i in range(2):
+        seg, _ = NiftiIO().read_seg(str(out / f"case_{i:03d}.nii.gz"))
+        labels = np.unique(seg)
+        if seg.shape != (1, 10, 320, 260) or not set(labels) <= set(range(MAMBA_CLASSES)):
+            fail(f"predict verb on the U-Mamba folder, case {i}: {seg.shape}, labels {labels}")
+    if set(ran) != {"selective_scan_fwd"}:
+        fail(f"the predict verb on the U-Mamba folder launched {ran}")
+    log(f"  predict verb on the U-Mamba folder: 2 cases in {time.perf_counter() - t0:.1f} s, "
+        f"shape (1, 10, 320, 260), labels {labels.tolist()}, launches {ran} | {card}")
+
+
+def phase_mamba(torch, card: str) -> None:
+    """Phase 11: the Mamba zoo's first family on the card. Only K1 and K5
+    may be launched, and each must be."""
+    from mlagg_unet_torch.ops import _ext
+
+    t_phase = time.perf_counter()
+    _ext.reset_launch_counts()
+    total = {}
+    reset = _ext.reset_launch_counts
+
+    def reset_keeping_total():   # the checks below reset the counts: keep the phase's sum
+        for k in _ext.ALL_KERNELS:
+            total[k.name] = total.get(k.name, 0) + k.launches
+        reset()
+
+    _ext.reset_launch_counts = reset_keeping_total
+    try:
+        mamba_phase_steps(torch, card)
+    finally:
+        _ext.reset_launch_counts = reset
+    reset_keeping_total()
+    launched = {k: v for k, v in total.items() if v}
+    if set(launched) != set(MAMBA_KERNELS):
+        fail(f"the Mamba phase launched {launched} (want K1 and K5 only, each)")
+    log(f"  launches of the port's kernels in the phase: {launched} | {card}")
+    log(f"[mamba] phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
+def mamba_phase_steps(torch, card: str) -> None:
+    """Phase 11's steps (a), (b) and (c)."""
+    import tempfile
+
+    from mlagg_unet_torch import paths
+
+    log(f"[mamba] the six networks at full width on the {MAMBA_PATCH} plan")
+    nets = mamba_networks(torch)
+    log("[mamba] (a) K1 and K5 at every shape one forward and backward of each network emits")
+    mamba_scan_checks(torch, card, mamba_scan_shapes(torch, nets))
+    torch.cuda.empty_cache()
+    log("[mamba] (b) one tile, fp32, card vs CPU")
+    mamba_tile_agreement(torch, card, nets)
+    log(f"[mamba] (b) serve | {card}")
+    for name in MAMBA_SERVED:
+        mamba_serve(torch, card, name, nets[name])
+    del nets
+    torch.cuda.empty_cache()
+    log(f"[mamba] (c) the train verb: nnUNetTrainerUMambaEnc | {card}")
+    saved = (paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mamba_") as tmp:
+        tmp = Path(tmp)
+        paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = (
+            str(tmp / "raw"), str(tmp / "preprocessed"), str(tmp / "results"))
+        try:
+            mamba_train_verb(torch, card, tmp)
+        finally:
+            paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = saved
+
+
 def main() -> None:
     global REPO
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     ap.add_argument("--only", choices=("predict", "serve-timing", "train-verb", "pipeline",
-                                       "unet3d"),
+                                       "unet3d", "mamba"),
                     help="run the device and build phases and this one alone, with no "
                          "kernels line and no final line")
     ap.add_argument("--root", type=Path, default=REPO,
@@ -2971,7 +3649,7 @@ def main() -> None:
     if opts.only:
         {"serve-timing": serve_timing, "predict": phase_predict,
          "train-verb": phase_train_verb, "pipeline": phase_pipeline,
-         "unet3d": phase_unet3d}[opts.only](torch, card)
+         "unet3d": phase_unet3d, "mamba": phase_mamba}[opts.only](torch, card)
         done(opts.only)
         return
     report = Report(sfu_exp_per_s(torch))
@@ -2999,6 +3677,8 @@ def main() -> None:
     done("pipeline")
     phase_unet3d(torch, card)
     done("unet3d")
+    phase_mamba(torch, card)
+    done("mamba")
 
     launches = {**serve, "selective_scan_bwd": train["selective_scan_bwd"],
                 **{k: serve_f[k] for k in FUSED_KERNELS}}

@@ -142,8 +142,8 @@ def train_entry(args=None):
                     load_pretrained_torch_weights,
                 )
 
-                n_tr, n_tot = load_pretrained_torch_weights(trainer.step.network,
-                                                            a.pretrained_weights)
+                n_tr, n_tot = load_pretrained_torch_weights(
+                    trainer.step.network, a.pretrained_weights, network_key=trainer.cfg.network)
             else:
                 from mlagg_unet_torch.training.load_pretrained_weights import (
                     load_pretrained_weights,

@@ -12,7 +12,7 @@ the card predicts; export runs on other host threads.
 A folder's checkpoints are either the JAX package's ``.ckpt`` (read
 without JAX, ``training/checkpoint.py``; with BatchNorm's running
 statistics in ``model_state``) or the reference's ``.pth`` (converted by
-``training/torch_import.py``, the flagship only). The network is built from
+``training/torch_import.py``: the flagship's and the ported zoo's). The network is built from
 the checkpoint's configuration in the plans, as the trainer built it.
 """
 from __future__ import annotations
@@ -128,15 +128,10 @@ class NNUNetPredictor:
             label_manager.num_segmentation_heads, cfg.enable_deep_supervision,
             device="cpu")
         if is_torch:
-            if not cfg.network.startswith("mlla_uper"):
-                raise NotImplementedError(
-                    f"reference checkpoints of network {cfg.network!r} are not "
-                    "convertible yet: only the flagship's (mlla_uper) are")
-            from mlagg_unet_torch.training.torch_import import (
-                reference_flagship_state_dict_to_port,
-            )
+            from mlagg_unet_torch.training.torch_import import reference_state_dict_to_port
 
-            state_dicts = [reference_flagship_state_dict_to_port(sd) for sd, _ in parameters]
+            state_dicts = [reference_state_dict_to_port(cfg.network, sd)
+                           for sd, _ in parameters]
         else:
             state_dicts = [jax_variables_to_state_dict(*p) for p in parameters]
         for sd in state_dicts:  # every fold must load exactly
@@ -231,13 +226,8 @@ class NNUNetPredictor:
         save_or_return_probabilities: bool = False,
     ):
         """reference :354-436."""
-        preprocessor = DefaultPreprocessor(verbose=self.verbose)
-        data, _, properties = preprocessor.run_case_npy(
-            input_image, None, dict(image_properties), self.plans_manager,
-            self.configuration_manager, self.dataset_json,
-        )
-        if segmentation_previous_stage is not None:
-            data = self._stack_prev_stage(data, segmentation_previous_stage)
+        data, properties = self._preprocess(input_image, dict(image_properties),
+                                            segmentation_previous_stage)
         logits = self.predict_logits_from_preprocessed_data(data)
         if output_file_truncated is not None:
             export_prediction_from_logits(
@@ -252,19 +242,27 @@ class NNUNetPredictor:
             return_probabilities=save_or_return_probabilities,
         )
 
-    def _stack_prev_stage(self, data: np.ndarray, prev_stage_seg: np.ndarray,
-                          current_spacing=None) -> np.ndarray:
-        """The cascade's input: the previous stage's segmentation resampled
-        to the preprocessed grid (from ``current_spacing``, by default the
-        configuration's) and one-hot over the foreground labels, stacked
-        after the image channels (reference PreprocessAdapter :58-60)."""
-        cm = self.configuration_manager
-        prev = cm.resampling_fn_seg(
-            prev_stage_seg[None].astype(np.int8), data.shape[1:],
-            cm.spacing if current_spacing is None else current_spacing, cm.spacing)[0]
-        onehot = convert_labelmap_to_one_hot(prev, self.label_manager.foreground_labels,
-                                             data.dtype)
-        return np.vstack([data, onehot])
+    def _preprocess(self, image: np.ndarray, properties: dict,
+                    prev_stage_seg: Optional[np.ndarray] = None, preprocessor=None):
+        """(preprocessed data, properties) of one case. In a cascade the
+        previous stage's segmentation (in the raw image's frame) goes through
+        ``run_case_npy`` with the image, transposed, cropped and resampled as
+        the image is, and its one-hot over the foreground labels is stacked
+        after the image channels (reference PreprocessAdapter :58-60); the
+        -1 outside the crop's nonzero mask one-hot encodes to zeros. These
+        are the channels the stage was trained on, read from
+        ``predicted_next_stage`` in the preprocessed frame."""
+        preprocessor = preprocessor or DefaultPreprocessor(verbose=self.verbose)
+        seg = (None if prev_stage_seg is None
+               else np.asarray(prev_stage_seg, np.float32)[None])
+        data, seg, properties = preprocessor.run_case_npy(
+            image, seg, properties, self.plans_manager, self.configuration_manager,
+            self.dataset_json)
+        if prev_stage_seg is not None:
+            onehot = convert_labelmap_to_one_hot(seg[0], self.label_manager.foreground_labels,
+                                                 data.dtype)
+            data = np.vstack([data, onehot])
+        return data, properties
 
     # ------------------------------------------------------------------
     def predict_from_files(
@@ -311,20 +309,13 @@ class NNUNetPredictor:
 
         def _load_and_preprocess(image_files, ident):
             """Reading and preprocessing of one case (a host thread); in a
-            cascade the previous stage's segmentation, resampled from the
-            case's own spacing and stacked one-hot (predictor.py:318-339)."""
+            cascade with the previous stage's segmentation (``_preprocess``)."""
             data, props = rw.read_images(image_files)
             seg_prev = None
             if prev_stage_name is not None:
                 seg_prev = rw.read_seg(join(folder_with_segs_from_prev_stage,
                                             ident + file_ending))[0][0]
-            pdata, _, pprops = preprocessor.run_case_npy(
-                data, None, props, self.plans_manager,
-                self.configuration_manager, self.dataset_json,
-            )
-            if seg_prev is not None:
-                pdata = self._stack_prev_stage(pdata, seg_prev, props["spacing"])
-            return pdata, pprops
+            return self._preprocess(data, props, seg_prev, preprocessor)
 
         # Pipeline: preprocessing of case k+1..k+depth and export of finished
         # cases overlap the card predicting case k (reference

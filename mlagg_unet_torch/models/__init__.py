@@ -1,1 +1,1 @@
-"""The flagship network and its blocks, NHWC."""
+"""The port's networks and their blocks, channels-last."""

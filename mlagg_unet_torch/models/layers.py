@@ -10,8 +10,10 @@ same layout, so the permute back is a view too and no activation is copied.
 The flax defaults the JAX models use are kept: LayerNorm eps 1e-6 with the
 fast variance ``E[x^2] - E[x]^2``, Dense as ``x @ kernel + bias``, symmetric
 padding for strided convs, the flipped kernel of a transposed conv
-(``F.conv_transpose2d`` already correlates with the flipped kernel), and
-BatchNorm's running averages updated with the biased batch variance.
+(``F.conv_transpose2d`` already correlates with the flipped kernel),
+BatchNorm's running averages updated with the biased batch variance, and
+flax's dtype promotion: a layer computes in the common dtype of its input
+and its parameters.
 
 Submodules are named after the flax scopes (``Conv_0``, ``GroupNorm_0``,
 ``Dense_0``...), so ``weights.jax_params_to_state_dict`` only changes layouts.
@@ -43,6 +45,18 @@ def _ntuple(v: IntOrN, n: int) -> Tuple[int, ...]:
 
 def _empty(*shape: int) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape))
+
+
+def promote_dtype(x: torch.Tensor, *params: Optional[torch.Tensor]):
+    """flax's ``promote_dtype``: the input and the layer's parameters in
+    their common dtype. A layer whose parameters were cast to bf16 computes
+    in fp32 when an fp32 activation (a Mamba block's output) reaches it, as
+    flax's Dense and Conv do; where the dtypes agree nothing is copied."""
+    dt = x.dtype
+    for p in params:
+        if p is not None:
+            dt = torch.promote_types(dt, p.dtype)
+    return tuple(None if t is None else t.to(dt) for t in (x, *params))
 
 
 # ---------------------------------------------------------------- init
@@ -135,7 +149,7 @@ class Dense(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        return F.linear(*promote_dtype(x, self.weight, self.bias))
 
 
 class PointwiseConv(Dense):
@@ -147,8 +161,8 @@ class PointwiseConv(Dense):
         self.weight = _empty(out_features, in_features, 1, 1)
 
     def forward(self, x):
-        return F.linear(x, self.weight.view(self.out_features, self.in_features),
-                        self.bias)
+        return F.linear(*promote_dtype(x, self.weight.view(self.out_features, self.in_features),
+                                  self.bias))
 
 
 # ---------------------------------------------------------------- convs
@@ -200,8 +214,9 @@ class Conv(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x):
-        y = _CONV[self.weight.ndim - 2](_channels_first(x), self.weight, self.bias,
-                                       self.stride, self.padding, 1, self.groups)
+        x, w, b = promote_dtype(x, self.weight, self.bias)
+        y = _CONV[w.ndim - 2](_channels_first(x), w, b, self.stride, self.padding, 1,
+                              self.groups)
         return _channels_last(y)
 
 
@@ -247,8 +262,8 @@ class ConvTransposeTorch(nn.Module):
             self.bias.zero_()
 
     def forward(self, x):
-        y = _CONV_T[self.weight.ndim - 2](_channels_first(x), self.weight, self.bias,
-                                         self.stride, self.padding)
+        x, w, b = promote_dtype(x, self.weight, self.bias)
+        y = _CONV_T[w.ndim - 2](_channels_first(x), w, b, self.stride, self.padding)
         return _channels_last(y)
 
 

@@ -9,7 +9,8 @@ contract. Per batch b, group g, channel d, state n and step l::
 
 u, delta: (b, g, d, l); A: (g, d, n); B, C: (b, g, n, l); D, delta_bias:
 (g, d) or None. All arithmetic is fp32 and y is fp32 whatever the input
-dtype. ``reverse=True`` scans right to left and returns y at the natural
+dtype, except that an fp64 u makes both fp64 (a reference for the fp32
+scan). ``reverse=True`` scans right to left and returns y at the natural
 positions.
 
 ``selective_scan`` is the vectorised chunked form: a log-depth doubling scan
@@ -42,6 +43,11 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
+def _work_dtype(u: torch.Tensor) -> torch.dtype:
+    """The arithmetic's dtype: fp32, or fp64 where u is fp64."""
+    return torch.promote_types(u.dtype, torch.float32)
+
+
 def _prep(u, delta, A, B, C, delta_bias, delta_softplus):
     b, g, d, l = u.shape
     n = A.shape[-1]
@@ -49,9 +55,10 @@ def _prep(u, delta, A, B, C, delta_bias, delta_softplus):
         raise ValueError(f"A shape {tuple(A.shape)} != {(g, d, n)}")
     if B.shape != (b, g, n, l) or C.shape != (b, g, n, l):
         raise ValueError(f"B/C shape {tuple(B.shape)}/{tuple(C.shape)} != {(b, g, n, l)}")
-    u, delta, A, B, C = (t.float() for t in (u, delta, A, B, C))
+    wd = _work_dtype(u)
+    u, delta, A, B, C = (t.to(wd) for t in (u, delta, A, B, C))
     if delta_bias is not None:
-        delta = delta + delta_bias.float()[None, :, :, None]
+        delta = delta + delta_bias.to(delta.dtype)[None, :, :, None]
     if delta_softplus:
         delta = _softplus(delta)
     return u, delta, A, B, C
@@ -59,7 +66,7 @@ def _prep(u, delta, A, B, C, delta_bias, delta_softplus):
 
 def _add_d(y, u, D):
     if D is not None:
-        y = y + D.float()[None, :, :, None] * u
+        y = y + D.to(u.dtype)[None, :, :, None] * u
     return y
 
 
@@ -211,7 +218,7 @@ def selective_scan_bwd_plain(u, delta, A, B, C, D=None, delta_bias=None,
     """Gradients of ``selective_scan`` for the output gradient ``gy``
     (b, g, d, l): (du, ddelta, dA, dB, dC, dD, ddelta_bias), each in its
     input's dtype (dD, ddelta_bias None where D, delta_bias are None).
-    fp32 arithmetic, no autograd graph."""
+    fp32 arithmetic (fp64 for an fp64 u), no autograd graph."""
     if reverse:
         u, delta, B, C, gy = _flip_l(u, delta, B, C, gy)
         du, ddt, dA, dB, dC, dD, dbias = selective_scan_bwd_plain(
@@ -221,11 +228,11 @@ def selective_scan_bwd_plain(u, delta, A, B, C, D=None, delta_bias=None,
         return du, ddt, dA, dB, dC, dD, dbias
     dtypes = [None if t is None else t.dtype
               for t in (u, delta, A, B, C, D, delta_bias)]
-    pre = delta.float()
+    pre = delta.to(_work_dtype(u))
     if delta_bias is not None:
-        pre = pre + delta_bias.float()[None, :, :, None]
+        pre = pre + delta_bias.to(pre.dtype)[None, :, :, None]
     u32, dt, A32, B32, C32 = _prep(u, delta, A, B, C, delta_bias, delta_softplus)
-    gy = gy.float()
+    gy = gy.to(u32.dtype)
     b, g, d, l = u.shape
     n = A.shape[-1]
     starts = [(s, h) for s, h, _ in _scan_chunks(u32, dt, A32, B32, chunk_size)]
@@ -256,7 +263,7 @@ def selective_scan_bwd_plain(u, delta, A, B, C, D=None, delta_bias=None,
         dA += torch.einsum("bgdln,bgdl->gdn", dda, dtc)
     dD = None
     if D is not None:
-        du += D.float()[None, :, :, None] * gy
+        du += D.to(gy.dtype)[None, :, :, None] * gy
         dD = (gy * u32).sum((0, 3))
     dbias = None if delta_bias is None else ddt.sum((0, 3))
     grads = (du, ddt, dA, dB, dC, dD, dbias)
@@ -290,11 +297,11 @@ def selective_scan_bwd_tiled_plain(u, delta, A, B, C, D=None, delta_bias=None,
         return du, ddt, dA, dB, dC, dD, dbias
     dtypes = [None if t is None else t.dtype
               for t in (u, delta, A, B, C, D, delta_bias)]
-    pre = delta.float()
+    pre = delta.to(_work_dtype(u))
     if delta_bias is not None:
-        pre = pre + delta_bias.float()[None, :, :, None]
+        pre = pre + delta_bias.to(pre.dtype)[None, :, :, None]
     u32, dt, A32, B32, C32 = _prep(u, delta, A, B, C, delta_bias, delta_softplus)
-    gy = gy.float()
+    gy = gy.to(u32.dtype)
     b, g, d, l = u.shape
     n = A.shape[-1]
     nt = -(-l // tile)
@@ -349,7 +356,7 @@ def selective_scan_bwd_tiled_plain(u, delta, A, B, C, D=None, delta_bias=None,
     dA = torch.einsum("bgdtkn,bgdtk->gdn", dda, dtt)
     dD = None
     if D is not None:
-        du = du + D.float()[None, :, :, None] * gy
+        du = du + D.to(gy.dtype)[None, :, :, None] * gy
         dD = (gy * u32).sum((0, 3))
     dbias = None if delta_bias is None else ddt.sum((0, 3))
     grads = (du, ddt, dA, dB, dC, dD, dbias)

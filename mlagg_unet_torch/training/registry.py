@@ -11,8 +11,10 @@ steps per epoch. The default ``nnUNetTrainer``: SGD with Nesterov momentum
 0.99 at lr 1e-2, weight decay 3e-5, the poly schedule over 1000 epochs,
 gradient clip 12, deep supervision at the plans' scales. Its variants
 change the length, the optimizer, the loss, the schedule, the norm, the
-augmentation or the sampling, with the JAX entries' values. The other
-networks' names wait for later slices (ROADMAP queue A, A16).
+augmentation or the sampling, with the JAX entries' values. The model zoo's
+names are all registered with the JAX entries' values; the networks of
+U-Mamba Bot / Enc, VM-UNet, Mamba-UNet and Swin-UMamba(-D) are built, the
+others' raise when a trainer checks them (ROADMAP queue A, A16).
 """
 from __future__ import annotations
 
@@ -115,9 +117,55 @@ def _build_plans_unet_bn(configuration_manager, num_input_channels: int,
                              num_output_channels, deep_supervision, norm="batch", **kwargs)
 
 
-NETWORK_BUILDERS: Dict[str, Callable] = {"mlla_uper": _build_mlla_uper,
-                                         "plans_unet": _build_plans_unet,
-                                         "plans_unet_bn": _build_plans_unet_bn}
+def _build_umamba(mode: str):
+    def build(configuration_manager, num_input_channels: int, num_output_channels: int,
+              deep_supervision: bool, *, seed: int = 0, device: DeviceLike = "cuda"):
+        """U-Mamba Bot / Enc of the plans (``registry.py:103-117``), 2-D or 3-D."""
+        from mlagg_unet_torch.models.umamba import build_umamba
+
+        if not hasattr(configuration_manager, "pool_op_kernel_sizes"):
+            raise ValueError("U-Mamba is built from the plans: pass the "
+                             "ConfigurationManager, not a patch size")
+        return build_umamba(configuration_manager, num_input_channels, num_output_channels,
+                            deep_supervision, mode, seed=seed, device=device)
+
+    return build
+
+
+def _build_2d(module: str, cls_name: str, with_ds: bool):
+    def build(configuration_manager, num_input_channels: int, num_output_channels: int,
+              deep_supervision: bool, *, seed: int = 0, device: DeviceLike = "cuda",
+              **overrides):
+        """A 2-D network of the zoo at its reference defaults (JAX's
+        ``_make_simple_builder``, ``registry.py:286-305``), deep supervision
+        passed where the network has it; ``overrides`` replace constructor
+        arguments."""
+        import importlib
+
+        from mlagg_unet_torch.models.vmamba import build_seeded
+
+        patch = getattr(configuration_manager, "patch_size", configuration_manager)
+        if len(patch) != 2:
+            raise ValueError(f"{cls_name} is a 2D network: give a 2D configuration")
+        cls = getattr(importlib.import_module(module), cls_name)
+        kwargs = dict(deep_supervision=deep_supervision) if with_ds else {}
+        model = cls(num_input_channels, num_output_channels, **{**kwargs, **overrides})
+        return build_seeded(model, seed, device)
+
+    return build
+
+
+NETWORK_BUILDERS: Dict[str, Callable] = {
+    "mlla_uper": _build_mlla_uper,
+    "plans_unet": _build_plans_unet,
+    "plans_unet_bn": _build_plans_unet_bn,
+    "umamba_bot": _build_umamba("bot"),
+    "umamba_enc": _build_umamba("enc"),
+    "vmunet": _build_2d("mlagg_unet_torch.models.vmamba", "VMUNet", False),
+    "mamba_unet": _build_2d("mlagg_unet_torch.models.vmamba", "MambaUNet", False),
+    "swin_umamba": _build_2d("mlagg_unet_torch.models.swin_umamba", "SwinUMamba", True),
+    "swin_umamba_d": _build_2d("mlagg_unet_torch.models.swin_umamba", "SwinUMambaD", True),
+}
 
 
 def get_network_builder(key: str) -> Callable:
@@ -230,3 +278,80 @@ _vadam = register_trainer(replace(_default, name="nnUNetTrainerVanillaAdam",
                                   optimizer="adam_l2"))
 register_trainer(replace(_vadam, name="nnUNetTrainerVanillaAdam1en3", initial_lr=1e-3))
 register_trainer(replace(_vadam, name="nnUNetTrainerVanillaAdam3en4", initial_lr=3e-4))
+
+
+# ---------------------------------------------------------------- the model zoo
+# Copies of the JAX entries of the other networks (registry.py:243-580), with
+# their values. Only the networks in NETWORK_BUILDERS are ported; the
+# trainer's _check_ported raises for the others.
+register_trainer(replace(
+    TRAINER_REGISTRY["nnUNetTrainer_MLAgg_2D_dt_MS"], name="nnUNetTrainer_MLLA_UNet",
+    network="mlla_unet", initial_lr=1e-4, adam_eps=1e-8, enable_deep_supervision=False,
+    deep_supervision_scales_override=None))
+# U-Mamba (variants/mamba/nnUNetTrainerUMamba{Bot,Enc}.py): the default recipe
+register_trainer(replace(_default, name="nnUNetTrainerUMambaBot", network="umamba_bot"))
+register_trainer(replace(_default, name="nnUNetTrainerUMambaEnc", network="umamba_enc"))
+# VM-UNet: AdamW 1e-4 / wd 1e-3, cosine warm-up, 500 epochs, no deep
+# supervision (nnUNetTrainer_VMUNet.py:15-28,58-64)
+register_trainer(replace(_default, name="nnUNetTrainer_VMUNet", network="vmunet",
+                         enable_deep_supervision=False, optimizer="adamw", initial_lr=1e-4,
+                         weight_decay=1e-3, lr_scheduler="cosine_warmup", num_epochs=500))
+register_trainer(replace(_default, name="nnUNetTrainer_SegMamba", network="segmamba",
+                         enable_deep_supervision=False, optimizer="adamw", initial_lr=1e-4,
+                         weight_decay=1e-3, lr_scheduler="cosine_warmup", num_epochs=500))
+register_trainer(replace(_default, name="nnUNetTrainer_LightMUNet", network="lightm_unet",
+                         enable_deep_supervision=False, optimizer="adam_l2", initial_lr=1e-4,
+                         weight_decay=1e-5, adam_eps=1e-5))
+register_trainer(replace(_default, name="nnUNetTrainer_UltraLightVMUNet",
+                         network="ultralight_vmunet", enable_deep_supervision=False,
+                         optimizer="adamw", initial_lr=1e-3, weight_decay=1e-2,
+                         lr_scheduler="cosine_warmup", num_epochs=500))
+register_trainer(replace(_default, name="nnUNetTrainer_nnMamba", network="nnmamba",
+                         enable_deep_supervision=False, optimizer="adamw", initial_lr=1e-4,
+                         weight_decay=1e-3, lr_scheduler="cosine_warmup", num_epochs=500))
+register_trainer(replace(_default, name="nnUNetTrainerTransUNet", network="transunet",
+                         enable_deep_supervision=False, optimizer="adamw", initial_lr=1e-4))
+# Swin-UMamba(-D) and Mamba-UNet: AdamW at 1e-4 / 1e-3 (registry.py:397-408)
+register_trainer(replace(_default, name="nnUNetTrainerSwinUMambaScratch",
+                         network="swin_umamba", optimizer="adamw", initial_lr=1e-4))
+register_trainer(replace(_default, name="nnUNetTrainerSwinUMambaDScratch",
+                         network="swin_umamba_d", optimizer="adamw", initial_lr=1e-4))
+register_trainer(replace(_default, name="nnUNetTrainer_SwinTUNet", network="swin_tunet",
+                         optimizer="adamw", initial_lr=1e-4, enable_deep_supervision=False))
+register_trainer(replace(_default, name="nnUNetTrainer_MambaUNet", network="mamba_unet",
+                         optimizer="adamw", initial_lr=1e-3))
+register_trainer(replace(_default, name="nnUNetTrainerUMambaBot_SS3D",
+                         network="umamba_bot_ss3d"))
+register_trainer(replace(_default, name="nnUNetTrainerUMambaEnc_SS3D",
+                         network="umamba_enc_ss3d"))
+register_trainer(replace(_default, name="nnUNetTrainer_LKM_UNet", network="lkm_unet"))
+register_trainer(replace(_default, name="nnUNetTrainer_MSVM_UNet", network="msvm_unet",
+                         optimizer="adamw", initial_lr=1e-4, num_epochs=500,
+                         lr_scheduler="cosine_warmup", enable_deep_supervision=False))
+register_trainer(replace(_default, name="nnUNetTrainerSwinUNETR_2d", network="swin_unetr",
+                         enable_deep_supervision=False, optimizer="adamw", initial_lr=1e-4))
+register_trainer(replace(_default, name="nnUNetTrainer_MedNeXt", network="mednext_b3",
+                         optimizer="adamw", initial_lr=1e-3))
+register_trainer(replace(_default, name="nnUNetTrainer_MedNeXt_Mambaskip",
+                         network="mednext_b3_mambaskip", optimizer="adamw", initial_lr=1e-3))
+_vmunet3d = register_trainer(replace(
+    _default, name="nnUNetTrainer_VMUNet3D", network="vmunet3d", optimizer="adamw",
+    initial_lr=1e-4, weight_decay=1e-2, lr_scheduler="cosine_warmup", num_epochs=500,
+    enable_deep_supervision=False))
+register_trainer(replace(_vmunet3d, name="nnUNetTrainer_VMUNet3D_woinit"))
+register_trainer(replace(_vmunet3d, name="nnUNetTrainer_VMUNet3D_woinit_new",
+                         network="vmunet3d_new"))
+register_trainer(replace(_vmunet3d, name="nnUNetTrainer_VMUNet3D_woinit_new_SwinT",
+                         network="vmunet3d_swint"))
+# names under which the reference also has some of them (registry.py:590-603)
+for _alias, _orig in (
+    ("nnUNetTrainerLightMUNet", "nnUNetTrainer_LightMUNet"),
+    ("nnUNetTrainerMambaUNet", "nnUNetTrainer_MambaUNet"),
+    ("nnUNetTrainerSegMamba", "nnUNetTrainer_SegMamba"),
+    ("nnUNetTrainerUltraLightVMUNet", "nnUNetTrainer_UltraLightVMUNet"),
+    ("nnUNetTrainerVMUNet", "nnUNetTrainer_VMUNet"),
+    ("nnUNetTrainernnMamba", "nnUNetTrainer_nnMamba"),
+    ("nnUNetTrainer_SwinUNETR_2d", "nnUNetTrainerSwinUNETR_2d"),
+    ("nnUNetTrainer_MedNeXt_new", "nnUNetTrainer_MedNeXt"),
+):
+    register_trainer(replace(TRAINER_REGISTRY[_orig], name=_alias))

@@ -1,14 +1,16 @@
-"""Reference-checkpoint import for the flagship.
+"""Reference-checkpoint import for the flagship and the ported zoo.
 
-Copied from ``mlagg_unet_tpu/training/torch_import.py``: the reference's
-``MLLA_Uper`` key rules (``REFERENCE_FLAGSHIP_RULES``, the ConvTranspose
-keys) and the converter to the JAX package's flat layout. Composed with
-``weights.jax_params_to_state_dict`` they take a reference
+Copied from ``mlagg_unet_tpu/training/torch_import.py``: the reference's key
+rules of ``MLLA_Uper`` (``REFERENCE_FLAGSHIP_RULES``, the ConvTranspose
+keys), U-Mamba Bot / Enc, VM-UNet, Mamba-UNet and Swin-UMamba(-D)
+(``:109-258``, ``:305-350``), the converter to the JAX package's flat layout
+and ``CONVERTERS_BY_NETWORK`` for those networks (``:661-688``). Composed
+with ``weights.jax_params_to_state_dict`` they take a reference
 ``fold_X/checkpoint_final.pth``'s ``network_weights`` to a state_dict the
-port's ``MLLAUper`` loads with ``strict=True``, and
-``load_pretrained_torch_weights`` transfers a reference flagship's weights
-for fine-tuning (the train verb's ``-pretrained_weights``). The other
-families' converters wait for their models (ROADMAP queue A, A16).
+port's network loads with ``strict=True`` (``reference_state_dict_to_port``),
+and ``load_pretrained_torch_weights`` transfers a reference checkpoint's
+weights for fine-tuning (the train verb's ``-pretrained_weights``). The
+other families' converters wait for their models (ROADMAP queue A, A16).
 """
 from __future__ import annotations
 
@@ -111,16 +113,152 @@ def _convert_reference_state_dict(state_dict, rules,
     return out
 
 
+# Swin-UMamba checkpoints (variants/mamba/nnUNetTrainerSwinUMambaScratch.py
+# :556-734 and nnUNetTrainerSwinUMambaDScratch.py:728-744)
+_SWIN_UMAMBA_SHARED = [
+    (r"^(decoder\.)?vssm_encoder\.patch_embed\.proj\.",
+     "vssm_encoder.patch_embed_proj."),
+    (r"^(decoder\.)?vssm_encoder\.patch_embed\.norm\.",
+     "vssm_encoder.patch_embed_norm."),
+    (r"^vssm_encoder\.layers\.(\d+)\.blocks\.(\d+)\.",
+     r"vssm_encoder.layer\1.block\2."),
+    (r"^vssm_encoder\.downsamples\.(\d+)\.", r"vssm_encoder.downsample\1."),
+]
+
+REFERENCE_SWIN_UMAMBA_RULES = _SWIN_UMAMBA_SHARED + [
+    (r"^stem\.0\.", "stem_conv."),
+    (r"^stem\.1\.", "stem_norm.GroupNorm_0."),
+    (r"^out_layers\.(\d+)\.conv\.conv\.", r"out\1.conv."),
+    (r"\.transp_conv\.conv\.", ".transp_conv."),
+    (r"\.(conv1|conv2|conv3)\.conv\.", r".\1."),
+    (r"\.(norm1|norm2|norm3)\.", r".\1.GroupNorm_0."),
+]
+
+REFERENCE_SWIN_UMAMBA_D_RULES = _SWIN_UMAMBA_SHARED + [
+    (r"^decoder\.expand_layers\.(\d+)\.", r"expand\1."),
+    (r"^decoder\.stages\.(\d+)\.blocks\.(\d+)\.", r"stage\1.block\2."),
+    (r"^decoder\.concat_back_dim\.(\d+)\.", r"concat_back_dim\1."),
+    (r"^decoder\.seg_layers\.(\d+)\.", r"seg\1."),
+]
+
+
+# U-Mamba checkpoints (variants/mamba/UMambaBot_2d.py:367-441 /
+# UMambaEnc_2d.py:421-489 and their _3d twins)
+REFERENCE_UMAMBA_RULES = [
+    (r"^decoder\.encoder\.", None),        # duplicate module registration
+    # SS3D variants: VSS blocks at the bottleneck / per stage
+    # (UMambaBot_SS3D.py:806-821, UMambaEnc_SS3D.py:645-660)
+    (r"^mamba_layer\.blocks\.(\d+)\.", r"bot_vss\1."),
+    (r"^encoder\.mamba_layers\.(\d+)\.blocks\.0\.", r"enc_vss\1."),
+    (r"\.mlp\.dwconv\.dwconv\.", ".mlp.dwconv."),
+    # protect the VSS blocks' LayerNorms from the BasicResBlock
+    # InstanceNorm rewrite below (marker stripped by the last rule)
+    (r"^((?:bot|enc)_vss\d+)\.norm", r"\1.@ln@norm"),
+    (r"^encoder\.stem\.(\d+)\.", r"stem_block\1."),
+    (r"^encoder\.stages\.(\d+)\.(\d+)\.", r"stage\1_block\2."),
+    (r"^encoder\.mamba_layers\.(\d+)\.", r"enc_mamba\1."),
+    (r"^mamba_layer\.", "bot_mamba."),
+    (r"^decoder\.upsample_layers\.(\d+)\.", r"up\1."),
+    (r"^decoder\.stages\.(\d+)\.(\d+)\.", r"dec_stage\1_block\2."),
+    (r"^decoder\.seg_layers\.(\d+)\.", r"seg\1."),
+    (r"\.(conv1|conv2)\.norm\.", r".\1.norm.GroupNorm_0."),   # BasicBlockD
+    (r"\.norm([12])\.", r".norm\1.GroupNorm_0."),             # BasicResBlock
+    (r"\.dt_proj\.weight$", ".dt_proj_weight"),
+    (r"\.dt_proj\.bias$", ".dt_proj_bias"),
+    (r"@ln@", ""),
+]
+
+
+# VM-UNet (nnUNetTrainer_VMUNet.py:713-880); SS2D-internal names match the
+# cell directly
+REFERENCE_VMUNET_RULES = [
+    (r"^vmunet\.patch_embed\.proj\.", "patch_embed."),
+    (r"^vmunet\.patch_embed\.norm\.", "patch_norm."),
+    (r"^vmunet\.layers\.(\d+)\.blocks\.(\d+)\.", r"layer\1_block\2."),
+    (r"^vmunet\.layers\.(\d+)\.downsample\.", r"downsample\1."),
+    (r"^vmunet\.layers_up\.(\d+)\.blocks\.(\d+)\.", r"uplayer\1_block\2."),
+    (r"^vmunet\.layers_up\.(\d+)\.upsample\.", r"up\1."),
+    (r"^vmunet\.", ""),                      # final_up / final_conv
+]
+
+
+# Mamba-UNet (nnUNetTrainer_MambaUNet.py:772-915, Swin-UNet-style VSSM)
+REFERENCE_MAMBA_UNET_RULES = [
+    (r"^patch_embed\.proj\.", "patch_embed."),
+    (r"^patch_embed\.norm\.", "patch_norm."),
+    (r"^layers\.(\d+)\.blocks\.(\d+)\.", r"layer\1_block\2."),
+    (r"^layers\.(\d+)\.downsample\.", r"downsample\1."),
+    (r"^layers_up\.0\.", "up0."),
+    (r"^layers_up\.(\d+)\.blocks\.(\d+)\.", r"uplayer\1_block\2."),
+    (r"^layers_up\.(\d+)\.upsample\.", r"up\1."),
+    (r"^concat_back_dim\.(\d+)\.", r"concat_back\1."),
+]
+
+
 def convert_reference_flagship_state_dict(state_dict) -> Dict[str, np.ndarray]:
     """torch MLLA_Uper state_dict -> {'a/b/c': array} in flax layout."""
     return _convert_reference_state_dict(state_dict,
                                          REFERENCE_FLAGSHIP_RULES)
 
 
-def reference_flagship_state_dict_to_port(state_dict) -> Dict[str, torch.Tensor]:
-    """A reference ``MLLA_Uper`` state_dict -> the port's ``MLLAUper``
-    state_dict (``load_state_dict(strict=True)``)."""
-    return jax_params_to_state_dict(convert_reference_flagship_state_dict(state_dict))
+def convert_reference_swin_umamba_state_dict(
+        state_dict, d_variant: bool = False) -> Dict[str, np.ndarray]:
+    """torch SwinUMamba / SwinUMambaD state_dict -> flax layout."""
+    rules = (REFERENCE_SWIN_UMAMBA_D_RULES if d_variant
+             else REFERENCE_SWIN_UMAMBA_RULES)
+    return _convert_reference_state_dict(state_dict, rules)
+
+
+def convert_reference_umamba_state_dict(state_dict) -> Dict[str, np.ndarray]:
+    """torch UMambaBot/UMambaEnc state_dict -> flax layout."""
+    return _convert_reference_state_dict(state_dict, REFERENCE_UMAMBA_RULES)
+
+
+def convert_reference_vmunet_state_dict(state_dict) -> Dict[str, np.ndarray]:
+    """torch VMUNet state_dict -> flax layout."""
+    return _convert_reference_state_dict(state_dict, REFERENCE_VMUNET_RULES)
+
+
+def convert_reference_mamba_unet_state_dict(state_dict
+                                            ) -> Dict[str, np.ndarray]:
+    """torch Mamba-UNet VSSM state_dict -> flax layout."""
+    return _convert_reference_state_dict(state_dict,
+                                         REFERENCE_MAMBA_UNET_RULES)
+
+
+def _swin_umamba_d_converter(state_dict):
+    return convert_reference_swin_umamba_state_dict(state_dict,
+                                                    d_variant=True)
+
+
+CONVERTERS_BY_NETWORK = {
+    "mlla_uper": convert_reference_flagship_state_dict,
+    "umamba_bot": convert_reference_umamba_state_dict,
+    "umamba_enc": convert_reference_umamba_state_dict,
+    "vmunet": convert_reference_vmunet_state_dict,
+    "mamba_unet": convert_reference_mamba_unet_state_dict,
+    "swin_umamba": convert_reference_swin_umamba_state_dict,
+    "swin_umamba_d": _swin_umamba_d_converter,
+}
+
+
+def _converter(network_key: str):
+    """The family's converter; a network registered under a name that
+    extends the flagship's (``mlla_uper...``) is the flagship's."""
+    conv = CONVERTERS_BY_NETWORK.get(
+        "mlla_uper" if network_key.startswith("mlla_uper") else network_key)
+    if conv is None:
+        raise NotImplementedError(
+            f"reference checkpoints of network {network_key!r} are not convertible yet "
+            f"(ROADMAP queue A, A16); convertible: {sorted(CONVERTERS_BY_NETWORK)}")
+    return conv
+
+
+def reference_state_dict_to_port(network_key: str, state_dict) -> Dict[str, torch.Tensor]:
+    """A reference state_dict of the network ``network_key`` (a registry
+    network) -> the port's state_dict of that network
+    (``load_state_dict(strict=True)``)."""
+    return jax_params_to_state_dict(_converter(network_key)(state_dict))
 
 
 def load_torch_checkpoint_state_dict(path: str):
@@ -135,18 +273,19 @@ def load_torch_checkpoint_state_dict(path: str):
 
 
 def load_pretrained_torch_weights(network: torch.nn.Module, torch_checkpoint_path: str,
-                                  verbose: bool = False):
-    """Name- and shape-matched transfer from a reference flagship
-    checkpoint (``MLLA_Uper``, the flagship's key rules) into ``network``
-    in place; returns (n_transferred, n_total). A checkpoint of another
-    family raises: its converters are not ported yet."""
+                                  verbose: bool = False, network_key: str = "mlla_uper"):
+    """Name- and shape-matched transfer from a reference checkpoint of the
+    network ``network_key`` (converted by its family's key rules) into
+    ``network`` in place; returns (n_transferred, n_total). A network with no
+    converter raises, and so does a checkpoint none of whose converted keys
+    names a parameter of ``network`` (another family's)."""
     from mlagg_unet_torch.training.load_pretrained_weights import transfer_matching
 
     state_dict = load_torch_checkpoint_state_dict(torch_checkpoint_path)
-    keys = [k[len("module."):] if k.startswith("module.") else k for k in state_dict]
-    if not any(k.startswith("mlla.layers.") for k in keys):
+    converted = reference_state_dict_to_port(network_key, state_dict)
+    if not set(converted) & set(network.state_dict()):
         raise NotImplementedError(
-            f"{torch_checkpoint_path} is not a reference MLLA_Uper checkpoint: the other "
-            "families' converters are not ported yet (ROADMAP queue A, A16)")
-    return transfer_matching(network, reference_flagship_state_dict_to_port(state_dict),
-                             verbose)
+            f"{torch_checkpoint_path} is not a reference checkpoint of network "
+            f"{network_key!r}: no key of it names a parameter of the network (another "
+            "family's converters are not ported yet, ROADMAP queue A, A16)")
+    return transfer_matching(network, converted, verbose)

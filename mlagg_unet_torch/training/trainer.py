@@ -42,7 +42,8 @@ of the schedule.
 
 Not ported yet, and raised as such: on-device augmentation
 (``MLAGG_DEVICE_AUG``, A15), multi-GPU training (A14) and the model zoo's
-networks (A16).
+networks beyond U-Mamba Bot / Enc, VM-UNet, Mamba-UNet and Swin-UMamba(-D)
+(A16).
 """
 from __future__ import annotations
 

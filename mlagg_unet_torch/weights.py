@@ -5,11 +5,13 @@ The port's submodules are named after the flax scopes, so a flat JAX key
 ``"mlla.layer0.block0.attn_pool.kv.weight"``. Only layouts change:
 
 - a Dense kernel (in, out) is transposed to (out, in);
-- a conv kernel (*k, in / g, out), 2-D or 3-D, becomes (out, in / g, *k);
+- a conv kernel (*k, in / g, out), 1-D, 2-D or 3-D, becomes (out, in / g, *k)
+  (a depthwise conv1d's (k, 1, d) becomes (d, 1, k));
 - a transposed-conv kernel (*k, in, out) becomes torch's (in, out, *k);
 - ``scale`` becomes ``weight``;
 - raw params (``A_logs``, ``Ds``, ``x_proj_weight``, ``dt_projs_*``,
-  ``lambda_*``, ``grn_*``) and biases keep the JAX shape.
+  MambaBlock's ``dt_proj*_weight``, ``dt_proj*_bias``, ``A*_log`` and
+  ``D*``, ``lambda_*``, ``grn_*``) and biases keep the JAX shape.
 
 Transposed convs are told apart by their scope names (the flagship's
 ``up_*/conv1``, ``up_*/res_conv`` and ``transp_conv``, the U-Net's
@@ -44,7 +46,7 @@ def _kernel_perm(key: str, ndim: int):
     """Axis order taking a JAX kernel to the port's layout."""
     if ndim == 2:
         return (1, 0)
-    if ndim in (4, 5):
+    if ndim in (3, 4, 5):
         spatial = tuple(range(ndim - 2))
         io = (ndim - 2, ndim - 1) if _TRANSPOSED.search(key) else (ndim - 1, ndim - 2)
         return io + spatial

@@ -18,9 +18,14 @@ writes them. Then:
   packages (fp32 predictors): ``predicted_next_stage`` segmentations equal;
 - the cascade stage: 1 + 2 input channels, one epoch on the real loaders
   from the previous stage's segmentations, its final validation;
-  ``_stack_prev_stage`` equal to JAX's; ``predict_from_files`` with the
-  previous stage's predictions equal to JAX's (fp32), and the predict verb
-  with ``-prev_stage_predictions``.
+  the stacked one-hot equal to JAX's where both agree (no crop, identity
+  transpose); ``predict_from_files`` with the previous stage's predictions
+  equal to JAX's (fp32), and the predict verb with
+  ``-prev_stage_predictions``;
+- the cascade's previous-stage channels at predict time on a case with a
+  zero border and a non-identity ``transpose_forward``: the one-hot of the
+  port's own ``run_case_npy(image, seg)`` seg, and the channels the stage
+  trains on from the same lowres prediction (``resample_and_save``).
 """
 import os
 import shutil
@@ -32,6 +37,7 @@ import torch
 
 from mlagg_unet_tpu.inference import sliding_window as j_sw
 from mlagg_unet_tpu.inference.predictor import NNUNetPredictor as JaxPredictor
+from mlagg_unet_tpu.preprocessing.preprocessor import DefaultPreprocessor as JaxPreprocessor
 from mlagg_unet_tpu.training import registry as jreg
 from mlagg_unet_tpu.training.trainer import NNUNetTrainerTPU
 from mlagg_unet_torch import paths as tpaths
@@ -329,9 +335,11 @@ def _cascade_folders(cascade):
 
 
 def test_stack_prev_stage_and_predict_from_files_match_jax(cascade, env, tmp_path):
-    """The previous stage's segmentation one-hot on the cascade's input
-    equals JAX's; ``predict_from_files`` of the lowres stage, then of the
-    cascade with its predictions, equals JAX's (fp32, tile batch 2)."""
+    """Where both packages agree (no crop, the identity transpose, the
+    plan's spacing): the previous stage's segmentation one-hot on the
+    cascade's input equals JAX's; ``predict_from_files`` of the lowres
+    stage, then of the cascade with its predictions, equals JAX's (fp32,
+    tile batch 2)."""
     low_dir, cas_dir = _cascade_folders(cascade)
     images = str(env["root"] / "raw" / DATASET / "imagesTs")
     preds = {}
@@ -346,10 +354,14 @@ def test_stack_prev_stage_and_predict_from_files_match_jax(cascade, env, tmp_pat
                               folder_with_segs_from_prev_stage=str(tmp_path / pkg / "low"))
         preds[pkg] = ca
     rs = np.random.RandomState(1)
-    data = rs.randn(1, *SHAPE).astype(np.float32)
-    prev = rs.randint(0, 3, (8, 16, 16)).astype(np.uint8)
-    got = preds["port"]._stack_prev_stage(data, prev)
-    ref = preds["jax"]._stack_prev_stage(data, None, prev, {})
+    image = rs.randn(1, *SHAPE).astype(np.float32)          # no zero voxel: no crop
+    prev = rs.randint(0, 3, SHAPE).astype(np.uint8)
+    props = {"spacing": [1.0, 1.0, 1.0]}
+    got, _ = preds["port"]._preprocess(image, dict(props), prev)
+    jp = preds["jax"]
+    data, _, _ = JaxPreprocessor().run_case_npy(image, None, dict(props), jp.plans_manager,
+                                                jp.configuration_manager, jp.dataset_json)
+    ref = jp._stack_prev_stage(data, None, prev, {})
     assert got.shape == (3, *SHAPE) and np.array_equal(got, ref)
     for stage in ("low", "cas"):
         a = NiftiIO().read_seg(str(tmp_path / "port" / stage / "c6.nii.gz"))[0]
@@ -372,3 +384,49 @@ def test_predict_verb_with_prev_stage_predictions(cascade, env, tmp_path):
     assert seg.shape == (1, *SHAPE) and set(np.unique(seg)) <= {0, 1, 2}
     with pytest.raises(ValueError, match="prev_stage_predictions"):
         main(["predict", "-i", images, "-o", str(tmp_path / "x"), "-m", cas_dir, *common])
+
+
+def test_prev_stage_channels_follow_the_crop_and_transpose(tmp_path):
+    """The previous stage's segmentation at predict time is transposed,
+    cropped and resampled with the image. A 12x24x20 case with a zero border
+    on two axes and ``transpose_forward`` [2, 0, 1]; a lowres prediction
+    (random logits) in the preprocessed frame, exported to the raw frame as
+    the lowres stage's predict verb writes it: the stacked channels equal
+    the one-hot of ``run_case_npy(image, seg)``'s seg, and the one-hot of
+    the ``predicted_next_stage`` segmentation that ``resample_and_save``
+    writes from the same logits, the channels the stage trains on."""
+    from mlagg_unet_torch.inference.export import (
+        convert_predicted_logits_to_segmentation_with_correct_shape,
+        resample_and_save,
+    )
+    from mlagg_unet_torch.plans.label_handling import convert_labelmap_to_one_hot
+
+    plans = {**PLANS, "transpose_forward": [2, 0, 1], "transpose_backward": [1, 2, 0]}
+    pm = PlansManager(plans)
+    cm = pm.get_configuration("3d_cascade_fullres")
+    pred = NNUNetPredictor(tile_batch_size=2, device="cpu")
+    pred.manual_initialization(None, pm, cm, [], DATASET_JSON, TR, (0, 1, 2))
+    rs = np.random.RandomState(4)
+    image = rs.randn(1, 12, 24, 20).astype(np.float32) + 3.0
+    image[:, :, :5] = 0.0                                  # zero border along y
+    image[:, :, :, -3:] = 0.0                              # and along x
+    props = {"spacing": [1.0, 1.0, 1.0]}
+    data, _, pprops = DefaultPreprocessor().run_case_npy(image, None, dict(props), pm, cm,
+                                                        DATASET_JSON)
+    assert data.shape[1:] == (17, 12, 19)                  # transposed and cropped
+    logits = rs.randn(3, *data.shape[1:]).astype(np.float32)
+    raw_seg = convert_predicted_logits_to_segmentation_with_correct_shape(
+        logits, pm, cm, pred.label_manager, pprops)
+    assert raw_seg.shape == image.shape[1:]
+    stacked, _ = pred._preprocess(image, dict(props), raw_seg)
+    np.testing.assert_array_equal(stacked[:1], data)
+    _, seg, _ = DefaultPreprocessor().run_case_npy(image, raw_seg[None].astype(np.float32),
+                                                   dict(props), pm, cm, DATASET_JSON)
+    np.testing.assert_array_equal(stacked[1:], convert_labelmap_to_one_hot(
+        seg[0], pred.label_manager.foreground_labels, data.dtype))
+    resample_and_save(logits, data.shape[1:], str(tmp_path / "c0.npz"), pm, cm, pprops,
+                      DATASET_JSON)
+    trained_on = np.load(tmp_path / "c0.npz")["seg"]
+    np.testing.assert_array_equal(stacked[1:], convert_labelmap_to_one_hot(
+        trained_on[0], pred.label_manager.foreground_labels, data.dtype))
+    assert stacked[1:].any(axis=0).mean() > 0.3
