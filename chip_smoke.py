@@ -91,22 +91,22 @@ failure exits non-zero:
    (one call per scan direction) (a trace short of them is taken again, up
    to three times). K1, K4 and K5 must
    each be launched in the timed steps, no other.
-   Then the same with ``fused_instance_norm`` on, its fp32 batch held
-   against the default network on the card: K1, K4, K5, K7 and K8 must
-   each be launched, K2, K3 and K6 never;
+   Then the fp32 batch with ``fused_instance_norm`` on, held against the
+   default network on the card: K1, K4, K5, K7 and K8 must each be
+   launched in it, K2, K3 and K6 never (no timed steps);
 8. train verb: the port's ``train_entry`` on the card, default
    configuration, fold 0 of a dataset the phase writes (10 cases of
    1x10x320x260 ``.nii.gz`` from ``RandomState(0)``, smooth blobs labelled
    by 3 thresholds of the image, preprocessed by the port's
    ``run_case_save``; the predict phase's 2d plan at 256x224, batch 10, 4
-   labels), with the flagship recipe cut to 3 epochs of 20 steps, 5
+   labels), with the flagship recipe cut to 2 epochs of 20 steps, 5
    validation steps and 1 warm-up epoch (registered here only). Every loss
    finite; checkpoint_final, _best and _latest written; a Dice per label in
    ``validation/summary.json``; K1, K4 and K5 launched in the training
    steps and no other kernel; K1-K4 in the validation steps and the final
    validation and K5-K8 not; K2 and K3 nowhere else. Then ``--c`` with the
-   recipe at 4 epochs: it loads checkpoint_final, trains one epoch of 20
-   steps and keeps the logger's first three epochs. Then the predict verb on
+   recipe at 3 epochs: it loads checkpoint_final, trains one epoch of 20
+   steps and keeps the logger's first two epochs. Then the predict verb on
    the folder it wrote: shape and labels. On the first training batch the
    verb's loader produced, from the verb's final weights, the fp32 loss and
    every parameter gradient with the kernels against every wrapper
@@ -114,8 +114,8 @@ failure exits non-zero:
    first validation batch's logits in bf16 (rel L2 within 5e-2) and fp32
    (within 1e-3 x max). Printed beside the card's name and power limit:
    seconds per epoch, ms per step and images/s with the loader (median over
-   epochs 2-3), the step on one cached batch, the loader's batches/s alone
-   on threads and on fork processes (a worker that hangs fails the phase),
+   epoch 2), the step on one cached batch, the loader's batches/s alone
+   on threads (a worker that hangs fails the phase),
    the device busy share of 5 profiled steps fed by the loader, the peak
    memory, the losses and pseudo dice per epoch and the final validation's
    seconds per case;
@@ -128,14 +128,13 @@ failure exits non-zero:
    native resampler); ``plan_and_preprocess_entry`` (``-c 2d
    --verify_dataset_integrity``, 8 spawned workers): the fingerprint, a 2d
    configuration with a patch divisible by 32, 10 ``.npz``/``.pkl`` pairs
-   and ``gt_segmentations/``; the preprocess verb again with
-   ``MLAGG_DISABLE_NATIVE=1`` (scipy) into a second root and then native
-   into a third (each native root against scipy's: seg equal, data within
-   1e-6 x max|data|), the three wall times, one case resampled in this
-   process both ways, and what a spawned worker pays to import the package
-   (it must not open the card). Two flagship recipes
+   and ``gt_segmentations/``; the first case preprocessed again in this
+   process with ``MLAGG_DISABLE_NATIVE=1`` (scipy) against the verb's
+   native output (seg equal, data within 1e-6 x max|data|), one case
+   resampled in this process both ways, and what a spawned worker pays to
+   import the package (it must not open the card). Two flagship recipes
    cut to 1 and 2 epochs of 10 steps and 2 validation steps (registered
-   here only) train folds 0 and 1 with ``--npz`` through ``train_entry``
+   here only) train fold 0 with ``--npz`` through ``train_entry``
    at the planner's patch and batch: K1, K4 and K5 launched in the training
    steps and no other kernel, K1-K4 in the validation steps and the final
    validations, K6-K8 never; on the first training batch the loss and every
@@ -144,7 +143,7 @@ failure exits non-zero:
    ``find_best_configuration_entry`` over both recipes and their ensemble:
    ``inference_information.json`` names the best and its
    ``postprocessing.pkl`` exists. The predict verb on the test cases for
-   both recipes (folds 0 and 1, probabilities saved); the first recipe's
+   both recipes (fold 0, probabilities saved); the first recipe's
    verb's own fold-0 ``VolumePredictor`` (bf16, the planner's patch, the
    tile batch it chose) and an fp32 one at that batch on a test case, and
    the final validation's (bf16, tile batch 4) and an fp32 one at tile
@@ -173,7 +172,7 @@ failure exits non-zero:
     profiled volume, and bf16 against fp32 rel L2 of volume 0 (5e-2).
     ``nnUNetTrainerBN`` for 3 bf16 steps on a cached batch: its fp32 running
     statistics must move; its eval forward card against CPU. The train verb:
-    10 training and 2 test cases of 1x96x192x192 at 1 mm (seeded blobs, 3
+    5 training and 2 test cases of 1x96x192x192 at 1 mm (seeded blobs, 3
     labels) through ``plan_and_preprocess_entry -c 3d_fullres`` (the plan
     printed), ``nnUNetTrainer`` cut to 2 epochs of 10 steps and 2 validation
     steps on fold 0 (seconds per epoch, ms per step with the loader against
@@ -189,7 +188,7 @@ failure exits non-zero:
     networks (U-Mamba Bot and Enc, VM-UNet, Mamba-UNet, Swin-UMamba and
     Swin-UMamba-D) at full width, seeded. (a) One fp32 forward and backward
     of each at batch 4, and of an SS2D v04 cell in bf16, record every
-    (b, g, d, L, dtype, reverse) at which K1 and K5 run (L 25 to 102,400,
+    (b, g, d, L, n, dtype, reverse) at which K1 and K5 run (L 25 to 102,400,
     g = 2 reversed, bf16); at each, K1 with its states and K5 against their
     plain twins (phase 3's tolerances); K1 and K5 timed at U-Mamba Enc's
     stage 0 at batch 4 beside their plain twins and bound. (b) Each
@@ -211,12 +210,45 @@ failure exits non-zero:
     on that batch's own operands against their twins; ms per
     step with the loader and on one cached batch, the predict verb on its
     folder for 2 cases. Only K1 and K5 run;
-12. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
+12. ss3d: the families that scan at d_state 1 and in 12 directions, at
+    full width, seeded: U-Mamba Bot and Enc SS3D and VM-UNet-3D in its three
+    forms (``vmunet3d``, ``vmunet3d_new``, ``vmunet3d_swint``) on phase 10's
+    3-D plan (64x128x128, 6 stages, 32-320 features, 3 classes), MSVM-UNet
+    (``tiny_0230s``) on phase 11's 2d plan (320x320, 4 classes). (a) One
+    fp32 forward and backward of each (3-D at batch 2, MSVM at 4) and one
+    bf16 MSVM forward record every (b, g, d, L, n, dtype, reverse) at which
+    K1 and K5 run (n = 1 at g = 12 and L = 1,048,576; n = 16 at g = 12; g =
+    2 reversed; bf16), each network's peak memory beside it; at each, K1
+    with its states and K5 against their plain twins (phase 3's
+    tolerances); both timed at U-Mamba Enc SS3D's stage 0 at batch 2 beside
+    their plain twins (one run) and bound. (b) Each network on one tile,
+    fp32, card vs CPU (1e-3 x max); the 3-D ones on a tile cut for the CPU
+    (U-Mambas 16x64x64, VM-UNet-3D 8x32x32; at 64x128x128 their CPU forwards
+    took 144 s). (c) U-Mamba Enc
+    SS3D and ``vmunet3d`` served on 2 volumes of 1x96x192x192 (tile
+    64x128x128, mirror (0, 1, 2); the memory budget's tile batch, not
+    autotuned; a one-tile warm-up volume, 1x64x128x128, on which the
+    kernels are held to their twins: the plain scans of a whole volume took
+    ~60 s a network) and MSVM-UNet on 2 of 1x10x320x320 (mirror
+    (0, 1)), after 1 warm-up, bf16, as phase 11 serves (bf16 vs fp32 within
+    5e-2; no profile). (d)
+    ``nnUNetTrainerUMambaEnc_SS3D`` through ``train_entry`` on phase 10's
+    cases (its preprocessed folder; preprocessed here under ``--only``) and
+    its 2 test cases, trained on phase 10's 3-D plan at batch 2, cut to 1
+    epoch of 5 steps and 2 validation steps on fold 0: launches; the first
+    training batch's first case from the final weights, its centre cut to
+    32x64x64 (the network in fp64 does not fit the card at 2 cases, and
+    takes minutes at the full patch), the fp32 loss and gradients held as
+    phase 11 holds them;
+    ms per step with the loader and on one cached batch; the predict verb on
+    the 2 test cases. Only K1 and K5 run;
+13. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--only predict`` runs phases 1, 2 and 6 alone, ``--only train-verb``
 phases 1, 2 and 8, ``--only pipeline`` phases 1, 2 and 9, ``--only unet3d``
-phases 1, 2 and 10, ``--only mamba`` phases 1, 2 and 11; ``--only serve-timing``
+phases 1, 2 and 10, ``--only mamba`` phases 1, 2 and 11, ``--only ss3d``
+phases 1, 2 and 12; ``--only serve-timing``
 runs phases 1 and 2 and then phase 5's default timing alone, in two
 windows, from the package under ``--root`` (default: this script's
 directory): run it for two checkouts in turns in one call to compare them.
@@ -370,12 +402,12 @@ PREDICT_DATASET = {"channel_names": {"0": "MRI"}, "file_ending": ".nii.gz",
                    "labels": {"background": 0, "a": 1, "b": 2, "c": 3}}
 # the train verb's dataset: 10 cases of 1x10x320x260 (smooth seeded blobs,
 # labels = 3 thresholds of the image), the predict phase's 2d plan (batch 10,
-# 256x224, 4 labels), the flagship recipe cut to 3 epochs of 20 steps
+# 256x224, 4 labels), the flagship recipe cut to 2 epochs of 20 steps
 TRAIN_VERB_DATASET = "Dataset996_ChipSmokeTrain"
 TRAIN_VERB_CASES = 10
 TRAIN_VERB_THRESHOLDS = (-0.5, 0.3, 1.0)
 TRAIN_VERB_RECIPE = "nnUNetTrainer_MLAgg_2D_dt_MS_chip_smoke"
-TRAIN_VERB_EPOCHS, TRAIN_VERB_STEPS, TRAIN_VERB_VAL_STEPS, TRAIN_VERB_WARMUP = 3, 20, 5, 1
+TRAIN_VERB_EPOCHS, TRAIN_VERB_STEPS, TRAIN_VERB_VAL_STEPS, TRAIN_VERB_WARMUP = 2, 20, 5, 1
 TRAIN_VERB_PROFILED_STEPS = 5
 LOADER_RATE_BATCHES = 20                 # timed after the prefetch queue (6) is drained
 # the pipeline phase: a raw dataset of 10 training and 2 test cases of
@@ -388,7 +420,7 @@ PIPELINE_Z_SPACING, PIPELINE_INPLANE = 3.0, (0.75, 0.85)   # mm
 PIPELINE_RECIPES = (("nnUNetTrainer_MLAgg_2D_dt_MS_chip_pipeline_A", 1),
                     ("nnUNetTrainer_MLAgg_2D_dt_MS_chip_pipeline_B", 2))   # (name, epochs)
 PIPELINE_STEPS, PIPELINE_VAL_STEPS = 10, 2
-PIPELINE_FOLDS = ("0", "1")
+PIPELINE_FOLDS = ("0",)
 TOL_NATIVE_PREPROCESS = 1e-6             # native vs scipy preprocessed data, x max|data|
 # phase 10: the default nnU-Net recipe in 3-D. The network: tools/bench_3d_unet.py's
 # topology (6 stages, features 32-320, 3x3x3 kernels) at its tile; the serve: that
@@ -404,7 +436,7 @@ UNET3D_THRESHOLDS = (0.3, 1.0)           # 3 labels: two thresholds of the image
 UNET3D_DATASET, UNET3D_ID = "Dataset993_ChipSmokeUNet3D", "993"
 UNET3D_DATASET_JSON = {"channel_names": {"0": "MRI"}, "file_ending": ".nii.gz",
                        "numTraining": 0, "labels": {"background": 0, "a": 1, "b": 2}}
-UNET3D_CASES, UNET3D_TEST_CASES = 10, 2
+UNET3D_CASES, UNET3D_TEST_CASES = 5, 2
 UNET3D_RECIPE = "nnUNetTrainer_chip_smoke_3d"
 UNET3D_EPOCHS, UNET3D_STEPS, UNET3D_VAL_STEPS = 2, 10, 2
 UNET3D_BN_STEPS = 3
@@ -451,6 +483,31 @@ MAMBA_PLANS["configurations"]["2d"].update(
     pool_op_kernel_sizes=[list(p) for p in MAMBA_POOLS],
     n_conv_per_stage_encoder=[2] * len(MAMBA_POOLS),
     n_conv_per_stage_decoder=[2] * (len(MAMBA_POOLS) - 1))
+# phase 12: the families that scan at d_state 1 and in 12 directions, at full
+# width: the SS3D U-Mambas and VM-UNet-3D's three forms on phase 10's 3-D
+# plan (UNET3D_TILE, 6 stages, 32-320 features, batch 2; 3 classes), and
+# MSVM-UNet (tiny_0230s) on phase 11's 2d plan (320x320, batch 4; 4 classes)
+SS3D_NETWORKS = ("nnUNetTrainerUMambaBot_SS3D", "nnUNetTrainerUMambaEnc_SS3D",
+                 "nnUNetTrainer_VMUNet3D", "nnUNetTrainer_VMUNet3D_woinit_new",
+                 "nnUNetTrainer_VMUNet3D_woinit_new_SwinT", "nnUNetTrainer_MSVM_UNet")
+MSVM_TRAINER = "nnUNetTrainer_MSVM_UNet"
+SS3D_BATCH, SS3D_CLASSES = 2, 3
+SS3D_SERVED = ("nnUNetTrainerUMambaEnc_SS3D", "nnUNetTrainer_VMUNet3D")
+SS3D_VOLUMES = 2                         # of UNET3D_VOLUME, and of MAMBA_VOLUME for MSVM
+# the largest scan: U-Mamba Enc SS3D's stage 0 at the training batch
+SS3D_LARGEST = (SS3D_BATCH, 12, 2 * UNET3D_FEATURES[0], UNET3D_TILE[0] * UNET3D_TILE[1]
+                * UNET3D_TILE[2], 1)
+SS3D_RECIPE = "nnUNetTrainerUMambaEnc_SS3D_chip_smoke"
+# the 3-D networks' tiles for the card vs CPU check, cut for the CPU (at
+# 64x128x128 their CPU forwards took 144 s): U-Mambas 16x64x64, VM-UNet-3D
+# 8x32x32 (its stage 3 then 1x1x1)
+SS3D_CPU_TILE, VMUNET3D_CPU_TILE = (16, 64, 64), (8, 32, 32)
+SS3D_STEPS, SS3D_VAL_STEPS, SS3D_CACHED_STEPS = 5, 2, 3
+SS3D_GRAD_BATCH = 1                      # the gradient check: the first training batch's first
+# bf16 against fp32 serving is held to TOL_SERVE_REL_L2: bf16 moves JAX's own
+# served networks of the phase less than that (U-Mamba Enc SS3D 2.773e-02,
+# VM-UNet-3D 1.099e-02 at full width on 16x64x64, MSVM-UNet 1.415e-02 on
+# 160x160, on the CPU: tests/port_bf16_gap.py)
 UNET3D_CASCADE_RECIPE, UNET3D_CASCADE_STEPS = "nnUNetTrainer_chip_smoke_cascade", 5
 UNET3D_LOWRES_SPACING = 2.0              # mm: 48x96x96 cases, the patch their size
 UNET3D_LOWRES_POOLS = ((1, 1, 1), (2, 2, 2), (2, 2, 2), (2, 2, 2), (1, 2, 2))
@@ -1411,9 +1468,10 @@ def compare_grads(torch, label, l_got, g_got, l_ref, g_ref) -> None:
 
 
 def phase_train(torch, fused_in: bool = False):
-    """The default configuration (fp32 batch held against the CPU), or with
-    ``fused_instance_norm`` (fp32 batch held against the default network on
-    the card, the same seeded weights); then the timed bf16 steps."""
+    """The default configuration (fp32 batch held against the CPU), then
+    the timed bf16 steps; or with ``fused_instance_norm`` the fp32 batch
+    alone, held against the default network on the card (the same seeded
+    weights), with its launches: K1, K4, K5, K7 and K8, and no other."""
     from mlagg_unet_torch import Trainer
     from mlagg_unet_torch.ops import _ext
 
@@ -1427,7 +1485,9 @@ def phase_train(torch, fused_in: bool = False):
     tr = Trainer(name, TILE, 1, 1, 4, seed=0, device="cuda", compute_dtype=torch.float32,
                  network_overrides=dict(no_drop, **config))
     x, y = synthetic_batch(torch, 1, seed=1)
+    _ext.reset_launch_counts()
     l_got, g_got = train_grads(tr, tr.network, x.cuda(), y.cuda())
+    launches = {k.name: k.launches for k in _ext.ALL_KERNELS}
     t0 = time.perf_counter()
     if fused_in:
         ref = Trainer(name, TILE, 1, 1, 4, seed=0, device="cuda",
@@ -1442,6 +1502,12 @@ def phase_train(torch, fused_in: bool = False):
         del cpu_net
     compare_grads(torch, "card vs " + ("default" if fused_in else "CPU"), l_got, g_got, l_ref, g_ref)
     del tr, g_got, g_ref
+    if fused_in:
+        log(f"  launches in the fp32 batch: {launches}")
+        if any(launches[k] <= 0 for k in required) or any(
+                v for k, v in launches.items() if k not in required):
+            fail(f"the {label} training batch launched {launches} (want {required} only)")
+        return launches, None
 
     log(f"[train] {label}: bf16 steps at batch {TRAIN_BATCH}, {TILE[0]}x{TILE[1]}, drop path on")
     tr = Trainer(name, TILE, TRAIN_BATCH, 1, 4, seed=0, device="cuda",
@@ -1797,17 +1863,17 @@ def recording_first_batches(first: dict):
         NNUNetTrainer.get_dataloaders = get_loaders
 
 
-def loader_figures(torch, trainer, backend: str, profiled_steps: int = 0) -> dict:
-    """The training loader of one backend: its batches/s with nothing
-    consuming them (after its prefetch queue is drained, LOADER_RATE_BATCHES
-    batches timed; a loader that has not delivered them within 120 s, a hung
-    worker, fails the phase), then the ms per step of TRAIN_STEPS steps it
-    feeds (after TRAIN_WARMUP), and with ``profiled_steps`` a profile of as
-    many more (``stats``: wall and device busy ms)."""
+def loader_figures(torch, trainer) -> dict:
+    """The training loader on threads (the 2D default): its batches/s with
+    nothing consuming them (after its prefetch queue is drained,
+    LOADER_RATE_BATCHES batches timed; a loader that has not delivered them
+    within 120 s, a hung worker, fails the phase), then the ms per step of
+    TRAIN_STEPS steps it feeds (after TRAIN_WARMUP), and a profile of
+    TRAIN_VERB_PROFILED_STEPS more (``stats``: wall and device busy ms)."""
     import threading
 
     old = os.environ.get("MLAGG_DA_BACKEND")
-    os.environ["MLAGG_DA_BACKEND"] = backend
+    os.environ["MLAGG_DA_BACKEND"] = "threads"
     try:
         train, val = trainer.get_dataloaders()
     finally:
@@ -1836,19 +1902,16 @@ def loader_figures(torch, trainer, backend: str, profiled_steps: int = 0) -> dic
         worker.start()
         worker.join(timeout=120)
         if "rate" not in out:
-            fail(f"the {backend} training loader delivered no {6 + LOADER_RATE_BATCHES} "
-                 "batches in 120 s")
+            fail(f"the training loader delivered no {6 + LOADER_RATE_BATCHES} batches in 120 s")
         steps(TRAIN_WARMUP)
         t0 = time.perf_counter()
         steps(TRAIN_STEPS)
         out["step_ms"] = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
-        if profiled_steps:
-            out["stats"] = {}
-            counts, _ = profile(torch, f"{profiled_steps} training steps fed by the {backend} "
-                                f"loader", lambda: steps(profiled_steps), out["stats"])
-            if counts is None:
-                fail("the profile of the training steps fed by the loader recorded no "
-                     "device time")
+        out["stats"] = {}
+        counts, _ = profile(torch, f"{TRAIN_VERB_PROFILED_STEPS} training steps fed by the "
+                            "loader", lambda: steps(TRAIN_VERB_PROFILED_STEPS), out["stats"])
+        if counts is None:
+            fail("the profile of the training steps fed by the loader recorded no device time")
     finally:
         train.stop()
     return out
@@ -1968,14 +2031,14 @@ def train_verb_run(torch, card: str, tmp: Path):
         if launches[name] != 0:
             fail(f"kernel {name} was launched in the verb run")
 
-    # ms per step with the real loader: the steps' start-to-start times in
-    # epochs 2 and 3 (each epoch's first step waits on its loader's start)
+    # ms per step with the real loader: the steps' start-to-start times after
+    # the first epoch (each epoch's first step waits on its loader's start)
     per_epoch = [[t for t, _ in steps[e * TRAIN_VERB_STEPS:(e + 1) * TRAIN_VERB_STEPS]]
                  for e in range(TRAIN_VERB_EPOCHS)]
     gaps = [1e3 * (b - a) for ep in per_epoch[1:] for a, b in zip(ep, ep[1:])]
     step_ms = statistics.median(gaps)
     n_val = len(summary["metric_per_case"])
-    log(f"  ms per training step with the loader (median of {len(gaps)} in epochs 2-3): "
+    log(f"  ms per training step with the loader (median of {len(gaps)} in epoch 2): "
         f"{step_ms:.2f}, {TRAIN_BATCH * 1e3 / step_ms:.3f} images/s | {card}")
 
     # the resume: one more epoch in the recipe, --c loads checkpoint_final
@@ -2091,9 +2154,8 @@ def train_verb_kernels(torch, card: str, first: dict, ckpt: Path, recipe: str = 
 
 def train_verb_timing(torch, card: str, tmp: Path, first: dict, step_ms: float,
                       cached_step_ms) -> None:
-    """The verb's training loader on threads and on fork processes (alone,
-    then feeding steps; a profiled span of steps on threads), and the step
-    on one cached batch."""
+    """The verb's training loader on threads (alone, then feeding steps; a
+    profiled span of steps), and the step on one cached batch."""
     from mlagg_unet_torch.training.trainer import NNUNetTrainer
     from mlagg_unet_torch.utils.helpers import load_json
 
@@ -2102,13 +2164,11 @@ def train_verb_timing(torch, card: str, tmp: Path, first: dict, step_ms: float,
                        load_json(str(pre / "dataset.json")), trainer_name=TRAIN_VERB_RECIPE,
                        device="cuda")
     tr.initialize()
-    figs = {b: loader_figures(torch, tr, b, TRAIN_VERB_PROFILED_STEPS if b == "threads" else 0)
-            for b in ("threads", "processes")}
-    for b, f in figs.items():
-        log(f"  training loader on {b}{' (the 2D default)' if b == 'threads' else ''}, "
-            f"4 workers, batch {TRAIN_BATCH}, augmented: {f['rate']:.3f} batches/s alone; "
-            f"{f['step_ms']:.2f} ms per step fed by it ({TRAIN_STEPS} steps) | {card}")
-    stats = figs["threads"]["stats"]
+    f = loader_figures(torch, tr)
+    log(f"  training loader on threads (the 2D default), 4 workers, batch {TRAIN_BATCH}, "
+        f"augmented: {f['rate']:.3f} batches/s alone; {f['step_ms']:.2f} ms per step fed by it "
+        f"({TRAIN_STEPS} steps) | {card}")
+    stats = f["stats"]
     busy = stats["busy_ms"] / TRAIN_VERB_PROFILED_STEPS
     log(f"  device busy share of {TRAIN_VERB_PROFILED_STEPS} steps fed by the loader: "
         f"{100 * stats['busy_ms'] / stats['wall_ms']:.1f} % of the profiled wall time "
@@ -2121,7 +2181,7 @@ def train_verb_timing(torch, card: str, tmp: Path, first: dict, step_ms: float,
     t0 = time.perf_counter()
     tr.step.run_steps([(x, y)] * TRAIN_STEPS)   # ends in a host sync
     cached = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
-    log(f"  ms per step: {step_ms:.2f} with the loader (the verb's epochs 2-3), "
+    log(f"  ms per step: {step_ms:.2f} with the loader (the verb's epoch 2), "
         f"{cached:.2f} on its first batch cached on the card"
         + (f", phase 7's cached synthetic batch {cached_step_ms:.2f}" if cached_step_ms else "")
         + f" | {card}")
@@ -2192,50 +2252,20 @@ def spawn_worker_probe() -> tuple:
 
 
 def pipeline_worker_cost() -> None:
-    """What a spawned preprocessing worker pays to start: a bare interpreter
-    importing numpy and scipy against one importing the preprocessor (and
-    with it the package and torch); a worker of the pool must not open the
-    card."""
+    """What a spawned preprocessing worker pays to start (a pool of 1 to its
+    first result); a worker of the pool must not open the card."""
 
     from mlagg_unet_torch.preprocessing.preprocessor import _spawn_worker_init
 
-    def run(code):
-        t0 = time.perf_counter()
-        subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=300)
-        return time.perf_counter() - t0
-
-    bare = run("import numpy, scipy.ndimage")
-    pkg = run("import mlagg_unet_torch.preprocessing.preprocessor")
     t0 = time.perf_counter()
     with multiprocessing.get_context("spawn").Pool(1, initializer=_spawn_worker_init) as pool:
         loaded, cuda, visible = pool.apply(spawn_worker_probe)
     first = time.perf_counter() - t0
-    log(f"  a spawned preprocessing worker: interpreter with numpy and scipy {bare:.2f} s, "
-        f"with the preprocessor (the package and torch) {pkg:.2f} s, so {pkg - bare:.2f} s "
-        f"more per worker; a pool of 1 to its first result {first:.2f} s; in the worker "
-        f"CUDA_VISIBLE_DEVICES={visible!r}, torch.cuda.is_initialized() {cuda}")
+    log(f"  a spawned preprocessing worker: a pool of 1 to its first result {first:.2f} s; in "
+        f"the worker CUDA_VISIBLE_DEVICES={visible!r}, torch.cuda.is_initialized() {cuda}")
     if not loaded or cuda or visible != "":
         fail(f"a spawned preprocessing worker touched the card or lacks the package "
              f"(package loaded {loaded}, CUDA initialised {cuda}, visible {visible!r})")
-
-
-def compare_preprocessed(native_dir: Path, scipy_dir: Path) -> tuple:
-    """Seg equal and data within TOL_NATIVE_PREPROCESS x max|data| in every
-    case; returns (cases, the largest error relative to max|data|)."""
-    names = sorted(p.name for p in scipy_dir.glob("*.npz"))
-    if names != sorted(p.name for p in native_dir.glob("*.npz")) or not names:
-        fail(f"native and scipy preprocessing wrote other cases: {names}")
-    worst = 0.0
-    for n in names:
-        a, b = np.load(native_dir / n), np.load(scipy_dir / n)
-        if not np.array_equal(a["seg"], b["seg"]):
-            fail(f"{n}: the native preprocessing's seg differs from scipy's")
-        rel = float(np.abs(a["data"].astype(np.float64) - b["data"]).max()
-                    / np.abs(b["data"]).max())
-        worst = max(worst, rel)
-        if rel > TOL_NATIVE_PREPROCESS:
-            fail(f"{n}: native vs scipy preprocessed data differ by {rel:.3e} x max|data|")
-    return len(names), worst
 
 
 def resample_alone(npz: Path, card: str) -> None:
@@ -2320,8 +2350,8 @@ def predict_vs_twins(torch, card: str, verb_preds: list, raw: Path, cases: Path,
 def phase_pipeline(torch, card: str) -> dict:
     """The nnU-Net pipeline through the port's verbs in this process, from
     raw files to an evaluated, postprocessed test prediction: plan and
-    preprocess (native resampler, then scipy into a second root), two cut
-    recipes trained on folds 0 and 1, find_best_configuration, predict,
+    preprocess (native resampler; one case again with scipy), two cut
+    recipes trained on fold 0, find_best_configuration, predict,
     ensemble, apply_postprocessing and evaluate_simple on the test cases,
     and the export/install zip round trip. Returns the phase's launches."""
     import tempfile
@@ -2354,7 +2384,7 @@ def phase_pipeline(torch, card: str) -> dict:
                 f"{PIPELINE_INPLANE[1]} mm, z {PIPELINE_Z_SPACING} mm) in "
                 f"{secs['write raw']:.1f} s")
 
-            # 1. plan and preprocess (native resampler), then scipy into a second root
+            # 1. plan and preprocess (native resampler), one case again with scipy
             pre = tmp / "preprocessed" / PIPELINE_DATASET
             runs = []
             t0 = time.perf_counter()
@@ -2386,42 +2416,38 @@ def phase_pipeline(torch, card: str) -> dict:
             log(f"  preprocessed in-plane shapes: {shapes}")
             if len(shapes) < 2:
                 fail("no case was resampled by the 2d preprocessing")
-            def preprocess_into(root: Path, disable_native: bool) -> float:
-                """The preprocess verb on the same plan into ``root``."""
-                (root / PIPELINE_DATASET).mkdir(parents=True)
-                for f in ("dataset_fingerprint.json", "nnUNetPlans.json", "dataset.json"):
-                    shutil.copyfile(pre / f, root / PIPELINE_DATASET / f)
-                paths.nnUNet_preprocessed = str(root)
-                if disable_native:
-                    os.environ["MLAGG_DISABLE_NATIVE"] = "1"
-                t0 = time.perf_counter()
-                try:
-                    cli.preprocess_entry(["-d", PIPELINE_ID, "-c", "2d"])
-                finally:
-                    os.environ.pop("MLAGG_DISABLE_NATIVE", None)
-                    paths.nnUNet_preprocessed = str(tmp / "preprocessed")
-                return time.perf_counter() - t0
+            # the native resampler against scipy: the first case preprocessed
+            # again in this process with MLAGG_DISABLE_NATIVE=1 (read at each
+            # call), against the verb's native output
+            from mlagg_unet_torch.plans.plans_handler import PlansManager
 
-            # native, scipy, native: the first native run also reads the raw
-            # files cold, so each side is seen both first and second
-            scipy_pre, native_pre = tmp / "preprocessed_scipy", tmp / "preprocessed_native"
-            secs["preprocess (scipy)"] = preprocess_into(scipy_pre, True)
-            secs["preprocess (native, again)"] = preprocess_into(native_pre, False)
-            worst = 0.0
-            for root in (tmp / "preprocessed", native_pre):
-                n, err = compare_preprocessed(root / PIPELINE_DATASET / cfg["data_identifier"],
-                                              scipy_pre / PIPELINE_DATASET / cfg["data_identifier"])
-                worst = max(worst, err)
-            log(f"  the preprocess verb in turns: native {native_s:.1f} s (inside "
-                f"plan_and_preprocess, first), with MLAGG_DISABLE_NATIVE=1 (scipy) "
-                f"{secs['preprocess (scipy)']:.1f} s, native again "
-                f"{secs['preprocess (native, again)']:.1f} s; both native roots against "
-                f"scipy's: {n} cases, seg equal, data within {worst:.2e} x max|data| "
+            case = npz[0].stem
+            os.environ["MLAGG_DISABLE_NATIVE"] = "1"
+            t0 = time.perf_counter()
+            try:
+                pm = PlansManager(plans)
+                data, seg, _ = DefaultPreprocessor().run_case(
+                    [str(raw / "imagesTr" / f"{case}_0000.nii.gz")],
+                    str(raw / "labelsTr" / f"{case}.nii.gz"), pm, pm.get_configuration("2d"),
+                    load_json(str(pre / "dataset.json")))
+            finally:
+                os.environ.pop("MLAGG_DISABLE_NATIVE", None)
+            scipy_s = time.perf_counter() - t0
+            native = np.load(npz[0])
+            if not np.array_equal(native["seg"], seg):
+                fail(f"{case}: the native preprocessing's seg differs from scipy's")
+            worst = float(np.abs(native["data"].astype(np.float64) - data).max()
+                          / np.abs(data).max())
+            log(f"  the preprocess verb's native output against scipy's for {case} (in this "
+                f"process, {scipy_s:.1f} s): seg equal, data within {worst:.2e} x max|data| "
                 f"(tol {TOL_NATIVE_PREPROCESS:g}) | {card}")
+            if worst > TOL_NATIVE_PREPROCESS:
+                fail(f"{case}: native vs scipy preprocessed data differ by {worst:.3e} x "
+                     "max|data|")
             resample_alone(npz[-1], card)
             pipeline_worker_cost()
 
-            # 2. train both recipes on folds 0 and 1, with the planner's batch
+            # 2. train both recipes on fold 0, with the planner's batch
             register_pipeline_recipes()
             train_c, val_c, final_c, first, steps = {}, {}, {}, {}, []
             t0 = time.perf_counter()
@@ -2527,7 +2553,8 @@ def phase_pipeline(torch, card: str) -> dict:
                         fail(f"{folder.name}/{n}: shape {seg.shape}, labels {np.unique(seg)}")
             summary = load_json(str(final / "summary.json"))
             dice = summary["foreground_mean"]["Dice"]
-            log(f"  test cases: predicted by both recipes (folds 0 1, probabilities saved) in "
+            log(f"  test cases: predicted by both recipes (fold {' '.join(PIPELINE_FOLDS)}, "
+                "probabilities saved) in "
                 f"{secs['predict (2 recipes)']:.1f} s, ensembled, postprocessed with "
                 f"{pp['postprocessing_fns']} ({best['identifier']}) and evaluated in "
                 f"{secs['ensemble, postprocess, evaluate']:.1f} s: mean foreground Dice "
@@ -2945,9 +2972,10 @@ def unet3d_cascade(torch, card: str, tmp: Path, raw: Path) -> None:
         f"{({k: round(v, 1) for k, v in secs.items()})} | {card}")
 
 
-def phase_unet3d(torch, card: str) -> None:
+def phase_unet3d(torch, card: str, keep: Path = None) -> None:
     """Phase 10: the default nnU-Net recipe in 3-D on the card. None of
-    K1-K8 may be launched."""
+    K1-K8 may be launched. ``keep``: where the preprocessed 3d_fullres cases
+    and the raw test cases are copied for phase 12."""
     import tempfile
 
     from mlagg_unet_torch import paths
@@ -2974,6 +3002,9 @@ def phase_unet3d(torch, card: str) -> None:
                 f"test cases of {'x'.join(map(str, UNET3D_VOLUME))} at 1 mm written in "
                 f"{time.perf_counter() - t0:.1f} s")
             unet3d_train_verb(torch, card, tmp, raw)
+            if keep is not None:
+                shutil.copytree(tmp / "preprocessed" / UNET3D_DATASET, keep / "preprocessed")
+                shutil.copytree(raw, keep / "raw")
             log("[unet3d] the cascade: 3d_lowres -> 3d_cascade_fullres")
             unet3d_cascade(torch, card, tmp, raw)
         finally:
@@ -3011,22 +3042,23 @@ def mamba_networks(torch) -> dict:
 @contextlib.contextmanager
 def recording_scan_calls(calls: dict):
     """While active, every K1 launch (``_launch_fwd``) and K5 call
-    (``selective_scan_bwd``) adds its kernel to ``calls[(b, g, d, L, dtype,
-    reverse)]``."""
+    (``selective_scan_bwd``) adds its kernel to ``calls[(b, g, d, L, n,
+    dtype, reverse)]``."""
     from mlagg_unet_torch.ops import selective_scan_cuda as ssc
 
     fwd, bwd = ssc._launch_fwd, ssc.selective_scan_bwd
 
-    def key(u, reverse):
-        return (*u.shape, str(u.dtype).replace("torch.", ""), bool(reverse))
+    def key(u, A, reverse):
+        return (*u.shape, A.shape[-1], str(u.dtype).replace("torch.", ""), bool(reverse))
 
     def rec_fwd(u, delta, A, B, C, D, delta_bias, delta_softplus, reverse, with_states):
-        calls.setdefault(key(u, reverse), set()).add("K1")
+        calls.setdefault(key(u, A, reverse), set()).add("K1")
         return fwd(u, delta, A, B, C, D, delta_bias, delta_softplus, reverse, with_states)
 
     def rec_bwd(u, *args, **kwargs):
         reverse = kwargs["reverse"] if "reverse" in kwargs else args[7]
-        calls.setdefault(key(u, reverse), set()).add("K5")
+        A = kwargs["A"] if "A" in kwargs else args[1]
+        calls.setdefault(key(u, A, reverse), set()).add("K5")
         return bwd(u, *args, **kwargs)
 
     ssc._launch_fwd, ssc.selective_scan_bwd = rec_fwd, rec_bwd
@@ -3063,16 +3095,19 @@ def fp64_plain_scans():
 
 
 @contextlib.contextmanager
-def plain_scan_chunks(chunk: int):
-    """While active, the scan's plain twins run in chunks of ``chunk`` steps
-    (256 by default): the same function, summed in another order."""
-    import functools
-
+def plain_scan_half_chunks():
+    """While active, the scan's plain twins run in chunks of half their
+    default (``default_chunk``: 128 steps up to L = 16,384): the same
+    function, summed in another order."""
     from mlagg_unet_torch.ops import selective_scan_cuda as ssc
+    from mlagg_unet_torch.ops.selective_scan import default_chunk
 
     fwd, bwd = ssc.selective_scan, ssc.selective_scan_bwd_plain
-    ssc.selective_scan = functools.partial(fwd, chunk_size=chunk)
-    ssc.selective_scan_bwd_plain = functools.partial(bwd, chunk_size=chunk)
+
+    def half(fn):
+        return lambda u, *a, **k: fn(u, *a, chunk_size=default_chunk(u.shape[-1]) // 2, **k)
+
+    ssc.selective_scan, ssc.selective_scan_bwd_plain = half(fwd), half(bwd)
     try:
         yield
     finally:
@@ -3185,58 +3220,86 @@ def mamba_scan_checks(torch, card: str, calls: dict) -> None:
     64, L % 8 != 0, L >= 1e5, g = 2 reversed and a bf16 scan. Then K1 and K5
     timed at the family's largest shape (U-Mamba Enc's stage 0 at the
     training batch) beside their plain twins and their bound."""
-    from mlagg_unet_torch.ops.selective_scan import selective_scan_bwd_plain
-    from mlagg_unet_torch.ops.selective_scan_cuda import (
-        STATE_EVERY, scan_fwd_plain, selective_scan_bwd, selective_scan_fwd_states)
-
     want = {"L < 64": lambda k: k[3] < 64, "L % 8 != 0": lambda k: k[3] % 8 != 0,
-            "L >= 1e5": lambda k: k[3] >= 100_000, "g = 2 reversed": lambda k: k[1] == 2 and k[5],
-            "bf16": lambda k: k[4] == "bfloat16"}
+            "L >= 1e5": lambda k: k[3] >= 100_000, "g = 2 reversed": lambda k: k[1] == 2 and k[6],
+            "bf16": lambda k: k[5] == "bfloat16"}
     missing = [w for w, f in want.items() if not any(f(k) for k in calls)]
     if missing or any(v != {"K1", "K5"} for v in calls.values()):
         fail(f"the family's scans miss {missing} or a shape ran K1 or K5 only: {calls}")
-    rs = np.random.RandomState(11)
+    scan_shape_checks(torch, calls)
+    # the largest shape: U-Mamba Enc's stage 0 at the training batch
+    scan_timing(torch, card, (MAMBA_BATCH, 1, 2 * MAMBA_FEATURES[0],
+                              MAMBA_PATCH[0] * MAMBA_PATCH[1], 16),
+                "U-Mamba Enc stage 0, training batch")
+
+
+def scan_operands(torch, b, g, d, L, n, dtype, seed):
+    """Seeded scan operands on the card at (b, g, d, L) with n states: A the
+    S4D init, delta's bias the softplus-inverse of dt in [1e-3, 0.1], D
+    near 1; and an fp32 output gradient."""
     dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, dt=torch.float32):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dt)
+
+    A = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).expand(g, d, n).contiguous()
+    dt0 = torch.exp(torch.rand(g, d, generator=gen, device=dev)
+                    * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    bias, Dp = dt0 + torch.log(-torch.expm1(-dt0)), 1 + 0.1 * rnd(g, d)
+    u, dl = rnd(b, g, d, L, dt=dtype), rnd(b, g, d, L, scale=0.5, dt=dtype)
+    Bm, Cm = rnd(b, g, n, L, dt=dtype), rnd(b, g, n, L, dt=dtype)
+    return (u, dl, A, Bm, Cm, Dp, bias), rnd(b, g, d, L)
+
+
+def scan_shape_checks(torch, calls: dict) -> None:
+    """K1 (with its tile-entry states) and K5 against their plain twins at
+    every recorded (b, g, d, L, n, dtype, reverse), phase 3's tolerances."""
+    from mlagg_unet_torch.ops.selective_scan import selective_scan_bwd_plain
+    from mlagg_unet_torch.ops.selective_scan_cuda import (
+        scan_fwd_plain, selective_scan_bwd, selective_scan_fwd_states)
+
     names = ("du", "ddelta", "dA", "dB", "dC", "dD", "dbias")
-
-    def operands(b, g, d, L, dtype):
-        def T(a, dt=torch.float32):
-            return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
-        n = 16
-        A = T(-np.tile(np.arange(1, n + 1, dtype=np.float32), (g, d, 1)))
-        dt0 = np.exp(rs.rand(g, d) * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
-        bias, Dp = T(dt0 + np.log(-np.expm1(-dt0))), T(1 + 0.1 * rs.randn(g, d))
-        u, dl = (T(rs.randn(b, g, d, L) * s, dtype) for s in (1.0, 0.5))
-        Bm, Cm = (T(rs.randn(b, g, n, L), dtype) for _ in range(2))
-        return (u, dl, A, Bm, Cm, Dp, bias), T(rs.randn(b, g, d, L))
-
     log(f"  {len(calls)} distinct shapes; holding K1 and K5 to their plain twins at each")
-    for (b, g, d, L, dt, rev) in sorted(calls):
+    for i, (b, g, d, L, n, dt, rev) in enumerate(sorted(calls)):
         dtype = getattr(torch, dt)
-        ops, gy = operands(b, g, d, L, dtype)
+        ops, gy = scan_operands(torch, b, g, d, L, n, dtype, seed=11 + i)
         args = (*ops, True, rev)
+        t0 = time.perf_counter()
         y, states = selective_scan_fwd_states(*args)
         e1 = rel_err(y, scan_fwd_plain(*args))[1]
+        del y
         got = selective_scan_bwd(*args, gy, states)
         ref = selective_scan_bwd_plain(*args, gy)
         errs = {nm: rel_err(a, r_)[1] for nm, a, r_ in zip(names, got, ref)}
         tol = TOL_SCAN_GRAD if dtype == torch.float32 else TOL_SCAN_GRAD_BF16
-        log(f"    ({b}, {g}, {d}, {L}) {dt} reverse={rev}: K1 rel {e1:.2e} (tol {TOL_SCAN:g}); "
-            f"K5 worst {max(errs, key=errs.get)} rel {max(errs.values()):.2e} (tol {tol:g})")
+        log(f"    ({b}, {g}, {d}, {L}) n={n} {dt} reverse={rev}: K1 rel {e1:.2e} (tol "
+            f"{TOL_SCAN:g}); K5 worst {max(errs, key=errs.get)} rel {max(errs.values()):.2e} "
+            f"(tol {tol:g}); {time.perf_counter() - t0:.1f} s with the twins")
         if not (e1 <= TOL_SCAN and all(math.isfinite(v) and v <= tol for v in errs.values())):
-            fail(f"K1/K5 at ({b}, {g}, {d}, {L}) {dt} reverse={rev}: K1 {e1:.3e}, K5 {errs}")
-        del y, states, got, ref, ops, gy
+            fail(f"K1/K5 at ({b}, {g}, {d}, {L}) n={n} {dt} reverse={rev}: K1 {e1:.3e}, "
+                 f"K5 {errs}")
+        del states, got, ref, ops, gy
+        torch.cuda.empty_cache()
 
-    # the largest shape: U-Mamba Enc's stage 0 at the training batch
-    b, g, d, L = MAMBA_BATCH, 1, 2 * MAMBA_FEATURES[0], MAMBA_PATCH[0] * MAMBA_PATCH[1]
-    ops, gy = operands(b, g, d, L, torch.float32)
+
+def scan_timing(torch, card: str, shape, label: str, plain_reps: int = 3) -> None:
+    """K1 with states and K5 at (b, g, d, L, n) fp32, each timed beside its
+    plain twin and its bound."""
+    from mlagg_unet_torch.ops.selective_scan import selective_scan_bwd_plain
+    from mlagg_unet_torch.ops.selective_scan_cuda import (
+        STATE_EVERY, scan_fwd_plain, selective_scan_bwd, selective_scan_fwd_states)
+
+    b, g, d, L, n = shape
+    ops, gy = scan_operands(torch, b, g, d, L, n, torch.float32, seed=7)
     args = (*ops, True, False)
     _, states = selective_scan_fwd_states(*args)
     k1 = time_ms(lambda: selective_scan_fwd_states(*args), reps=10)
     k5 = time_ms(lambda: selective_scan_bwd(*args, gy, states), reps=10)
-    p1 = time_ms(lambda: scan_fwd_plain(*args), reps=3, warmup=1)
-    p5 = time_ms(lambda: selective_scan_bwd_plain(*args, gy), reps=3, warmup=1)
-    el, bc, n = b * g * d * L, b * g * 16 * L, 16
+    p1 = time_ms(lambda: scan_fwd_plain(*args), reps=plain_reps, warmup=min(1, plain_reps - 1))
+    p5 = time_ms(lambda: selective_scan_bwd_plain(*args, gy), reps=plain_reps,
+                 warmup=min(1, plain_reps - 1))
+    el, bc = b * g * d * L, b * g * n * L
     st = b * g * math.ceil(L / STATE_EVERY) * d * n * 4
     par = (g * d * n + 2 * g * d) * 4
     exp_rate = sfu_exp_per_s(torch)
@@ -3247,16 +3310,19 @@ def mamba_scan_checks(torch, card: str, calls: dict) -> None:
                   el * n, exp_rate)
     b5 = bound_ms(2 * el * 4 + 2 * bc * 4 + el * 4 + st + 2 * par + 2 * el * 4 + 2 * bc * 4,
                   15 * el * n + 10 * el, "fp32", el * n, exp_rate)
-    log(f"  K1 with states at ({b}, {g}, {d}, {L}) fp32 (U-Mamba Enc stage 0, training batch): "
-        f"{k1:.4f} ms, plain {p1:.3f} ms, bound {b1[0]:.4f} ms ({b1[1]}) | {card}")
-    log(f"  K5 at ({b}, {g}, {d}, {L}) fp32: {k5:.4f} ms, plain {p5:.3f} ms, bound "
+    log(f"  K1 with states at ({b}, {g}, {d}, {L}) n={n} fp32 ({label}): {k1:.4f} ms, plain "
+        f"{p1:.3f} ms, bound {b1[0]:.4f} ms ({b1[1]}) | {card}")
+    log(f"  K5 at ({b}, {g}, {d}, {L}) n={n} fp32: {k5:.4f} ms, plain {p5:.3f} ms, bound "
         f"{b5[0]:.4f} ms ({b5[1]}) | {card}")
+    del ops, gy, states
+    torch.cuda.empty_cache()
 
 
-def mamba_tile_agreement(torch, card: str, nets: dict) -> None:
+def mamba_tile_agreement(torch, card: str, nets: dict, patch=MAMBA_PATCH,
+                         classes: int = MAMBA_CLASSES) -> None:
     """Each network on one tile, fp32 with TF32 off, card (the kernels)
     against the CPU (the plain twins): the first output within 1e-3 x max."""
-    x = torch.from_numpy(np.random.RandomState(5).randn(1, *MAMBA_PATCH, 1).astype(np.float32))
+    x = torch.from_numpy(np.random.RandomState(5).randn(1, *patch, 1).astype(np.float32))
     for name, net in nets.items():
         with torch.inference_mode():
             gpu = net(x.cuda())
@@ -3265,37 +3331,51 @@ def mamba_tile_agreement(torch, card: str, nets: dict) -> None:
             cpu = copy.deepcopy(net).cpu()(x)
             cpu = cpu[0] if isinstance(cpu, (list, tuple)) else cpu
             cpu_s = time.perf_counter() - t0
-        if gpu.shape != (1, *MAMBA_PATCH, MAMBA_CLASSES) or not torch.isfinite(gpu).all():
+        if gpu.shape != (1, *patch, classes) or not torch.isfinite(gpu).all():
             fail(f"{name}: output {tuple(gpu.shape)}, finite={bool(torch.isfinite(gpu).all())}")
-        check(f"{name} one {MAMBA_PATCH} tile fp32, card vs CPU ({cpu_s:.1f} s on the CPU)",
+        check(f"{name} one {patch} tile fp32, card vs CPU ({cpu_s:.1f} s on the CPU)",
               gpu, cpu, TOL_MODEL)
+        del gpu, cpu
+        torch.cuda.empty_cache()
 
 
-def mamba_serve(torch, card: str, name: str, net) -> None:
-    """VolumePredictor on MAMBA_VOLUMES volumes of MAMBA_VOLUME after one
-    warm-up: tile MAMBA_PATCH, step 0.5, Gaussian, mirror (0, 1), bf16
-    compute and transfer, automatic tile batch; the warm-up volume with the
-    kernels against every wrapper on its plain twin, in bf16 and in fp32 at
-    the chosen batch, and bf16 against fp32 serving; K1's
-    launches per volume in the timed window, and no other kernel."""
+def mamba_serve(torch, card: str, name: str, net, patch=MAMBA_PATCH,
+                classes: int = MAMBA_CLASSES, mirror=(0, 1), volume=MAMBA_VOLUME,
+                n_volumes: int = MAMBA_VOLUMES, bf16_tol: float = TOL_SERVE_REL_L2,
+                profiled: bool = True, fp32_own_batch: bool = False,
+                warmup_volume=None) -> None:
+    """VolumePredictor on ``n_volumes`` volumes of ``volume`` after one
+    warm-up (of ``warmup_volume``'s shape where given): tile ``patch``, step
+    0.5, Gaussian, ``mirror``, bf16 compute and transfer, automatic tile
+    batch; the warm-up volume with the kernels against every wrapper on its
+    plain twin, in bf16 and in fp32 at the chosen batch (``fp32_own_batch``:
+    at the fp32 budget's own, where the bf16 batch does not fit in fp32),
+    and bf16 against fp32 serving (``bf16_tol``); K1's launches per volume
+    in the timed window, and no other kernel; with ``profiled`` the device
+    busy share of one more volume."""
     from mlagg_unet_torch import VolumePredictor
     from mlagg_unet_torch.ops import _ext
 
+    gc.collect()
+    torch.cuda.empty_cache()   # the last network's blocks
+    t_all = time.perf_counter()
     rng = np.random.RandomState(6)
-    volumes = [rng.rand(*MAMBA_VOLUME).astype(np.float32) for _ in range(MAMBA_VOLUMES + 1)]
-    pred = VolumePredictor(net, MAMBA_PATCH, MAMBA_CLASSES, (0, 1), None,
+    volumes = [rng.rand(*shape).astype(np.float32)
+               for shape in [warmup_volume or volume] + [volume] * n_volumes]
+    pred = VolumePredictor(net, patch, classes, mirror, None,
                            compute_dtype=torch.bfloat16, transfer_dtype=torch.bfloat16,
                            device="cuda")
     t0 = time.perf_counter()
     first = pred(volumes[0])   # warm-up: the budget probe and the autotune
     warm_s = time.perf_counter() - t0
-    tb = pred.last_tile_batch
     ms = {t: round(v, 4) for t, v in next(iter(pred.autotune_ms.values()), {}).items()}
     with plain_twins(_ext):
         twins16 = pred(volumes[0])
     d16 = float(np.linalg.norm(first - twins16) / np.linalg.norm(twins16))
-    pred32 = VolumePredictor(net, MAMBA_PATCH, MAMBA_CLASSES, (0, 1), tb, device="cuda")
+    pred32 = VolumePredictor(net, patch, classes, mirror,
+                             None if fp32_own_batch else pred.last_tile_batch, device="cuda")
     ref32 = pred32(volumes[0])
+    tb32 = pred32.last_tile_batch
     d = float(np.linalg.norm(first - ref32) / np.linalg.norm(ref32))
     with plain_twins(_ext):
         twins = pred32(volumes[0])
@@ -3307,26 +3387,33 @@ def mamba_serve(torch, card: str, name: str, net) -> None:
     outs, elapsed, _ = serve_window(pred, volumes[1:])
     ran = {k.name: k.launches for k in _ext.ALL_KERNELS}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tb = pred.last_tile_batch
     for o in outs:
-        if o.shape != (MAMBA_CLASSES, *MAMBA_VOLUME[1:]) or not np.isfinite(o).all():
+        if o.shape != (classes, *volume[1:]) or not np.isfinite(o).all():
             fail(f"{name} serve output {o.shape}, finite={bool(np.isfinite(o).all())}")
-    log(f"  {name}: {MAMBA_VOLUMES} volumes of {'x'.join(map(str, MAMBA_VOLUME))} after 1 "
-        f"warm-up ({warm_s:.1f} s with the probe and the autotune), step 0.5, mirror (0, 1), "
-        f"bf16: {MAMBA_VOLUMES / elapsed:.4f} volumes/s ({elapsed:.3f} s), tile batch {tb} "
-        f"(model batch {4 * tb}), ms per tile of each candidate {ms}, peak memory "
-        f"{peak:.2f} GiB, K1 launches per volume {ran['selective_scan_fwd'] / MAMBA_VOLUMES:g}; "
-        f"the warm-up volume, kernels vs every wrapper on its plain twin: bf16 rel L2 "
-        f"{d16:.3e} (tol {TOL_SERVE_REL_L2:g}), fp32 at that batch max|diff| {dk:.3e} of max "
-        f"{peak32:.3e} (tol {TOL_MODEL:g} x max); bf16 vs fp32 serving: rel L2 {d:.3e} (tol "
-        f"{MAMBA_BF16_TOL.get(name, TOL_SERVE_REL_L2):g}) | {card}")
+    warm = f" of {'x'.join(map(str, warmup_volume))}" if warmup_volume else ""
+    log(f"  {name}: {n_volumes} volumes of {'x'.join(map(str, volume))} after 1 "
+        f"warm-up{warm} ({warm_s:.1f} s with the probe and the autotune), step 0.5, mirror "
+        f"{mirror}, "
+        f"bf16: {n_volumes / elapsed:.4f} volumes/s ({elapsed:.3f} s), tile batch {tb} "
+        f"(model batch {2 ** len(mirror) * tb}), ms per tile of each candidate {ms}, peak "
+        f"memory {peak:.2f} GiB, K1 launches per volume "
+        f"{ran['selective_scan_fwd'] / n_volumes:g}; the warm-up volume, kernels vs every "
+        f"wrapper on its plain twin: bf16 rel L2 {d16:.3e} (tol {TOL_SERVE_REL_L2:g}), fp32 at "
+        f"tile batch {tb32} max|diff| {dk:.3e} of max {peak32:.3e} (tol {TOL_MODEL:g} x max); bf16 vs "
+        f"fp32 serving: rel L2 {d:.3e} (tol {bf16_tol:g}); {time.perf_counter() - t_all:.1f} s "
+        f"in all | {card}")
     if not (dk <= TOL_MODEL * peak32 and d16 <= TOL_SERVE_REL_L2):
         fail(f"{name}: serving with the kernels disagrees with the plain twins: fp32 "
              f"{dk:.3e}, bf16 rel L2 {d16:.3e}")
-    if not d <= MAMBA_BF16_TOL.get(name, TOL_SERVE_REL_L2):
+    if not d <= bf16_tol:
         fail(f"{name}: bf16 serving disagrees with fp32 serving: rel L2 {d:.3e}")
     others = {k: v for k, v in ran.items() if v and k != "selective_scan_fwd"}
     if ran["selective_scan_fwd"] <= 0 or others:
         fail(f"{name} serving launched K1 {ran['selective_scan_fwd']} times and {others}")
+    if not profiled:
+        del pred, outs
+        return
     stats = {}
     profile(torch, f"one {name} volume", lambda: pred(volumes[1]), stats)
     log(f"  {name}: device busy "
@@ -3344,7 +3431,8 @@ def hold_mamba_grads(torch, label: str, kernels, twins, reordered, ref, card: st
     times the twins' distance. Reported beside them: how
     many gradients lie within TOL_TRAIN_GRAD x max + 1e-6 of the reference,
     and the largest distance with the kernels, and with ``reordered`` (the
-    twins' scans summed in chunks of 128), against twice the twins'. Logs,
+    twins' scans summed in chunks of half their size), against twice the
+    twins'. Logs,
     and returns whether the gated part held."""
     (l_k, g_k), (l_t, g_t), (_, g_o), (_, g_r) = kernels, twins, reordered, ref
     d = abs(l_k - l_t) / abs(l_t)
@@ -3374,7 +3462,7 @@ def hold_mamba_grads(torch, label: str, kernels, twins, reordered, ref, card: st
         f"of {len(rows)} with the kernels, {sum(t <= 1 for _, _, _, t, _ in rows)} with the "
         f"twins; beyond max(that, {f:g} x the twins' distance) (not gated): "
         f"{sum(x > 1 for *_, x in rows)} with the kernels (largest {max(x for *_, x in rows):.3f}), "
-        f"{sum(m > 1 for m in moved)} with the twins summed in chunks of 128 (largest "
+        f"{sum(m > 1 for m in moved)} with the twins summed in half-size chunks (largest "
         f"{max(moved):.3f}) | {card}")
     return d <= TOL_TRAIN_LOSS and rows[0][0] <= 1.0 and r_k <= max(TOL_TRAIN_GRAD, f * r_t)
 
@@ -3476,7 +3564,7 @@ def mamba_train_verb(torch, card: str, tmp: Path) -> None:
         _ext.reset_launch_counts()
         with plain_twins(_ext):
             res[dtype, "twins"] = train_grads(tr, net, x.to(dtype), y)
-            with plain_scan_chunks(128):
+            with plain_scan_half_chunks():
                 res[dtype, "twins 128"] = train_grads(tr, net, x.to(dtype), y)
         if any(k.launches for k in _ext.ALL_KERNELS) or any(ran[k] <= 0 for k in MAMBA_KERNELS):
             fail(f"the U-Mamba batch ran {ran} with the kernels, or the plain run launched one")
@@ -3580,7 +3668,8 @@ def mamba_phase_steps(torch, card: str) -> None:
     mamba_tile_agreement(torch, card, nets)
     log(f"[mamba] (b) serve | {card}")
     for name in MAMBA_SERVED:
-        mamba_serve(torch, card, name, nets[name])
+        mamba_serve(torch, card, name, nets[name],
+                    bf16_tol=MAMBA_BF16_TOL.get(name, TOL_SERVE_REL_L2))
     del nets
     torch.cuda.empty_cache()
     log(f"[mamba] (c) the train verb: nnUNetTrainerUMambaEnc | {card}")
@@ -3595,11 +3684,363 @@ def mamba_phase_steps(torch, card: str) -> None:
             paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = saved
 
 
+@contextlib.contextmanager
+def no_autotune():
+    """While active, ``VolumePredictor`` takes the memory budget's tile batch
+    without timing candidates (``MLAGG_AUTOTUNE_TB=0``): its autotune times
+    ~80 tiles, 75 s for U-Mamba Enc SS3D at ~0.95 s a 3-D tile."""
+    old = os.environ.get("MLAGG_AUTOTUNE_TB")
+    os.environ["MLAGG_AUTOTUNE_TB"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("MLAGG_AUTOTUNE_TB")
+        else:
+            os.environ["MLAGG_AUTOTUNE_TB"] = old
+
+
+def ss3d_configuration(batch: int = SS3D_BATCH):
+    """Phase 10's 3-D plan (the bench topology at UNET3D_TILE) at ``batch``."""
+    return unet3d_configuration(UNET3D_TILE, batch)
+
+
+def ss3d_networks(torch) -> dict:
+    """The six networks at full width, seeded, fp32, on the card, as their
+    trainers build them: the 3-D ones for phase 10's plan, MSVM-UNet for
+    phase 11's."""
+    from mlagg_unet_torch.training.registry import get_network_builder, get_trainer_config
+
+    nets = {}
+    for name in SS3D_NETWORKS:
+        cfg = get_trainer_config(name)
+        two_d = name == MSVM_TRAINER
+        net = get_network_builder(cfg.network)(
+            mamba_configuration() if two_d else ss3d_configuration(), 1,
+            MAMBA_CLASSES if two_d else SS3D_CLASSES, cfg.enable_deep_supervision, seed=0,
+            device="cuda")
+        nets[name] = net
+        log(f"  {name} ({cfg.network}): {sum(p.numel() for p in net.parameters())} params, "
+            f"{type(net).__name__}")
+    return nets
+
+
+def ss3d_scan_shapes(torch, nets: dict) -> dict:
+    """Every (b, g, d, L, n, dtype, reverse) at which one fp32 forward and
+    backward of each network (3-D at batch SS3D_BATCH, MSVM-UNet at
+    MAMBA_BATCH) and one bf16 forward of MSVM-UNet (its scan in the input
+    dtype) call K1 and K5; each network's peak memory beside it."""
+    calls, per_model = {}, {}
+    g = torch.Generator().manual_seed(3)
+    for name, net in nets.items():
+        two_d = name == MSVM_TRAINER
+        x = torch.randn(MAMBA_BATCH if two_d else SS3D_BATCH,
+                        *(MAMBA_PATCH if two_d else UNET3D_TILE), 1, generator=g).cuda()
+        seen = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with recording_scan_calls(seen):
+            outs = net(x)
+            outs = outs if isinstance(outs, (list, tuple)) else [outs]
+            sum(o.float().square().mean() for o in outs).backward()
+            del outs
+        torch.cuda.synchronize()
+        net.zero_grad(set_to_none=True)
+        per_model[f"{name} (fp32 forward and backward at batch {x.shape[0]}, "
+                  f"{time.perf_counter() - t0:.1f} s, peak "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB)"] = sorted(seen)
+        for k, v in seen.items():
+            calls.setdefault(k, set()).update(v)
+        del x
+        torch.cuda.empty_cache()
+    x = torch.randn(MAMBA_BATCH, *MAMBA_PATCH, 1, generator=g).to("cuda", torch.bfloat16)
+    seen = {}
+    with torch.no_grad(), recording_scan_calls(seen):
+        copy.deepcopy(nets[MSVM_TRAINER]).to(torch.bfloat16)(x)
+    per_model[f"{MSVM_TRAINER} (bf16 forward)"] = sorted(seen)
+    for k, v in seen.items():
+        calls.setdefault(k, set()).update(v)
+    torch.cuda.empty_cache()
+    for name, keys in per_model.items():
+        log(f"  {name}: K1/K5 at (b, g, d, L, n, dtype, reverse) " + ", ".join(map(str, keys)))
+    return calls
+
+
+def ss3d_scan_checks(torch, card: str, calls: dict) -> None:
+    """K1 and K5 against their plain twins at every recorded shape (phase
+    3's tolerances); the shapes must include n = 1 at g = 12 and L =
+    SS3D_LARGEST's, n = 16 at g = 12, a reverse and a bf16 scan, and every
+    fp32 shape must have run both kernels. Then both timed at SS3D_LARGEST
+    beside their plain twins (one run each) and their bound."""
+    want = {"n = 1, g = 12, L = 1,048,576": lambda k: k[4] == 1 and k[1] == 12
+            and k[3] == SS3D_LARGEST[3], "n = 16, g = 12": lambda k: k[4] == 16 and k[1] == 12,
+            "reverse": lambda k: k[6], "bf16": lambda k: k[5] == "bfloat16"}
+    missing = [w for w, f in want.items() if not any(f(k) for k in calls)]
+    both = [k for k, v in calls.items() if k[5] == "float32" and v != {"K1", "K5"}]
+    if missing or both:
+        fail(f"phase 12's scans miss {missing}, or ran K1 or K5 only at {both}: {calls}")
+    scan_shape_checks(torch, calls)
+    scan_timing(torch, card, SS3D_LARGEST, "U-Mamba Enc SS3D stage 0, training batch",
+                plain_reps=1)
+
+
+def ss3d_train_verb(torch, card: str, tmp: Path, shared: Path = None) -> None:
+    """nnUNetTrainerUMambaEnc_SS3D through the train verb on phase 10's 3-D
+    cases (``shared``: phase 10's preprocessed folder and raw test cases;
+    else written and preprocessed here), trained on phase 10's 3-D plan at
+    batch SS3D_BATCH, cut to 1 epoch of SS3D_STEPS steps and SS3D_VAL_STEPS
+    validation steps on fold 0: launches; the first training batch's first
+    case (SS3D_GRAD_BATCH) from the final weights, cut to UNET3D_GRAD_PATCH,
+    its fp32 loss and gradients with the kernels held to every wrapper on
+    its plain twin and to the network and scans in fp64
+    (``hold_mamba_grads``); ms per step with the loader and on one cached
+    batch; the predict verb on the two test cases."""
+    from dataclasses import replace
+
+    from mlagg_unet_torch.cli import entrypoints as cli
+    from mlagg_unet_torch.ops import _ext
+    from mlagg_unet_torch.training import registry
+    from mlagg_unet_torch.training.checkpoint import load_checkpoint
+    from mlagg_unet_torch.training.trainer import NNUNetTrainer, Trainer
+    from mlagg_unet_torch.utils.helpers import load_json, save_json
+    from mlagg_unet_torch.weights import jax_tree_to_state_dict
+
+    t0 = time.perf_counter()
+    if shared is None:
+        raw = write_unet3d_raw(tmp)
+        cli.plan_and_preprocess_entry(["-d", UNET3D_ID, "-c", "3d_fullres"])
+    else:
+        raw = tmp / "raw" / UNET3D_DATASET
+        shutil.copytree(shared / "raw", raw)
+        shutil.copytree(shared / "preprocessed", tmp / "preprocessed" / UNET3D_DATASET)
+    pre = tmp / "preprocessed" / UNET3D_DATASET
+    plans = load_json(str(pre / "nnUNetPlans.json"))
+    cfg = plans["configurations"]["3d_fullres"]
+    planned = (cfg["patch_size"], cfg["batch_size"])
+    cfg.update(ss3d_configuration().configuration)
+    save_json(plans, str(pre / "nnUNetPlans.json"), sort_keys=False)
+    log(f"  {UNET3D_CASES} cases of {'x'.join(map(str, UNET3D_VOLUME))} "
+        + ("written and preprocessed (-c 3d_fullres)" if shared is None
+           else "preprocessed by phase 10, copied") +
+        f" in {time.perf_counter() - t0:.1f} s; the planner's patch "
+        f"{planned[0]} at batch {planned[1]} replaced by phase 10's plan: patch "
+        f"{list(UNET3D_TILE)}, batch {SS3D_BATCH}, features {list(UNET3D_FEATURES)}")
+    registry.register_trainer(replace(
+        registry.get_trainer_config("nnUNetTrainerUMambaEnc_SS3D"), name=SS3D_RECIPE,
+        num_epochs=1, num_iterations_per_epoch=SS3D_STEPS,
+        num_val_iterations_per_epoch=SS3D_VAL_STEPS))
+    base = tmp / "results" / UNET3D_DATASET / f"{SS3D_RECIPE}__nnUNetPlans__3d_fullres"
+    first, steps = {}, []
+    train_c, val_c, final_c = {}, {}, {}
+    with recording_first_batches(first), \
+            attribute_launches(_ext, Trainer, "train_step", train_c, steps), \
+            attribute_launches(_ext, Trainer, "val_step", val_c), \
+            attribute_launches(_ext, NNUNetTrainer, "perform_actual_validation", final_c):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _ext.reset_launch_counts()
+        t0 = time.perf_counter()
+        cli.train_entry([UNET3D_ID, "3d_fullres", "0", "-tr", SS3D_RECIPE, "-device", "cuda"])
+        verb_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in _ext.ALL_KERNELS}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gc.collect()
+    torch.cuda.empty_cache()
+    ck = load_checkpoint(str(base / "fold_0" / "checkpoint_final.ckpt"))
+    lg = ck["logging"]
+    gaps = [1e3 * (b[0] - a[0]) for a, b in zip(steps[1:], steps[2:])]
+    step_ms = statistics.median(gaps)
+    summary = load_json(str(base / "fold_0" / "validation" / "summary.json"))
+    log(f"  verb train {UNET3D_ID} 3d_fullres 0 -tr {SS3D_RECIPE}: {verb_s:.1f} s (1 epoch of "
+        f"{SS3D_STEPS} steps at batch {SS3D_BATCH} of {UNET3D_TILE} + {SS3D_VAL_STEPS} "
+        f"validation steps, the final validation of {len(summary['metric_per_case'])} cases), "
+        f"peak memory {peak:.2f} GiB; loss train {lg['train_losses']}, validation "
+        f"{lg['val_losses']}, pseudo dice {lg['mean_fg_dice']}; foreground Dice "
+        f"{summary['foreground_mean']['Dice']:.4f} | {card}")
+    log(f"  launches in the training steps {train_c}, the validation steps {val_c}, the final "
+        f"validation {final_c}")
+    if len(steps) != SS3D_STEPS or not all(math.isfinite(v) for v in
+                                           lg["train_losses"] + lg["val_losses"]):
+        fail(f"the U-Mamba Enc SS3D verb ran {len(steps)} steps, losses {lg['train_losses']} "
+             f"{lg['val_losses']}")
+    for counts, where, want in ((train_c, "training steps", MAMBA_KERNELS),
+                                (val_c, "validation steps", ("selective_scan_fwd",)),
+                                (final_c, "final validation", ("selective_scan_fwd",))):
+        bad = {k: v for k, v in counts.items() if v and k not in want}
+        if bad or any(counts.get(k, 0) <= 0 for k in want):
+            fail(f"the U-Mamba Enc SS3D verb's {where} launched {counts} (want {want} only)")
+    if any(v for k, v in launches.items() if k not in MAMBA_KERNELS):
+        fail(f"the U-Mamba Enc SS3D verb run launched {launches}")
+
+    # the first training batch's first case from the final weights, its
+    # centre cut to UNET3D_GRAD_PATCH (the reference's fp64 network does not
+    # fit the card at the batch of 2, and takes minutes at the full patch):
+    # the loss and gradients as phase 11 holds them
+    tr = Trainer(SS3D_RECIPE, batch_size=SS3D_GRAD_BATCH, num_input_channels=1,
+                 num_classes=SS3D_CLASSES, batch_dice=False, seed=0, device="cuda",
+                 compute_dtype=torch.float32,
+                 configuration_manager=unet3d_configuration(UNET3D_GRAD_PATCH, SS3D_GRAD_BATCH))
+    tr.network.load_state_dict(jax_tree_to_state_dict(ck["network_weights"]), strict=True)
+    cut = tuple(slice((t - c) // 2, (t - c) // 2 + c) for t, c in zip(UNET3D_TILE,
+                                                                     UNET3D_GRAD_PATCH))
+    x = torch.from_numpy(np.ascontiguousarray(
+        first["train"]["data"][(slice(SS3D_GRAD_BATCH), *cut)])).cuda()
+    y = torch.from_numpy(np.ascontiguousarray(
+        first["train"]["target"][(slice(SS3D_GRAD_BATCH), *cut)])).cuda()
+    t0 = time.perf_counter()
+    net = tr.network.to(torch.float64)
+    with plain_twins(_ext), fp64_plain_scans():
+        ref = train_grads(tr, net, x.double(), y)
+    net = tr.network.to(torch.float32)
+    _ext.reset_launch_counts()
+    res = {"kernels": train_grads(tr, net, x, y)}
+    ran = {k.name: k.launches for k in _ext.ALL_KERNELS}
+    _ext.reset_launch_counts()
+    with plain_twins(_ext):
+        res["twins"] = train_grads(tr, net, x, y)
+        with plain_scan_half_chunks():
+            res["twins reordered"] = train_grads(tr, net, x, y)
+    if any(k.launches for k in _ext.ALL_KERNELS) or any(ran[k] <= 0 for k in MAMBA_KERNELS):
+        fail(f"the U-Mamba Enc SS3D batch ran {ran} with the kernels, or the plain run "
+             "launched one")
+    log(f"  the verb's first training batch's first case {tuple(x.shape)} from its final "
+        f"weights, fp32: kernels ({ran['selective_scan_fwd']} K1, {ran['selective_scan_bwd']} "
+        f"K5 launches) vs plain twins on the card, {time.perf_counter() - t0:.1f} s with the "
+        "reference in fp64")
+    if not hold_mamba_grads(torch, "fp32", res["kernels"], res["twins"], res["twins reordered"],
+                            ref, card):
+        fail("U-Mamba Enc SS3D's loss or gradients with the kernels beyond their limits (above)")
+    tr.network.zero_grad(set_to_none=True)
+    del tr, net, res, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ms per step: the verb's with the loader, and one cached batch
+    plans, dataset = (load_json(str(pre / f)) for f in ("nnUNetPlans.json", "dataset.json"))
+    vt = NNUNetTrainer(plans, "3d_fullres", 0, dataset, trainer_name=SS3D_RECIPE, device="cuda")
+    vt.initialize()
+    xb, yb = vt.feed.batch(first["train"])
+    vt.step.run_steps([(xb, yb)] * 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    vt.step.run_steps([(xb, yb)] * SS3D_CACHED_STEPS)
+    cached = (time.perf_counter() - t0) / SS3D_CACHED_STEPS * 1e3
+    step_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  ms per step (bf16, batch {SS3D_BATCH} of {UNET3D_TILE}): {step_ms:.2f} with the "
+        f"loader (median of the verb's steps 2-{SS3D_STEPS}), {cached:.2f} on its first batch "
+        f"cached on the card, peak memory of the cached steps {step_peak:.2f} GiB; "
+        f"{SS3D_BATCH * 1e3 / step_ms:.3f} patches/s | {card}")
+    del vt, xb, yb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out = tmp / "ss3d_predicted"
+    t0 = time.perf_counter()
+    _ext.reset_launch_counts()
+    cli.predict_entry(["-i", str(raw / "imagesTs"), "-o", str(out), "-d", UNET3D_ID, "-c",
+                       "3d_fullres", "-tr", SS3D_RECIPE, "-f", "0"])
+    ran = {k.name: k.launches for k in _ext.ALL_KERNELS if k.launches}
+    check_segs(out, [f"case_{i:03d}.nii.gz" for i in range(UNET3D_CASES, UNET3D_CASES +
+                                                           UNET3D_TEST_CASES)],
+               "the U-Mamba Enc SS3D predict verb")
+    if set(ran) != {"selective_scan_fwd"}:
+        fail(f"the predict verb on the U-Mamba Enc SS3D folder launched {ran}")
+    log(f"  predict verb (bf16, automatic tile batch, mirror (0, 1, 2)) on the "
+        f"{UNET3D_TEST_CASES} test cases: {time.perf_counter() - t0:.1f} s, launches {ran} | "
+        f"{card}")
+
+
+def phase_ss3d(torch, card: str, shared: Path = None) -> None:
+    """Phase 12: the SS3D U-Mambas, VM-UNet-3D and MSVM-UNet on the card
+    (``shared``: phase 10's preprocessed 3-D cases, for the train verb).
+    Only K1 and K5 may be launched, and each must be."""
+    from mlagg_unet_torch.ops import _ext
+
+    t_phase = time.perf_counter()
+    _ext.reset_launch_counts()
+    total = {}
+    reset = _ext.reset_launch_counts
+
+    def reset_keeping_total():   # the checks below reset the counts: keep the phase's sum
+        for k in _ext.ALL_KERNELS:
+            total[k.name] = total.get(k.name, 0) + k.launches
+        reset()
+
+    _ext.reset_launch_counts = reset_keeping_total
+    try:
+        ss3d_phase_steps(torch, card, shared)
+    finally:
+        _ext.reset_launch_counts = reset
+    reset_keeping_total()
+    launched = {k: v for k, v in total.items() if v}
+    if set(launched) != set(MAMBA_KERNELS):
+        fail(f"the SS3D phase launched {launched} (want K1 and K5 only, each)")
+    log(f"  launches of the port's kernels in the phase: {launched} | {card}")
+    log(f"[ss3d] phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
+def ss3d_phase_steps(torch, card: str, shared: Path = None) -> None:
+    """Phase 12's steps (a)-(d)."""
+    import tempfile
+
+    from mlagg_unet_torch import paths
+
+    def stamp(t0):
+        return f"{time.perf_counter() - t0:.1f} s"
+
+    t0 = time.perf_counter()
+    log(f"[ss3d] the six networks at full width: 3-D on the {UNET3D_TILE} plan, MSVM-UNet on "
+        f"the {MAMBA_PATCH} plan")
+    nets = ss3d_networks(torch)
+    log("[ss3d] (a) K1 and K5 at every shape one forward and backward of each network emits")
+    ss3d_scan_checks(torch, card, ss3d_scan_shapes(torch, nets))
+    log(f"  (a) done in {stamp(t0)}")
+    t0 = time.perf_counter()
+    log(f"[ss3d] (b) one tile, fp32, card vs CPU (U-Mambas {SS3D_CPU_TILE}, VM-UNet-3D "
+        f"{VMUNET3D_CPU_TILE}: cut for the CPU)")
+    umambas = [k for k in nets if "UMamba" in k]
+    mamba_tile_agreement(torch, card, {k: nets[k] for k in umambas}, SS3D_CPU_TILE,
+                         SS3D_CLASSES)
+    mamba_tile_agreement(torch, card, {k: v for k, v in nets.items()
+                                       if k not in umambas and k != MSVM_TRAINER},
+                         VMUNET3D_CPU_TILE, SS3D_CLASSES)
+    mamba_tile_agreement(torch, card, {MSVM_TRAINER: nets[MSVM_TRAINER]})
+    log(f"  (b) done in {stamp(t0)}")
+    t0 = time.perf_counter()
+    log(f"[ss3d] (c) serve | {card}")
+    with no_autotune():
+        for name in SS3D_SERVED:
+            mamba_serve(torch, card, name, nets[name], UNET3D_TILE, SS3D_CLASSES, (0, 1, 2),
+                        UNET3D_VOLUME, SS3D_VOLUMES, profiled=False, fp32_own_batch=True,
+                        warmup_volume=(1, *UNET3D_TILE))
+    mamba_serve(torch, card, MSVM_TRAINER, nets[MSVM_TRAINER], n_volumes=SS3D_VOLUMES,
+                profiled=False)
+    log(f"  (c) done in {stamp(t0)}")
+    del nets
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"[ss3d] (d) the train verb: nnUNetTrainerUMambaEnc_SS3D | {card}")
+    saved = (paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ss3d_") as tmp:
+        tmp = Path(tmp)
+        paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = (
+            str(tmp / "raw"), str(tmp / "preprocessed"), str(tmp / "results"))
+        try:
+            with no_autotune():
+                ss3d_train_verb(torch, card, tmp, shared)
+        finally:
+            paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = saved
+    log(f"  (d) done in {stamp(t0)}")
+
+
 def main() -> None:
     global REPO
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     ap.add_argument("--only", choices=("predict", "serve-timing", "train-verb", "pipeline",
-                                       "unet3d", "mamba"),
+                                       "unet3d", "mamba", "ss3d"),
                     help="run the device and build phases and this one alone, with no "
                          "kernels line and no final line")
     ap.add_argument("--root", type=Path, default=REPO,
@@ -3607,6 +4048,11 @@ def main() -> None:
                          "script's directory)")
     opts = ap.parse_args()
     REPO = opts.root.resolve()
+    # the 3-D networks of phases 10 and 12 allocate tensors of several GiB;
+    # without expandable segments the caching allocator's blocks fragment
+    # until a served tile batch the budget allows no longer fits (phase 12
+    # ran out of memory with 17.4 GiB reserved but unallocated)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     t_start = time.perf_counter()
@@ -3649,7 +4095,8 @@ def main() -> None:
     if opts.only:
         {"serve-timing": serve_timing, "predict": phase_predict,
          "train-verb": phase_train_verb, "pipeline": phase_pipeline,
-         "unet3d": phase_unet3d, "mamba": phase_mamba}[opts.only](torch, card)
+         "unet3d": phase_unet3d, "mamba": phase_mamba,
+         "ss3d": phase_ss3d}[opts.only](torch, card)
         done(opts.only)
         return
     report = Report(sfu_exp_per_s(torch))
@@ -3669,16 +4116,21 @@ def main() -> None:
     done("predict")
     train, step_ms = phase_train(torch)
     done("train (default)")
-    train_f, step_ms_f = phase_train(torch, fused_in=True)
+    train_f, _ = phase_train(torch, fused_in=True)
     done("train (fused_instance_norm)")
     verb = phase_train_verb(torch, card, step_ms)
     done("train verb")
     pipeline = phase_pipeline(torch, card)
     done("pipeline")
-    phase_unet3d(torch, card)
-    done("unet3d")
-    phase_mamba(torch, card)
-    done("mamba")
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_3d_") as shared3d:
+        phase_unet3d(torch, card, Path(shared3d))
+        done("unet3d")
+        phase_mamba(torch, card)
+        done("mamba")
+        phase_ss3d(torch, card, Path(shared3d))
+        done("ss3d")
 
     launches = {**serve, "selective_scan_bwd": train["selective_scan_bwd"],
                 **{k: serve_f[k] for k in FUSED_KERNELS}}
@@ -3686,7 +4138,7 @@ def main() -> None:
     if {k["name"] for k in kernels} != set(launches):
         fail(f"kernels measured {sorted(r['name'] for r in kernels)} != built {sorted(launches)}")
     log(f"[serve] volumes_per_s default {vps} fused {vps_f}")
-    log(f"[train] ms_per_step default {step_ms} fused_instance_norm {step_ms_f}")
+    log(f"[train] ms_per_step default {step_ms}")
     log(f"[predict] verb launches K1 {predict['selective_scan_fwd']}, K2 "
         f"{predict['mlla_front']}, K3 {predict['mlla_tail']}, K4 {predict['flash_attn_fwd']}")
     log(f"[train verb] verb launches K1 {verb['selective_scan_fwd']}, K2 {verb['mlla_front']}, "
@@ -3694,9 +4146,8 @@ def main() -> None:
     log(f"[pipeline] launches K1 {pipeline['selective_scan_fwd']}, K2 "
         f"{pipeline['mlla_front']}, K3 {pipeline['mlla_tail']}, K4 "
         f"{pipeline['flash_attn_fwd']}, K5 {pipeline['selective_scan_bwd']}")
-    log(f"[train] fused_instance_norm launches per step: K7 "
-        f"{train_f['instance_norm_stats'] / TRAIN_STEPS:g}, K8 "
-        f"{train_f['instance_norm_apply'] / TRAIN_STEPS:g}")
+    log(f"[train] fused_instance_norm launches in one fp32 step: K7 "
+        f"{train_f['instance_norm_stats']}, K8 {train_f['instance_norm_apply']}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -44,8 +44,11 @@
 //     started from g = c_j, a_next = 1, walking its group's tiles from the
 //     last and keeping its running carry in the same buffer (the thread that
 //     writes an entry is the one that reads it again).
-// A CTA holds 32 channels x 16 states, 4 states per thread (4 lanes per
-// channel: a sum over n is 3 adds and 2 shuffles). Phase 3's CTA walks the
+// A CTA holds 32 channels x N states (N = 16 or 1, a template parameter:
+// selective_scan_common.cuh), QS = min(4, N) states per thread: at N = 16
+// 4 lanes per channel (a sum over n is 3 adds and 2 shuffles) and 128
+// threads; at N = 1 a lane per channel and one warp, whose 32 channels' dB
+// and dC are summed by a 5-level butterfly. Phase 3's CTA walks the
 // row's channels in chunks of 32 for each tile, so that it sums dB and dC
 // over all d of the row in shared memory in a fixed order (warps 0-3 of
 // chunk 0, then of chunk 1, ...) and writes them once, in their final dtype:
@@ -75,17 +78,27 @@ namespace {
 using namespace scan;
 
 constexpr int BCH = 32;           // channels per chunk
-constexpr int QS = 4;             // states per thread
-constexpr int BTHREADS = BCH * N / QS;  // 128
 constexpr int SUB = 8;            // steps per sub-tile of the adjoint
 constexpr int NSUB = LT / SUB;
 constexpr int PT = LT + 1;        // fp32 channel row of delta-derived values
 constexpr int GP = LT + 4;        // fp32 gy row: 16-byte rows for cp.async
-constexpr int ACCP = 2 * N + 1;   // a step's dB and dC sums
 constexpr int CARRY_THREADS = 256;
-constexpr int TILE_CTAS_PER_SM = 3;   // shared memory allows 3
-constexpr int GROUP_CTAS_PER_SM = 6;
 constexpr float LOG2E = 1.4426950408889634f;
+
+// the CTA's layout at N states per channel (mirrored by scan_bwd_launch_plan)
+template <int N>
+struct Geo {
+    static_assert(is_instance<N>, "K5 is built for N = 1 and N = 16");
+    static constexpr int QS = N < 4 ? N : 4;            // states per thread
+    static constexpr int LPC = N / QS;                  // lanes per channel
+    static constexpr int THREADS = BCH * LPC;           // 128 at N = 16, 32 at N = 1
+    static constexpr int WARPS = THREADS / 32;
+    static constexpr int ACCP = 2 * N + 1;              // a step's dB and dC sums
+    // phase 3: shared memory allows 3 CTAs of 128 threads at N = 16, 4 of 32
+    // at N = 1
+    static constexpr int TILE_CTAS_PER_SM = N == 16 ? 3 : 4;
+    static constexpr int GROUP_CTAS_PER_SM = N == 16 ? 6 : 16;
+};
 
 // u row in elements: 16-byte rows for cp.async, 4 banks apart per channel
 template <typename T>
@@ -93,17 +106,40 @@ constexpr int U_PITCH = sizeof(T) == 2 ? LT + 8 : LT + 4;
 
 // shared memory of the two tiled kernels, in bytes (mirrored by
 // scan_bwd_launch_plan in ops/selective_scan_cuda.py)
+template <int N>
 constexpr int group_smem() { return (BCH * PT + BCH * GP + LT * N) * 4; }
 // the sub-tile entry states; the first entries walked (the upper half) hold
 // the next chunk's raw delta once the adjoint has passed them
-template <typename T>
-constexpr int HENT_BYTES = NSUB * BTHREADS * 16 > 2 * BCH * LT * (int)sizeof(T)
-                               ? NSUB * BTHREADS * 16
+template <typename T, int N>
+constexpr int HENT_BYTES = NSUB * Geo<N>::THREADS * Geo<N>::QS * 4 > 2 * BCH * LT * (int)sizeof(T)
+                               ? NSUB * Geo<N>::THREADS * Geo<N>::QS * 4
                                : 2 * BCH * LT * (int)sizeof(T);
-template <typename T>
+template <typename T, int N>
 constexpr int tile_smem() {
-    return HENT_BYTES<T> + BCH * U_PITCH<T> * (int)sizeof(T) +
-           (BCH * GP + 2 * BCH * PT + 2 * LT * N + 2 * 4 * SUB * 32 + LT * ACCP) * 4;
+    return HENT_BYTES<T, N> + BCH * U_PITCH<T> * (int)sizeof(T) +
+           (BCH * GP + 2 * BCH * PT + 2 * LT * N + 2 * Geo<N>::WARPS * SUB * 32 +
+            LT * Geo<N>::ACCP) * 4;
+}
+
+// QS fp32 values at p (16-byte aligned when QS == 4) to / from registers
+template <int QS>
+__device__ __forceinline__ void ld_q(const float* p, float (&v)[QS]) {
+    if constexpr (QS == 4) {
+        const float4 t = *reinterpret_cast<const float4*>(p);
+        v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+    } else {
+#pragma unroll
+        for (int j = 0; j < QS; ++j) v[j] = p[j];
+    }
+}
+template <int QS>
+__device__ __forceinline__ void st_q(float* p, const float (&v)[QS]) {
+    if constexpr (QS == 4) {
+        *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+        for (int j = 0; j < QS; ++j) p[j] = v[j];
+    }
 }
 
 struct Args {
@@ -188,7 +224,7 @@ __device__ __forceinline__ void delta_prep(float pre, float bias, bool ok, int s
 // zero outside the tile and for missing channels. `raw` (vec only): the
 // chunk's delta already staged as [BCH][LT] by stage_rows_async; else read
 // from global memory, 16 bytes at a time when vec.
-template <typename T>
+template <typename T, int BTHREADS>
 __device__ __forceinline__ void stage_delta(const Args& a, long long ud_base, int g, int d0,
                                             long long t0, int len, int off, const T* raw,
                                             float* s_dt, float* s_sig) {
@@ -237,7 +273,7 @@ __device__ __forceinline__ void stage_delta(const Args& a, long long ud_base, in
 // elsewhere. 16-byte cp.async when `vec` (L % 8 == 0 and 16-byte aligned
 // bases: every 16-byte piece is then wholly in or out of the tile); else
 // element by element.
-template <typename E>
+template <int BTHREADS, typename E>
 __device__ __forceinline__ void stage_rows_async(const E* src, long long stride, int nrows,
                                                  int valid_rows, long long t0, int len, int off,
                                                  E* dst, int pitch, bool vec) {
@@ -261,9 +297,9 @@ __device__ __forceinline__ void stage_rows_async(const E* src, long long stride,
 }
 
 // B or C of one tile, transposed to [idx][n] fp32 (one float4 per state
-// quad and step). When vec, a thread reads 16 bytes of one state's row; the
-// 16 states of a piece go to 16 neighbouring floats.
-template <typename T>
+// quad and step at N = 16). When vec, a thread reads 16 bytes of one state's
+// row; the N states of a piece go to N neighbouring floats.
+template <typename T, int N, int BTHREADS>
 __device__ __forceinline__ void stage_bc(const T* src, long long bc_base, long long L,
                                          long long t0, int len, int off, bool vec, float* dst) {
     if (vec) {
@@ -287,10 +323,10 @@ __device__ __forceinline__ void stage_bc(const T* src, long long bc_base, long l
     }
 }
 
-// The sums over the 8 channels of a warp of pB[0..3] (dB of the thread's 4
-// states) and pC[0..3] (dC), reduce-scattered: lane l keeps the sum of value
-// slot_of(l) (0-15: dB of state n, 16-31: dC of state n - 16).
-__device__ __forceinline__ float warp_channel_sum(const float (&pB)[QS], const float (&pC)[QS],
+// N = 16: the sums over the 8 channels of a warp of pB[0..3] (dB of the
+// thread's 4 states) and pC[0..3] (dC), reduce-scattered: lane l keeps the
+// sum of value slot_of(l) (0-15: dB of state n, 16-31: dC of state n - 16).
+__device__ __forceinline__ float warp_channel_sum(const float (&pB)[4], const float (&pC)[4],
                                                   int lane) {
     const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
     float w[4], x[2];
@@ -323,14 +359,25 @@ __device__ __forceinline__ uint4 pack16<__nv_bfloat16>(const float* v) {
 }
 
 __device__ __forceinline__ int slot_of(int lane) {
-    return ((lane >> 4) & 1) * N + 4 * (lane & 3) + 2 * ((lane >> 3) & 1) + ((lane >> 2) & 1);
+    return ((lane >> 4) & 1) * 16 + 4 * (lane & 3) + 2 * ((lane >> 3) & 1) + ((lane >> 2) & 1);
+}
+
+// N = 1: the sums over the 32 channels (lanes) of a warp of pB (dB) and pC
+// (dC): lanes 0-15 end with dB's, lanes 16-31 with dC's.
+__device__ __forceinline__ float warp_channel_sum1(float pB, float pC, int lane) {
+    const bool hi = lane & 16;
+    float v = (hi ? pC : pB) + __shfl_xor_sync(0xffffffffu, hi ? pB : pC, 16);
+#pragma unroll
+    for (int m = 8; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+    return v;
 }
 
 // Phase 1: per (row, group, chunk of 32 channels) CTA and (d, n), X = a_s g_s
 // with zero carry-in and P = prod a_t over the group, into carry and prod.
-template <typename T, bool REV>
-__global__ void __launch_bounds__(BTHREADS, GROUP_CTAS_PER_SM)
+template <typename T, int N, bool REV>
+__global__ void __launch_bounds__(Geo<N>::THREADS, Geo<N>::GROUP_CTAS_PER_SM)
 scan_bwd_group_kernel(Args a) {
+    constexpr int QS = Geo<N>::QS, LPC = Geo<N>::LPC, BTHREADS = Geo<N>::THREADS;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     float* s_gy = reinterpret_cast<float*>(smem_raw);  // [BCH][GP]
     float* s_dt = s_gy + BCH * GP;                      // [BCH][PT]
@@ -340,12 +387,11 @@ scan_bwd_group_kernel(Args a) {
     const int d0 = (blockIdx.x % chunks) * BCH;
     const int row = blockIdx.x / chunks / a.groups, grp = blockIdx.x / chunks % a.groups;
     const int g = row % a.G;
-    const int tid = threadIdx.x, cl = tid / QS, q = tid % QS;
+    const int tid = threadIdx.x, cl = tid / LPC, q = tid % LPC;
     const int i_lo = grp * a.tiles_per_cta;
     const int i_hi = min(i_lo + a.tiles_per_cta, a.n_tiles);
     const long long ud_base = (long long)row * a.Dd * a.L;
     const long long bc_base = (long long)row * N * a.L;
-    const float4* s_C4 = reinterpret_cast<const float4*>(s_C);
 
     {
         const int d = d0 + cl;
@@ -363,10 +409,11 @@ scan_bwd_group_kernel(Args a) {
             const long long t0 = tile_bounds(it, a.L, REV, &len);
             const int off = REV ? LT - len : 0;
             __syncthreads();  // the last tile's readers are done
-            stage_rows_async(a.gy + ud_base + (long long)d0 * a.L, a.L, BCH, a.Dd - d0, t0, len,
-                             off, s_gy, GP, a.vec);
-            stage_delta<T>(a, ud_base, g, d0, t0, len, off, nullptr, s_dt, nullptr);
-            stage_bc(static_cast<const T*>(a.C), bc_base, a.L, t0, len, off, a.vec, s_C);
+            stage_rows_async<BTHREADS>(a.gy + ud_base + (long long)d0 * a.L, a.L, BCH,
+                                       a.Dd - d0, t0, len, off, s_gy, GP, a.vec);
+            stage_delta<T, BTHREADS>(a, ud_base, g, d0, t0, len, off, nullptr, s_dt, nullptr);
+            stage_bc<T, N, BTHREADS>(static_cast<const T*>(a.C), bc_base, a.L, t0, len, off,
+                                     a.vec, s_C);
             if (a.vec) cp_async_wait<0>();
             __syncthreads();
 #pragma unroll 1
@@ -376,8 +423,8 @@ scan_bwd_group_kernel(Args a) {
                     const int idx = step_idx<REV>(s * SUB + k8);
                     const float dt = s_dt[cl * PT + idx];
                     const float gyv = s_gy[cl * GP + idx];
-                    const float4 c4 = s_C4[idx * (N / 4) + q];
-                    const float cv[QS] = {c4.x, c4.y, c4.z, c4.w};
+                    float cv[QS];
+                    ld_q<QS>(s_C + idx * N + QS * q, cv);
 #pragma unroll
                     for (int j = 0; j < QS; ++j) {
                         const float at = ex2(dt * A2[j]);
@@ -390,14 +437,17 @@ scan_bwd_group_kernel(Args a) {
         }
         if (d_ok) {
             const long long o = (((long long)row * a.groups + grp) * a.Dd + d) * N + QS * q;
-            *reinterpret_cast<float4*>(a.carry + o) =
-                make_float4(an[0] * gv[0], an[1] * gv[1], an[2] * gv[2], an[3] * gv[3]);
-            *reinterpret_cast<float4*>(a.prod + o) = make_float4(P[0], P[1], P[2], P[3]);
+            float X[QS];
+#pragma unroll
+            for (int j = 0; j < QS; ++j) X[j] = an[j] * gv[j];
+            st_q<QS>(a.carry + o, X);
+            st_q<QS>(a.prod + o, P);
         }
     }
 }
 
 // Phase 2: per (row, d, n), the carry into each group, from the scan's end.
+template <int N>
 __global__ void __launch_bounds__(CARRY_THREADS)
 scan_bwd_carry_kernel(float* __restrict__ carry, const float* __restrict__ prod,
                       long long rows, int groups, int Dd) {
@@ -430,27 +480,28 @@ scan_bwd_carry_kernel(float* __restrict__ carry, const float* __restrict__ prod,
 }
 
 // Phase 3: the gradients, per (row, group) CTA, its tiles from the last.
-template <typename T, bool REV>
-__global__ void __launch_bounds__(BTHREADS, TILE_CTAS_PER_SM)
+template <typename T, int N, bool REV>
+__global__ void __launch_bounds__(Geo<N>::THREADS, Geo<N>::TILE_CTAS_PER_SM)
 scan_bwd_tile_kernel(Args a) {
     constexpr int UP = U_PITCH<T>;
+    constexpr int QS = Geo<N>::QS, LPC = Geo<N>::LPC, BTHREADS = Geo<N>::THREADS;
+    constexpr int WARPS = Geo<N>::WARPS, ACCP = Geo<N>::ACCP;
+    constexpr int HB = HENT_BYTES<T, N>;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    float4* s_hent = reinterpret_cast<float4*>(smem_raw);            // [NSUB][BTHREADS]
-    T* s_u = reinterpret_cast<T*>(smem_raw + HENT_BYTES<T>);         // [BCH][UP], then du
+    float* s_hent = reinterpret_cast<float*>(smem_raw);              // [NSUB][BTHREADS][QS]
+    T* s_u = reinterpret_cast<T*>(smem_raw + HB);                    // [BCH][UP], then du
     float* s_gy = reinterpret_cast<float*>(s_u + BCH * UP);          // [BCH][GP]
     float* s_B = s_gy + BCH * GP;                                    // [LT][N]
     float* s_C = s_B + LT * N;                                       // [LT][N]
     float* s_dt = s_C + LT * N;                                      // [BCH][PT]
     float* s_sig = s_dt + BCH * PT;                                  // [BCH][PT], then ddelta
-    float* s_red = s_sig + BCH * PT;                                 // [2][4 warps][SUB][32]
-    float* s_acc = s_red + 2 * 4 * SUB * 32;                         // [LT][ACCP]
-    const float4* s_B4 = reinterpret_cast<const float4*>(s_B);
-    const float4* s_C4 = reinterpret_cast<const float4*>(s_C);
+    float* s_red = s_sig + BCH * PT;                                 // [2][WARPS][SUB][32]
+    float* s_acc = s_red + 2 * WARPS * SUB * 32;                     // [LT][ACCP]
 
     const int row = blockIdx.x / a.groups, grp = blockIdx.x % a.groups;
     const int g = row % a.G;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int cl = tid / QS, q = tid % QS;
+    const int cl = tid / LPC, q = tid % LPC;
     const int i_lo = grp * a.tiles_per_cta;
     const int i_hi = min(i_lo + a.tiles_per_cta, a.n_tiles);
     const long long ud_base = (long long)row * a.Dd * a.L;
@@ -459,7 +510,7 @@ scan_bwd_tile_kernel(Args a) {
     const T* u = static_cast<const T*>(a.u);
     // the next chunk's delta, copied while this chunk's adjoint walks its
     // first half (whose sub-tile entry states are no longer needed)
-    T* s_raw = reinterpret_cast<T*>(smem_raw + HENT_BYTES<T> / 2);
+    T* s_raw = reinterpret_cast<T*>(smem_raw + HB / 2);
     bool prefetched = false;
     T* du = static_cast<T*>(a.du);
     T* ddelta = static_cast<T*>(a.ddelta);
@@ -470,24 +521,26 @@ scan_bwd_tile_kernel(Args a) {
         const int off = REV ? LT - len : 0;
         const bool first = it == i_hi - 1;  // the group's first tile walked
         __syncthreads();  // the last tile's dB / dC are written out
-        stage_bc(static_cast<const T*>(a.B), bc_base, a.L, t0, len, off, a.vec, s_B);
-        stage_bc(static_cast<const T*>(a.C), bc_base, a.L, t0, len, off, a.vec, s_C);
+        stage_bc<T, N, BTHREADS>(static_cast<const T*>(a.B), bc_base, a.L, t0, len, off, a.vec,
+                                 s_B);
+        stage_bc<T, N, BTHREADS>(static_cast<const T*>(a.C), bc_base, a.L, t0, len, off, a.vec,
+                                 s_C);
         for (int i = tid; i < LT * ACCP; i += BTHREADS) s_acc[i] = 0.f;
 
         for (int d0 = 0; d0 < a.Dd; d0 += BCH) {
             const int d = d0 + cl;
             const bool d_ok = d < a.Dd;
             const int valid = a.Dd - d0;
-            stage_rows_async(u + ud_base + (long long)d0 * a.L, a.L, BCH, valid, t0, len, off,
-                             s_u, UP, a.vec);
-            stage_rows_async(a.gy + ud_base + (long long)d0 * a.L, a.L, BCH, valid, t0, len,
-                             off, s_gy, GP, a.vec);
+            stage_rows_async<BTHREADS>(u + ud_base + (long long)d0 * a.L, a.L, BCH, valid, t0,
+                                       len, off, s_u, UP, a.vec);
+            stage_rows_async<BTHREADS>(a.gy + ud_base + (long long)d0 * a.L, a.L, BCH, valid,
+                                       t0, len, off, s_gy, GP, a.vec);
             if (prefetched) {  // the delta copies issued during the last chunk's adjoint
                 cp_async_wait<2>();
                 __syncthreads();
             }
-            stage_delta<T>(a, ud_base, g, d0, t0, len, off, prefetched ? s_raw : nullptr, s_dt,
-                           s_sig);
+            stage_delta<T, BTHREADS>(a, ud_base, g, d0, t0, len, off,
+                                     prefetched ? s_raw : nullptr, s_dt, s_sig);
             float Araw[QS], A2[QS], h[QS], gv[QS], an[QS], dA[QS];
             const long long o = (part + d) * N + QS * q;
 #pragma unroll
@@ -510,14 +563,14 @@ scan_bwd_tile_kernel(Args a) {
             // it at each sub-tile's entry
 #pragma unroll 1
             for (int s = 0; s < NSUB; ++s) {
-                s_hent[s * BTHREADS + tid] = make_float4(h[0], h[1], h[2], h[3]);
+                st_q<QS>(s_hent + (s * BTHREADS + tid) * QS, h);
 #pragma unroll
                 for (int k8 = 0; k8 < SUB; ++k8) {
                     const int idx = step_idx<REV>(s * SUB + k8);
                     const float dt = s_dt[cl * PT + idx];
                     const float dtu = dt * to_f32(s_u[cl * UP + idx]);
-                    const float4 b4 = s_B4[idx * (N / 4) + q];
-                    const float bv[QS] = {b4.x, b4.y, b4.z, b4.w};
+                    float bv[QS];
+                    ld_q<QS>(s_B + idx * N + QS * q, bv);
 #pragma unroll
                     for (int j = 0; j < QS; ++j) h[j] = fmaf(ex2(dt * A2[j]), h[j], dtu * bv[j]);
                 }
@@ -535,20 +588,20 @@ scan_bwd_tile_kernel(Args a) {
             for (int s = NSUB - 1; s >= 0; --s) {
                 if (s == NSUB / 2 - 1 && has_next)  // every thread has read its entries >= NSUB / 2
                     // (a barrier per sub-tile since)
-                    stage_rows_async(static_cast<const T*>(a.delta) + ud_base +
-                                         (long long)n_d0 * a.L,
-                                     a.L, BCH, a.Dd - n_d0, n_t0, n_len,
-                                     REV ? LT - n_len : 0, s_raw, LT, true);
-                const float4 he = s_hent[s * BTHREADS + tid];
+                    stage_rows_async<BTHREADS>(static_cast<const T*>(a.delta) + ud_base +
+                                                   (long long)n_d0 * a.L,
+                                               a.L, BCH, a.Dd - n_d0, n_t0, n_len,
+                                               REV ? LT - n_len : 0, s_raw, LT, true);
                 // hs[k + 1]: h after the sub-tile's step k, hs[0] its entry
-                float hs[SUB + 1][QS] = {{he.x, he.y, he.z, he.w}}, as[SUB][QS];
+                float hs[SUB + 1][QS], as[SUB][QS];
+                ld_q<QS>(s_hent + (s * BTHREADS + tid) * QS, hs[0]);
 #pragma unroll
                 for (int k8 = 0; k8 < SUB; ++k8) {
                     const int idx = step_idx<REV>(s * SUB + k8);
                     const float dt = s_dt[cl * PT + idx];
                     const float dtu = dt * to_f32(s_u[cl * UP + idx]);
-                    const float4 b4 = s_B4[idx * (N / 4) + q];
-                    const float bv[QS] = {b4.x, b4.y, b4.z, b4.w};
+                    float bv[QS];
+                    ld_q<QS>(s_B + idx * N + QS * q, bv);
 #pragma unroll
                     for (int j = 0; j < QS; ++j) {
                         as[k8][j] = ex2(dt * A2[j]);
@@ -557,10 +610,10 @@ scan_bwd_tile_kernel(Args a) {
                 }
                 // the step loop keeps its results in registers (no stores,
                 // so the steps' shuffles overlap): each lane's (dB, dC) slot
-                // per step, and du, ddelta of the steps k = q, q + 4 (the 4
-                // lanes of a channel hold the same gB, sA and so the same
-                // du, ddelta, dD and dbias)
-                float ys[SUB], odu[SUB / QS], odd[SUB / QS];
+                // per step, and du, ddelta of the steps k = q, q + LPC, ...
+                // (the LPC lanes of a channel hold the same gB, sA and so
+                // the same du, ddelta, dD and dbias)
+                float ys[SUB], odu[SUB / LPC], odd[SUB / LPC];
 #pragma unroll
                 for (int k8 = SUB - 1; k8 >= 0; --k8) {
                     const int idx = step_idx<REV>(s * SUB + k8);
@@ -569,10 +622,9 @@ scan_bwd_tile_kernel(Args a) {
                     const float dtu = dt * uu;
                     const float gyv = s_gy[cl * GP + idx];
                     const float sgv = s_sig[cl * PT + idx];
-                    const float4 b4 = s_B4[idx * (N / 4) + q];
-                    const float4 c4 = s_C4[idx * (N / 4) + q];
-                    const float bv[QS] = {b4.x, b4.y, b4.z, b4.w};
-                    const float cv[QS] = {c4.x, c4.y, c4.z, c4.w};
+                    float bv[QS], cv[QS];
+                    ld_q<QS>(s_B + idx * N + QS * q, bv);
+                    ld_q<QS>(s_C + idx * N + QS * q, cv);
                     float gB = 0.f, sA = 0.f, pB[QS], pC[QS];
 #pragma unroll
                     for (int j = 0; j < QS; ++j) {
@@ -586,55 +638,61 @@ scan_bwd_tile_kernel(Args a) {
                         pB[j] = gv[j] * dtu;
                         pC[j] = hs[k8 + 1][j] * gyv;
                     }
-                    // over the channel's 16 states: its 4 lanes
-                    gB += __shfl_xor_sync(0xffffffffu, gB, 1);
-                    sA += __shfl_xor_sync(0xffffffffu, sA, 1);
-                    gB += __shfl_xor_sync(0xffffffffu, gB, 2);
-                    sA += __shfl_xor_sync(0xffffffffu, sA, 2);
-                    ys[k8] = warp_channel_sum(pB, pC, lane);
+                    // over the channel's N states: its LPC lanes
+#pragma unroll
+                    for (int m = 1; m < LPC; m <<= 1) {
+                        gB += __shfl_xor_sync(0xffffffffu, gB, m);
+                        sA += __shfl_xor_sync(0xffffffffu, sA, m);
+                    }
+                    if constexpr (N == 16) ys[k8] = warp_channel_sum(pB, pC, lane);
+                    else ys[k8] = warp_channel_sum1(pB[0], pC[0], lane);
                     const float ddt = fmaf(uu, gB, sA) * sgv;
                     const float duv = fmaf(dt, gB, d_coef * gyv);
-                    if ((k8 % QS) == q) {
-                        odu[k8 / QS] = duv;
-                        odd[k8 / QS] = ddt;
+                    if ((k8 % LPC) == q) {
+                        odu[k8 / LPC] = duv;
+                        odd[k8 / LPC] = ddt;
                     }
                     dbias += ddt;
                     dD = fmaf(gyv, uu, dD);
                 }
                 // one barrier per sub-tile: its (dB, dC) sums alternate
                 // between two buffers
-                float* red = s_red + (s & 1) * 4 * SUB * 32;
+                float* red = s_red + (s & 1) * WARPS * SUB * 32;
 #pragma unroll
                 for (int k8 = 0; k8 < SUB; ++k8) red[(warp * SUB + k8) * 32 + lane] = ys[k8];
                 __syncwarp();  // the channel's lanes have read u and sigmoid at these steps
 #pragma unroll
-                for (int r = 0; r < SUB / QS; ++r) {
-                    const int idx = step_idx<REV>(s * SUB + r * QS + q);
+                for (int r = 0; r < SUB / LPC; ++r) {
+                    const int idx = step_idx<REV>(s * SUB + r * LPC + q);
                     s_u[cl * UP + idx] = from_f32<T>(odu[r]);
                     s_sig[cl * PT + idx] = odd[r];
                 }
                 __syncthreads();
-                // dB / dC of the sub-tile's steps: warps 0-3 in order, added
-                // to the tile's sums after the chunks before
-                for (int r = tid; r < SUB * 32; r += BTHREADS) {
-                    const int k8 = r / 32, l = r % 32;
+                // dB / dC of the sub-tile's steps: the warps in order, added
+                // to the tile's sums after the chunks before (N = 1: lanes 0
+                // and 16 of the one warp hold dB and dC)
+                for (int r = tid; r < SUB * 2 * N; r += BTHREADS) {
+                    const int k8 = r / (2 * N), sl = r % (2 * N);
+                    const int l = N == 16 ? sl : 16 * sl;
                     float v = red[k8 * 32 + l];
 #pragma unroll
-                    for (int w = 1; w < 4; ++w) v += red[(w * SUB + k8) * 32 + l];
-                    s_acc[step_idx<REV>(s * SUB + k8) * ACCP + slot_of(l)] += v;
+                    for (int w = 1; w < WARPS; ++w) v += red[(w * SUB + k8) * 32 + l];
+                    s_acc[step_idx<REV>(s * SUB + k8) * ACCP + (N == 16 ? slot_of(l) : sl)] += v;
                 }
             }
 
             if (d_ok) {  // carry into the next tile; dA, dD, dbias partials
-                float4* dA4 = reinterpret_cast<float4*>(a.dA_p + o);
-                float4 acc = make_float4(dA[0], dA[1], dA[2], dA[3]);
                 if (!first) {
-                    const float4 was = *dA4;
-                    acc = make_float4(was.x + acc.x, was.y + acc.y, was.z + acc.z, was.w + acc.w);
+                    float was[QS];
+                    ld_q<QS>(a.dA_p + o, was);
+#pragma unroll
+                    for (int j = 0; j < QS; ++j) dA[j] = was[j] + dA[j];
                 }
-                *dA4 = acc;
-                *reinterpret_cast<float4*>(a.carry + o) =
-                    make_float4(an[0] * gv[0], an[1] * gv[1], an[2] * gv[2], an[3] * gv[3]);
+                st_q<QS>(a.dA_p + o, dA);
+                float X[QS];
+#pragma unroll
+                for (int j = 0; j < QS; ++j) X[j] = an[j] * gv[j];
+                st_q<QS>(a.carry + o, X);
                 if (q == 0) {
                     a.dD_p[part + d] = first ? dD : a.dD_p[part + d] + dD;
                     a.dbias_p[part + d] = first ? dbias : a.dbias_p[part + d] + dbias;
@@ -679,39 +737,51 @@ scan_bwd_tile_kernel(Args a) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <typename T, bool REV>
+template <typename T, int N, bool REV>
 int launch(const Args& a, long long rows, int smem_group, int smem_tile, cudaStream_t stream) {
+    constexpr int BTHREADS = Geo<N>::THREADS;
     // the plan's numbers, checked again (ops/selective_scan_cuda.py)
-    if (smem_group != group_smem() || smem_tile != tile_smem<T>())
+    if (smem_group != group_smem<N>() || smem_tile != tile_smem<T, N>())
         return (int)cudaErrorInvalidValue;
     const long long grid = rows * a.groups;
     const long long group_grid = grid * ((a.Dd + BCH - 1) / BCH);
     const long long carry_grid = (rows * a.Dd * N + CARRY_THREADS - 1) / CARRY_THREADS;
     if (group_grid > 0x7fffffffLL || carry_grid > 0x7fffffffLL)
         return (int)cudaErrorInvalidConfiguration;
-    int e = set_smem(scan_bwd_group_kernel<T, REV>, smem_group);
-    if (e == 0) e = set_smem(scan_bwd_tile_kernel<T, REV>, smem_tile);
+    int e = set_smem(scan_bwd_group_kernel<T, N, REV>, smem_group);
+    if (e == 0) e = set_smem(scan_bwd_tile_kernel<T, N, REV>, smem_tile);
     if (e == 0)  // room for TILE_CTAS_PER_SM tile CTAs on an SM
-        e = (int)cudaFuncSetAttribute(scan_bwd_tile_kernel<T, REV>,
+        e = (int)cudaFuncSetAttribute(scan_bwd_tile_kernel<T, N, REV>,
                                       cudaFuncAttributePreferredSharedMemoryCarveout,
                                       (int)cudaSharedmemCarveoutMaxShared);
     if (e != 0) return e;
-    scan_bwd_group_kernel<T, REV><<<(unsigned)group_grid, BTHREADS, smem_group, stream>>>(a);
-    scan_bwd_carry_kernel<<<(unsigned)carry_grid, CARRY_THREADS, 0, stream>>>(
+    scan_bwd_group_kernel<T, N, REV><<<(unsigned)group_grid, BTHREADS, smem_group, stream>>>(a);
+    scan_bwd_carry_kernel<N><<<(unsigned)carry_grid, CARRY_THREADS, 0, stream>>>(
         a.carry, a.prod, rows, a.groups, a.Dd);
-    scan_bwd_tile_kernel<T, REV><<<(unsigned)grid, BTHREADS, smem_tile, stream>>>(a);
+    scan_bwd_tile_kernel<T, N, REV><<<(unsigned)grid, BTHREADS, smem_tile, stream>>>(a);
     return (int)cudaGetLastError();
+}
+
+template <int N>
+int launch_n(const Args& a, long long rows, int smem_group, int smem_tile, int dtype,
+             int reverse, cudaStream_t s) {
+    if (dtype == MLAGG_BF16)
+        return reverse ? launch<__nv_bfloat16, N, true>(a, rows, smem_group, smem_tile, s)
+                       : launch<__nv_bfloat16, N, false>(a, rows, smem_group, smem_tile, s);
+    return reverse ? launch<float, N, true>(a, rows, smem_group, smem_tile, s)
+                   : launch<float, N, false>(a, rows, smem_group, smem_tile, s);
 }
 
 }  // namespace
 
-// u, delta: (batch, G, Dd, L); A: (G, Dd, 16) fp32; B, C: (batch, G, 16, L);
-// D, delta_bias: (G, Dd) fp32 or null; gy: (batch, G, Dd, L) fp32; states:
-// (batch, G, ceil(L / 64), Dd, 16) fp32 from mlagg_scan_fwd with the same
-// reverse flag. Outputs: du, ddelta (batch, G, Dd, L) and dB, dC (batch, G,
-// 16, L) in the operands' dtype; dA_p (batch, G, groups, Dd, 16), dD_p and
-// dbias_p (batch, G, groups, Dd) fp32 partials. Scratch: carry and prod
-// (batch, G, groups, Dd, 16) fp32, groups = ceil(ceil(L / 64) /
+// u, delta: (batch, G, Dd, L); A: (G, Dd, N) fp32; B, C: (batch, G, N, L),
+// N = n_state, 1 or 16; D, delta_bias: (G, Dd) fp32 or null; gy: (batch, G,
+// Dd, L) fp32; states: (batch, G, ceil(L / 64), Dd, N) fp32 from
+// mlagg_scan_fwd with the same reverse flag. Outputs: du, ddelta (batch, G,
+// Dd, L) and dB, dC (batch, G, N, L) in the operands' dtype; dA_p (batch, G,
+// groups, Dd, N), dD_p and dbias_p (batch, G, groups, Dd) fp32 partials.
+// Scratch: carry and prod (batch, G, groups, Dd, N) fp32, groups =
+// ceil(ceil(L / 64) /
 // tiles_per_cta). All contiguous. dtype: MLAGG_F32 or MLAGG_BF16 for u,
 // delta, B, C, du, ddelta, dB, dC. `vec` (16-byte staging) needs L % 8 == 0
 // and 16-byte aligned u, delta, B, C, gy, du, ddelta, dB, dC. smem_group and
@@ -726,7 +796,8 @@ extern "C" int mlagg_scan_bwd(const void* u, const void* delta, const float* A,
                               int n_state, long long L, int softplus, int reverse,
                               int dtype, int tiles_per_cta, int vec, int smem_group,
                               int smem_tile, void* stream) {
-    if (n_state != scan::N || tiles_per_cta < 1 || batch < 0 || G < 1 || Dd < 1 || L < 1)
+    if ((n_state != 1 && n_state != 16) || tiles_per_cta < 1 || batch < 0 || G < 1 || Dd < 1 ||
+        L < 1)
         return (int)cudaErrorInvalidValue;
     if (vec) {
         const void* ptrs[] = {u, delta, B, C, gy, du, ddelta, dB, dC};
@@ -747,9 +818,6 @@ extern "C" int mlagg_scan_bwd(const void* u, const void* delta, const float* A,
     const long long rows = (long long)batch * G;
     if (rows == 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == MLAGG_BF16)
-        return reverse ? launch<__nv_bfloat16, true>(a, rows, smem_group, smem_tile, s)
-                       : launch<__nv_bfloat16, false>(a, rows, smem_group, smem_tile, s);
-    return reverse ? launch<float, true>(a, rows, smem_group, smem_tile, s)
-                   : launch<float, false>(a, rows, smem_group, smem_tile, s);
+    return n_state == 1 ? launch_n<1>(a, rows, smem_group, smem_tile, dtype, reverse, s)
+                        : launch_n<16>(a, rows, smem_group, smem_tile, dtype, reverse, s);
 }

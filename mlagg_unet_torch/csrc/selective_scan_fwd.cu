@@ -9,7 +9,7 @@
 // with fp32 state and fp32 y. reverse=1 walks l from L-1 down to 0 and writes
 // y at the natural positions.
 //
-// For training, `states` (fp32, (batch, G, ceil(L / LT), Dd, 16)) receives h
+// For training, `states` (fp32, (batch, G, ceil(L / LT), Dd, N)) receives h
 // at the scan-entry of every LT-step tile, tiles counted in scan order (a
 // reverse scan's tile i ends at L - i * LT, and its entry is its right
 // edge), as `_pallas_forward(..., with_states=True)` emits chunk start
@@ -37,7 +37,8 @@
 //     h_in[0] = 0, h_in[j + 1] = X_j + P_j h_in[j], written over X;
 //  3. scan_fwd_out_kernel, one CTA per (row, group, chunk), rescans its group
 //     from h_in[j], writes y (plus D u) and, when asked, each tile's entry h.
-// A thread owns one channel and all its 16 states, so y = C . h is 16 FMAs in
+// A thread owns one channel and all its N states (N = 16 or 1, a template
+// parameter: selective_scan_common.cuh), so y = C . h is N FMAs in
 // registers (no shuffles) and softplus(delta + bias) is computed once per
 // (d, step) in each of passes 1 and 3. A CTA is 32-128 channels (one
 // thread each) of one row; B and C of a tile (shared by the row's channels)
@@ -53,7 +54,11 @@
 // ms per launch at the serving shape, and the other instructions fill most
 // of the issue slots left beside it, so moving exps onto the FP32 pipe
 // does not pay (PERF.md). Pass 3 is capped at 96 registers (ptxas spills a
-// few words) so that 6 CTAs of 96 threads share an SM.
+// few words) so that 6 CTAs of 96 threads share an SM. At N = 1 (the
+// 12-direction SS3D and MSVM-UNet's SS2D) an element is one exp and two FMAs
+// against ~10 bytes of u, delta and y, so bytes bound it; shared memory is
+// ~1 KB a CTA and the same code runs with scalar in place of float4 state
+// accesses.
 #include "common.cuh"
 #include "mma.cuh"
 #include "selective_scan_common.cuh"
@@ -78,7 +83,7 @@ constexpr int RAW_PITCH = LT + 16 / (int)sizeof(T);
 
 // shared memory of passes 1 (B) and 3 (B and C), in bytes (mirrored by
 // scan_fwd_launch_plan in ops/selective_scan_cuda.py)
-template <typename T, int NM>
+template <typename T, int N, int NM>
 constexpr int fwd_smem() {
     return NM * N * RAW_PITCH<T> * (int)sizeof(T) + LT * NM * N * 4;
 }
@@ -186,7 +191,7 @@ __device__ __forceinline__ long long chunk_base(long long t0, int len, int j) {
 
 // B (and C) of the tile at [t0, t0 + len), raw, into s_raw [NM][N][RAW_PITCH]
 // by 16-byte cp.async (vec only: len % 8 == 0 and aligned rows)
-template <typename T, int NM>
+template <typename T, int N, int NM>
 __device__ __forceinline__ void copy_bc_async(const T* Bm, const T* Cm, long long L, long long t0,
                                               int len, T* s_raw) {
     constexpr int EPC = 16 / sizeof(T);
@@ -201,7 +206,7 @@ __device__ __forceinline__ void copy_bc_async(const T* Bm, const T* Cm, long lon
 
 // s_bc[k][m * N + n] = (B, C)[n] at scan step k of the tile, fp32: from s_raw
 // (vec), 16 bytes a thread, or element by element from global memory
-template <typename T, bool REV, int NM>
+template <typename T, int N, bool REV, int NM>
 __device__ __forceinline__ void stage_bc(const T* Bm, const T* Cm, long long L, long long t0,
                                          int len, bool vec, const T* s_raw, float* s_bc) {
     if (vec) {
@@ -225,11 +230,38 @@ __device__ __forceinline__ void stage_bc(const T* Bm, const T* Cm, long long L, 
     }
 }
 
+// N fp32 values at p (16-byte aligned when N % 4 == 0) to / from registers
+template <int N>
+__device__ __forceinline__ void ld_n(const float* p, float (&v)[N]) {
+    if constexpr (N % 4 == 0) {
+#pragma unroll
+        for (int q = 0; q < N / 4; ++q) {
+            const float4 t = reinterpret_cast<const float4*>(p)[q];
+            v[4 * q] = t.x, v[4 * q + 1] = t.y, v[4 * q + 2] = t.z, v[4 * q + 3] = t.w;
+        }
+    } else {
+#pragma unroll
+        for (int n = 0; n < N; ++n) v[n] = p[n];
+    }
+}
+template <int N>
+__device__ __forceinline__ void st_n(float* p, const float (&v)[N]) {
+    if constexpr (N % 4 == 0) {
+#pragma unroll
+        for (int q = 0; q < N / 4; ++q)
+            reinterpret_cast<float4*>(p)[q] =
+                make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    } else {
+#pragma unroll
+        for (int n = 0; n < N; ++n) p[n] = v[n];
+    }
+}
+
 // Passes 1 (OUT = false) and 3 (OUT = true): one CTA per (row, group, chunk
 // of `width` channels), one thread per channel, the group's tiles in scan
 // order. Pass 1 starts from h = 0 and writes X and S; pass 3 starts from the
 // carry's h_in and writes y and the tile-entry states.
-template <typename T, bool REV, bool OUT>
+template <typename T, int N, bool REV, bool OUT>
 __device__ __forceinline__ void scan_fwd_body(const Args& a) {
     constexpr int NM = OUT ? 2 : 1;  // B (and C)
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -256,15 +288,14 @@ __device__ __forceinline__ void scan_fwd_body(const Args& a) {
     const bool vec = a.vec;
 
     float A2[N], h[N];
-    const float4* A4 = reinterpret_cast<const float4*>(a.A + ((long long)g * a.Dd + dd) * N);
-    const float4* H4 = reinterpret_cast<const float4*>(a.carry + part * N);
+    ld_n<N>(a.A + ((long long)g * a.Dd + dd) * N, A2);
 #pragma unroll
-    for (int q = 0; q < N / 4; ++q) {
-        const float4 av = A4[q];
-        const float4 hv = OUT ? H4[q] : make_float4(0.f, 0.f, 0.f, 0.f);
-        A2[4 * q] = av.x * LOG2E, A2[4 * q + 1] = av.y * LOG2E;
-        A2[4 * q + 2] = av.z * LOG2E, A2[4 * q + 3] = av.w * LOG2E;
-        h[4 * q] = hv.x, h[4 * q + 1] = hv.y, h[4 * q + 2] = hv.z, h[4 * q + 3] = hv.w;
+    for (int n = 0; n < N; ++n) A2[n] *= LOG2E;
+    if (OUT) {
+        ld_n<N>(a.carry + part * N, h);
+    } else {
+#pragma unroll
+        for (int n = 0; n < N; ++n) h[n] = 0.f;
     }
     const float bias = a.bias ? a.bias[(long long)g * a.Dd + dd] : 0.f;
     const float dco = (OUT && a.D) ? a.D[(long long)g * a.Dd + dd] : 0.f;
@@ -273,7 +304,7 @@ __device__ __forceinline__ void scan_fwd_body(const Args& a) {
 
     int len;
     long long t0 = tile_bounds(i_lo, a.L, REV, &len);
-    if (vec) copy_bc_async<T, NM>(Bm, Cm, a.L, t0, len, s_raw);
+    if (vec) copy_bc_async<T, N, NM>(Bm, Cm, a.L, t0, len, s_raw);
     // the chunk in registers, and the next one in flight
     uint4 cu[NV<T>], cd[NV<T>], nu[NV<T>], nd[NV<T>];
     load_chunk(u, chunk_base<REV>(t0, len, 0), t0, t0 + len, vec, nu);
@@ -283,18 +314,13 @@ __device__ __forceinline__ void scan_fwd_body(const Args& a) {
         if (it > i_lo) t0 = tile_bounds(it, a.L, REV, &len);
         if (vec) cp_async_wait<0>();
         __syncthreads();  // this tile's B (C) landed; the last tile's readers of s_bc are done
-        stage_bc<T, REV, NM>(Bm, Cm, a.L, t0, len, vec, s_raw, s_bc);
+        stage_bc<T, N, REV, NM>(Bm, Cm, a.L, t0, len, vec, s_raw, s_bc);
         __syncthreads();  // s_bc is ready, s_raw free
         int n_len = 0;
         const long long n_t0 = it + 1 < i_hi ? tile_bounds(it + 1, a.L, REV, &n_len) : 0;
-        if (vec && it + 1 < i_hi) copy_bc_async<T, NM>(Bm, Cm, a.L, n_t0, n_len, s_raw);
-        if (OUT && a.states && ok) {  // h at this tile's scan-entry
-            float4* st = reinterpret_cast<float4*>(
-                a.states + (((row * a.n_tiles + it) * a.Dd) + d) * N);
-#pragma unroll
-            for (int q = 0; q < N / 4; ++q)
-                st[q] = make_float4(h[4 * q], h[4 * q + 1], h[4 * q + 2], h[4 * q + 3]);
-        }
+        if (vec && it + 1 < i_hi) copy_bc_async<T, N, NM>(Bm, Cm, a.L, n_t0, n_len, s_raw);
+        if (OUT && a.states && ok)  // h at this tile's scan-entry
+            st_n<N>(a.states + (((row * a.n_tiles + it) * a.Dd) + d) * N, h);
 
         const int nch = (len + SUB - 1) / SUB;
 #pragma unroll 1
@@ -322,27 +348,38 @@ __device__ __forceinline__ void scan_fwd_body(const Args& a) {
                     if (a.softplus) dt = softplus_f(dt);
                     const float uu = elem<T>(cu, e);
                     const float dtu = dt * uu;
-                    const float4* bc = s_bc4 + k * (NM * N / 4);
-                    float yq[4] = {0.f, 0.f, 0.f, 0.f};
+                    if constexpr (N % 4 == 0) {
+                        const float4* bc = s_bc4 + k * (NM * N / 4);
+                        float yq[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-                    for (int q = 0; q < N / 4; ++q) {
-                        const float4 b4 = bc[q];
-                        const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+                        for (int q = 0; q < N / 4; ++q) {
+                            const float4 b4 = bc[q];
+                            const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
 #pragma unroll
-                        for (int r = 0; r < 4; ++r) {
-                            const int n = 4 * q + r;
-                            h[n] = fmaf(ex2(dt * A2[n]), h[n], dtu * bv[r]);
+                            for (int r = 0; r < 4; ++r) {
+                                const int n = 4 * q + r;
+                                h[n] = fmaf(ex2(dt * A2[n]), h[n], dtu * bv[r]);
+                            }
+                            if (OUT) {
+                                const float4 c4 = bc[N / 4 + q];
+                                yq[q] = fmaf(c4.x, h[4 * q], yq[q]);
+                                yq[q] = fmaf(c4.y, h[4 * q + 1], yq[q]);
+                                yq[q] = fmaf(c4.z, h[4 * q + 2], yq[q]);
+                                yq[q] = fmaf(c4.w, h[4 * q + 3], yq[q]);
+                            }
                         }
-                        if (OUT) {
-                            const float4 c4 = bc[N / 4 + q];
-                            yq[q] = fmaf(c4.x, h[4 * q], yq[q]);
-                            yq[q] = fmaf(c4.y, h[4 * q + 1], yq[q]);
-                            yq[q] = fmaf(c4.z, h[4 * q + 2], yq[q]);
-                            yq[q] = fmaf(c4.w, h[4 * q + 3], yq[q]);
+                        if (OUT) ys[e] = fmaf(dco, uu, (yq[0] + yq[1]) + (yq[2] + yq[3]));
+                    } else {  // scalar states (N = 1)
+                        const float* bc = s_bc + k * (NM * N);
+                        float yq = 0.f;
+#pragma unroll
+                        for (int n = 0; n < N; ++n) {
+                            h[n] = fmaf(ex2(dt * A2[n]), h[n], dtu * bc[n]);
+                            if (OUT) yq = fmaf(bc[N + n], h[n], yq);
                         }
+                        if (OUT) ys[e] = fmaf(dco, uu, yq);
                     }
-                    if (OUT) ys[e] = fmaf(dco, uu, (yq[0] + yq[1]) + (yq[2] + yq[3]));
-                    else dsum += dt;
+                    if (!OUT) dsum += dt;
                 }
             }
             if (OUT && ok) {
@@ -359,22 +396,20 @@ __device__ __forceinline__ void scan_fwd_body(const Args& a) {
         }
     }
     if (!OUT && ok) {
-        float4* X4 = reinterpret_cast<float4*>(a.carry + part * N);
-#pragma unroll
-        for (int q = 0; q < N / 4; ++q)
-            X4[q] = make_float4(h[4 * q], h[4 * q + 1], h[4 * q + 2], h[4 * q + 3]);
+        st_n<N>(a.carry + part * N, h);
         a.dsum[part] = dsum;
     }
 }
 
 // Pass 1: per (row, group, chunk) CTA, the group's end state from a zero
 // entry state and the sum of its deltas, into carry and dsum.
-template <typename T, bool REV>
+template <typename T, int N, bool REV>
 __global__ void __launch_bounds__(MAX_CH) scan_fwd_group_kernel(Args a) {
-    scan_fwd_body<T, REV, false>(a);
+    scan_fwd_body<T, N, REV, false>(a);
 }
 
 // Pass 2: per (row, d, n), the state entering each group, in scan order.
+template <int N>
 __global__ void __launch_bounds__(CARRY_THREADS)
 scan_fwd_carry_kernel(float* __restrict__ carry, const float* __restrict__ dsum,
                       const float* __restrict__ A, long long rows, int groups, int G, int Dd) {
@@ -410,46 +445,65 @@ scan_fwd_carry_kernel(float* __restrict__ carry, const float* __restrict__ dsum,
 
 // Pass 3: per (row, group, chunk) CTA, y and the tile-entry states from the
 // group's true entry state.
-template <typename T, bool REV>
+template <typename T, int N, bool REV>
 __global__ void __launch_bounds__(MAX_CH, OUT_CTAS_PER_SM) scan_fwd_out_kernel(Args a) {
-    scan_fwd_body<T, REV, true>(a);
+    scan_fwd_body<T, N, REV, true>(a);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <typename T, bool REV>
+template <typename T, int N, bool REV>
 int launch(const Args& a, long long rows, int threads, int smem_group, int smem_out,
            cudaStream_t stream) {
     // the plan's numbers, checked again (ops/selective_scan_cuda.py)
-    if (smem_group != fwd_smem<T, 1>() || smem_out != fwd_smem<T, 2>())
+    if (smem_group != fwd_smem<T, N, 1>() || smem_out != fwd_smem<T, N, 2>())
         return (int)cudaErrorInvalidValue;
     const long long grid = rows * a.groups * a.chunks;
     const long long carry_grid = (rows * a.Dd * N + CARRY_THREADS - 1) / CARRY_THREADS;
     if (grid > 0x7fffffffLL || carry_grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-    int e = set_smem(scan_fwd_group_kernel<T, REV>, smem_group);
-    if (e == 0) e = set_smem(scan_fwd_out_kernel<T, REV>, smem_out);
+    int e = set_smem(scan_fwd_group_kernel<T, N, REV>, smem_group);
+    if (e == 0) e = set_smem(scan_fwd_out_kernel<T, N, REV>, smem_out);
     if (e != 0) return e;
-    scan_fwd_group_kernel<T, REV><<<(unsigned)grid, threads, smem_group, stream>>>(a);
-    scan_fwd_carry_kernel<<<(unsigned)carry_grid, CARRY_THREADS, 0, stream>>>(
+    scan_fwd_group_kernel<T, N, REV><<<(unsigned)grid, threads, smem_group, stream>>>(a);
+    scan_fwd_carry_kernel<N><<<(unsigned)carry_grid, CARRY_THREADS, 0, stream>>>(
         a.carry, a.dsum, a.A, rows, a.groups, a.G, a.Dd);
-    scan_fwd_out_kernel<T, REV><<<(unsigned)grid, threads, smem_out, stream>>>(a);
+    scan_fwd_out_kernel<T, N, REV><<<(unsigned)grid, threads, smem_out, stream>>>(a);
     return (int)cudaGetLastError();
 }
 
-template <typename T, bool REV>
+template <typename T, int N, bool REV>
 int occupancy(int threads, int* out) {
     cudaFuncAttributes fa;
-    int e = (int)cudaFuncGetAttributes(&fa, scan_fwd_group_kernel<T, REV>);
+    int e = (int)cudaFuncGetAttributes(&fa, scan_fwd_group_kernel<T, N, REV>);
     out[1] = fa.numRegs;
     if (e == 0)
-        e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], scan_fwd_group_kernel<T, REV>,
-                                                               threads, fwd_smem<T, 1>());
-    if (e == 0) e = (int)cudaFuncGetAttributes(&fa, scan_fwd_out_kernel<T, REV>);
+        e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &out[0], scan_fwd_group_kernel<T, N, REV>, threads, fwd_smem<T, N, 1>());
+    if (e == 0) e = (int)cudaFuncGetAttributes(&fa, scan_fwd_out_kernel<T, N, REV>);
     out[3] = fa.numRegs;
     if (e == 0)
-        e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], scan_fwd_out_kernel<T, REV>,
-                                                               threads, fwd_smem<T, 2>());
+        e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &out[2], scan_fwd_out_kernel<T, N, REV>, threads, fwd_smem<T, N, 2>());
     return e;
+}
+
+template <int N>
+int launch_n(const Args& a, long long rows, int threads, int smem_group, int smem_out,
+             int dtype, int reverse, cudaStream_t s) {
+    if (dtype == MLAGG_BF16)
+        return reverse ? launch<__nv_bfloat16, N, true>(a, rows, threads, smem_group, smem_out, s)
+                       : launch<__nv_bfloat16, N, false>(a, rows, threads, smem_group, smem_out, s);
+    return reverse ? launch<float, N, true>(a, rows, threads, smem_group, smem_out, s)
+                   : launch<float, N, false>(a, rows, threads, smem_group, smem_out, s);
+}
+
+template <int N>
+int occupancy_n(int dtype, int reverse, int threads, int* out) {
+    if (dtype == MLAGG_BF16)
+        return reverse ? occupancy<__nv_bfloat16, N, true>(threads, out)
+                       : occupancy<__nv_bfloat16, N, false>(threads, out);
+    return reverse ? occupancy<float, N, true>(threads, out)
+                   : occupancy<float, N, false>(threads, out);
 }
 
 // the channels of a CTA for Dd channels: chunks of at most MAX_CH, as even as
@@ -462,10 +516,11 @@ void split_channels(int Dd, int* chunks, int* width, int* threads) {
 
 }  // namespace
 
-// u, delta: (batch, G, Dd, L); A: (G, Dd, 16) fp32; B, C: (batch, G, 16, L);
-// D, delta_bias: (G, Dd) fp32 or null; y: (batch, G, Dd, L) fp32; states:
-// (batch, G, ceil(L / 64), Dd, 16) fp32 or null. Scratch: carry (batch, G,
-// groups, Dd, 16) and dsum (batch, G, groups, Dd) fp32, groups =
+// u, delta: (batch, G, Dd, L); A: (G, Dd, N) fp32; B, C: (batch, G, N, L),
+// N = n_state, 1 or 16; D, delta_bias: (G, Dd) fp32 or null; y: (batch, G,
+// Dd, L) fp32; states: (batch, G, ceil(L / 64), Dd, N) fp32 or null.
+// Scratch: carry (batch, G, groups, Dd, N) and dsum (batch, G, groups, Dd)
+// fp32, groups =
 // ceil(ceil(L / 64) / tiles_per_cta). All contiguous. dtype: MLAGG_F32 or
 // MLAGG_BF16 for u, delta, B, C. `vec` (16-byte loads and stores) needs
 // L % 8 == 0 and 16-byte aligned u, delta, B, C, y. threads, smem_group and
@@ -477,7 +532,8 @@ extern "C" int mlagg_scan_fwd(const void* u, const void* delta, const float* A, 
                               int n_state, long long L, int softplus, int reverse, int dtype,
                               int tiles_per_cta, int vec, int threads, int smem_group,
                               int smem_out, void* stream) {
-    if (n_state != scan::N || tiles_per_cta < 1 || batch < 0 || G < 1 || Dd < 1 || L < 1)
+    if ((n_state != 1 && n_state != 16) || tiles_per_cta < 1 || batch < 0 || G < 1 || Dd < 1 ||
+        L < 1)
         return (int)cudaErrorInvalidValue;
     Args a;
     int want_threads;
@@ -500,19 +556,18 @@ extern "C" int mlagg_scan_fwd(const void* u, const void* delta, const float* A, 
     const long long rows = (long long)batch * G;
     if (rows == 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == MLAGG_BF16)
-        return reverse ? launch<__nv_bfloat16, true>(a, rows, threads, smem_group, smem_out, s)
-                       : launch<__nv_bfloat16, false>(a, rows, threads, smem_group, smem_out, s);
-    return reverse ? launch<float, true>(a, rows, threads, smem_group, smem_out, s)
-                   : launch<float, false>(a, rows, threads, smem_group, smem_out, s);
+    return n_state == 1
+               ? launch_n<1>(a, rows, threads, smem_group, smem_out, dtype, reverse, s)
+               : launch_n<16>(a, rows, threads, smem_group, smem_out, dtype, reverse, s);
 }
 
-// Resident CTAs per SM and registers per thread of passes 1 and 3 for CTAs of
-// `threads` threads: out = {pass 1 CTAs, pass 1 registers, pass 3 CTAs,
-// pass 3 registers} (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-extern "C" int mlagg_scan_fwd_occupancy(int dtype, int reverse, int threads, int* out) {
-    if (dtype == MLAGG_BF16)
-        return reverse ? occupancy<__nv_bfloat16, true>(threads, out)
-                       : occupancy<__nv_bfloat16, false>(threads, out);
-    return reverse ? occupancy<float, true>(threads, out) : occupancy<float, false>(threads, out);
+// Resident CTAs per SM and registers per thread of passes 1 and 3 at
+// n_state (1 or 16) for CTAs of `threads` threads: out = {pass 1 CTAs, pass
+// 1 registers, pass 3 CTAs, pass 3 registers}
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int mlagg_scan_fwd_occupancy(int n_state, int dtype, int reverse, int threads,
+                                        int* out) {
+    if (n_state == 1) return occupancy_n<1>(dtype, reverse, threads, out);
+    if (n_state == 16) return occupancy_n<16>(dtype, reverse, threads, out);
+    return (int)cudaErrorInvalidValue;
 }

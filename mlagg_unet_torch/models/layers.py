@@ -241,18 +241,22 @@ class DWConv2d(nn.Module):
 
 
 class ConvTransposeTorch(nn.Module):
-    """Transposed conv with torch's output size ``(in - 1) s - 2p + k``
-    (``layers.py:239``), 2-D or 3-D as the kernel's length says. ``weight``
-    is torch's (in, out, *kernel); the JAX kernel (*kernel, in, out) is the
-    same array, and JAX flips it in its forward because
-    ``conv_transpose2d`` / ``conv_transpose3d`` do. Groups are not
+    """Transposed conv with torch's output size ``(in - 1) s - 2p + k + op``
+    (``layers.py:239``), 2-D or 3-D as the kernel's length says;
+    ``output_padding`` ``op`` adds rows at the far end of each axis, as
+    monai's up blocks take it (``op = s + 2p - k``: exactly ``s`` times the
+    input). ``weight`` is torch's (in, out, *kernel); the JAX kernel
+    (*kernel, in, out) is the same array, and JAX flips it in its forward
+    because ``conv_transpose2d`` / ``conv_transpose3d`` do. Groups are not
     supported."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: IntOrN, stride: IntOrN, padding: IntOrN = 0):
+                 kernel_size: IntOrN, stride: IntOrN, padding: IntOrN = 0,
+                 output_padding: IntOrN = 0):
         super().__init__()
         k = _ntuple(kernel_size, 2)
         self.stride, self.padding = _ntuple(stride, len(k)), _ntuple(padding, len(k))
+        self.output_padding = _ntuple(output_padding, len(k))
         self.weight = _empty(in_channels, out_channels, *k)
         self.bias = _empty(out_channels)
 
@@ -263,7 +267,8 @@ class ConvTransposeTorch(nn.Module):
 
     def forward(self, x):
         x, w, b = promote_dtype(x, self.weight, self.bias)
-        y = _CONV_T[w.ndim - 2](_channels_first(x), w, b, self.stride, self.padding)
+        y = _CONV_T[w.ndim - 2](_channels_first(x), w, b, self.stride, self.padding,
+                                self.output_padding)
         return _channels_last(y)
 
 

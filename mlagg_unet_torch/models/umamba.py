@@ -21,9 +21,12 @@ UMambaBot_2d/3d.py and UMambaEnc_2d/3d.py:
   a ``BasicResBlock`` and ``BasicBlockD``s, and a 1x1 head per stage for
   deep supervision, highest resolution first.
 
-The SS3D variants (``bot_ss3d``, ``enc_ss3d``) need the 12-direction VSS
-block and the scan at d_state 1, which the port does not have yet.
-InstanceNorm takes its variance in two passes, as the port's U-Net does
+The SS3D variants (``umamba.py:207-233``; 3-D only, as the registry builds
+them) put the 12-direction VSS block of ``models/vmunet3d.py`` at d_state 1
+and without the z gate where the Mamba layers were: ``enc_ss3d`` one after
+every stage (the plain MLP, ratio 2 for the first two stages and 4 after,
+no channel-token mode), ``bot_ss3d`` one on the bottleneck skip (ConvGLU,
+ratio 4). InstanceNorm takes its variance in two passes, as the port's U-Net does
 (``layers.InstanceNorm``).
 """
 from __future__ import annotations
@@ -40,8 +43,9 @@ from mlagg_unet_torch.models.dynamic_unet import BasicBlockD
 from mlagg_unet_torch.models.layers import Conv, InstanceNorm, LayerNorm
 from mlagg_unet_torch.models.mamba_block import MambaBlock
 from mlagg_unet_torch.models.vmamba import build_seeded
+from mlagg_unet_torch.models.vmunet3d import VSSBlock3D
 
-MAMBA_MODES = ("bot", "enc")
+MAMBA_MODES = ("bot", "enc", "bot_ss3d", "enc_ss3d")
 
 
 def _lrelu(x):
@@ -116,7 +120,8 @@ def _halved_blocks(n_stages: int, enc: Sequence[int], dec: Sequence[int]):
 
 class UMambaUNet(nn.Module):
     """``mamba_mode`` 'bot': a Mamba layer on the bottleneck only; 'enc':
-    after every (3-D) or every other (2-D) encoder stage. ``input_size`` is
+    after every (3-D) or every other (2-D) encoder stage; 'bot_ss3d' /
+    'enc_ss3d': the 12-direction VSS block in those places. ``input_size`` is
     the plans' patch: it decides the channel-token stages and sizes their
     Mamba layers (the network then takes inputs of that size)."""
 
@@ -129,10 +134,6 @@ class UMambaUNet(nn.Module):
                  deep_supervision: bool = True, mamba_mode: str = "bot",
                  input_size: Optional[Sequence[int]] = None):
         super().__init__()
-        if mamba_mode in ("bot_ss3d", "enc_ss3d"):
-            raise NotImplementedError(
-                f"U-Mamba {mamba_mode!r} needs the 12-direction VSS block and the scan at "
-                "d_state 1, not ported yet (ROADMAP queue A, A16)")
         if mamba_mode not in MAMBA_MODES:
             raise ValueError(f"mamba_mode {mamba_mode!r}: one of {MAMBA_MODES}")
         n = n_stages
@@ -160,6 +161,10 @@ class UMambaUNet(nn.Module):
                 self.add_module(f"enc_mamba{s}", MambaLayer(
                     feats[s], channel_token=channel_token, spatial=math.prod(real)))
                 self.mamba_stages.append(s)
+            elif mamba_mode == "enc_ss3d":
+                self.add_module(f"enc_vss{s}", VSSBlock3D(
+                    feats[s], d_state=1, expand=2.0, mlp_ratio=2.0 if s < 2 else 4.0,
+                    no_z=True, mlp_type="plain"))
 
         self.stem_block0 = BasicResBlock(in_channels, feats[0], kernels[0], ones, True)
         for i in range(1, n_enc[0]):
@@ -174,6 +179,9 @@ class UMambaUNet(nn.Module):
             cin = feats[s]
         if mamba_mode == "bot":
             self.bot_mamba = MambaLayer(feats[-1])
+        elif mamba_mode == "bot_ss3d":
+            self.bot_vss0 = VSSBlock3D(feats[-1], d_state=1, expand=2.0, mlp_ratio=4.0,
+                                       no_z=True)
 
         for s in range(n - 1):
             width = feats[n - 2 - s]
@@ -201,9 +209,13 @@ class UMambaUNet(nn.Module):
                 x = getattr(self, f"stage{s}_block{i}")(x)
             if s in self.mamba_stages:
                 x = getattr(self, f"enc_mamba{s}")(x)
+            elif self.mamba_mode == "enc_ss3d":
+                x = getattr(self, f"enc_vss{s}")(x)
             skips.append(x)
         if self.mamba_mode == "bot":
             skips[-1] = self.bot_mamba(skips[-1])
+        elif self.mamba_mode == "bot_ss3d":
+            skips[-1] = self.bot_vss0(skips[-1])
         outputs = []
         lres = skips[-1]
         for s in range(n - 1):

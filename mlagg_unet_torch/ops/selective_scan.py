@@ -33,6 +33,8 @@ tiles; the tests and ``chip_smoke.py`` hold the kernel's design against it.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -85,6 +87,13 @@ def selective_scan_seq_ref(u, delta, A, B, C, D=None, delta_bias=None,
     return _add_d(y, u, D)
 
 
+def default_chunk(l: int) -> int:
+    """The plain scans' chunk: 256 steps, or more where L is long so that a
+    row walks at most 64 chunks (the loop over chunks is their cost on a
+    card: 16,384-step chunks at L = 1,048,576)."""
+    return max(256, 1 << max(0, (l - 1).bit_length() - 6))
+
+
 def _linear_scan(a, bx, h0):
     """h_k = a_k h_{k-1} + bx_k along axis -2 with h_{-1} = h0, for every k:
     an inclusive doubling scan of (a, bx) under (a1, b1) . (a2, b2) =
@@ -125,10 +134,12 @@ def _flip_l(*ts):
 
 
 def selective_scan(u, delta, A, B, C, D=None, delta_bias=None,
-                   delta_softplus: bool = False, chunk_size: int = 256,
+                   delta_softplus: bool = False, chunk_size: Optional[int] = None,
                    reverse: bool = False) -> torch.Tensor:
-    """Chunked scan: doubling scan within each chunk, state carried across
-    chunks. Returns (b, g, d, l) fp32."""
+    """Chunked scan: doubling scan within each chunk (``default_chunk``
+    steps unless given), state carried across chunks. Returns (b, g, d, l)
+    fp32."""
+    chunk_size = chunk_size or default_chunk(u.shape[-1])
     if reverse:
         u, delta, B, C = _flip_l(u, delta, B, C)
         return selective_scan(u, delta, A, B, C, D, delta_bias, delta_softplus,
@@ -214,11 +225,13 @@ def selective_scan_states(u, delta, A, B, C, delta_bias=None,
 def selective_scan_bwd_plain(u, delta, A, B, C, D=None, delta_bias=None,
                              delta_softplus: bool = False,
                              reverse: bool = False, gy=None,
-                             chunk_size: int = 256):
+                             chunk_size: Optional[int] = None):
     """Gradients of ``selective_scan`` for the output gradient ``gy``
     (b, g, d, l): (du, ddelta, dA, dB, dC, dD, ddelta_bias), each in its
     input's dtype (dD, ddelta_bias None where D, delta_bias are None).
-    fp32 arithmetic (fp64 for an fp64 u), no autograd graph."""
+    fp32 arithmetic (fp64 for an fp64 u), no autograd graph; chunks of
+    ``default_chunk`` steps unless given."""
+    chunk_size = chunk_size or default_chunk(u.shape[-1])
     if reverse:
         u, delta, B, C, gy = _flip_l(u, delta, B, C, gy)
         du, ddt, dA, dB, dC, dD, dbias = selective_scan_bwd_plain(

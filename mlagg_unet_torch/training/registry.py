@@ -13,8 +13,9 @@ gradient clip 12, deep supervision at the plans' scales. Its variants
 change the length, the optimizer, the loss, the schedule, the norm, the
 augmentation or the sampling, with the JAX entries' values. The model zoo's
 names are all registered with the JAX entries' values; the networks of
-U-Mamba Bot / Enc, VM-UNet, Mamba-UNet and Swin-UMamba(-D) are built, the
-others' raise when a trainer checks them (ROADMAP queue A, A16).
+U-Mamba Bot / Enc (also with SS3D), VM-UNet, Mamba-UNet, Swin-UMamba(-D),
+VM-UNet-3D (three forms) and MSVM-UNet are built, the others' raise when a
+trainer checks them (ROADMAP queue A, A16).
 """
 from __future__ import annotations
 
@@ -120,14 +121,35 @@ def _build_plans_unet_bn(configuration_manager, num_input_channels: int,
 def _build_umamba(mode: str):
     def build(configuration_manager, num_input_channels: int, num_output_channels: int,
               deep_supervision: bool, *, seed: int = 0, device: DeviceLike = "cuda"):
-        """U-Mamba Bot / Enc of the plans (``registry.py:103-117``), 2-D or 3-D."""
+        """U-Mamba Bot / Enc of the plans (``registry.py:103-138``), 2-D or 3-D;
+        the SS3D modes 3-D only."""
         from mlagg_unet_torch.models.umamba import build_umamba
 
         if not hasattr(configuration_manager, "pool_op_kernel_sizes"):
             raise ValueError("U-Mamba is built from the plans: pass the "
                              "ConfigurationManager, not a patch size")
+        if mode.endswith("_ss3d") and len(configuration_manager.patch_size) != 3:
+            raise ValueError(f"U-Mamba {mode} is a 3D network: give a 3D configuration")
         return build_umamba(configuration_manager, num_input_channels, num_output_channels,
                             deep_supervision, mode, seed=seed, device=device)
+
+    return build
+
+
+def _build_vmunet3d(swin: bool = False, new: bool = False):
+    def build(configuration_manager, num_input_channels: int, num_output_channels: int,
+              deep_supervision: bool, *, seed: int = 0, device: DeviceLike = "cuda",
+              **overrides):
+        """VM-UNet-3D at its reference widths (``registry.py:465-483``):
+        ``new`` drops the z gate and encoder5, ``swin`` takes the SwinT
+        bottleneck; no deep supervision."""
+        from mlagg_unet_torch.models.vmunet3d import build_vmunet3d
+
+        patch = getattr(configuration_manager, "patch_size", configuration_manager)
+        if len(patch) != 3:
+            raise ValueError("VMUNet3D is a 3D network: give a 3D configuration")
+        return build_vmunet3d(num_input_channels, num_output_channels, swin=swin, new=new,
+                              seed=seed, device=device, **overrides)
 
     return build
 
@@ -165,6 +187,12 @@ NETWORK_BUILDERS: Dict[str, Callable] = {
     "mamba_unet": _build_2d("mlagg_unet_torch.models.vmamba", "MambaUNet", False),
     "swin_umamba": _build_2d("mlagg_unet_torch.models.swin_umamba", "SwinUMamba", True),
     "swin_umamba_d": _build_2d("mlagg_unet_torch.models.swin_umamba", "SwinUMambaD", True),
+    "umamba_bot_ss3d": _build_umamba("bot_ss3d"),
+    "umamba_enc_ss3d": _build_umamba("enc_ss3d"),
+    "vmunet3d": _build_vmunet3d(),
+    "vmunet3d_new": _build_vmunet3d(new=True),
+    "vmunet3d_swint": _build_vmunet3d(swin=True, new=True),
+    "msvm_unet": _build_2d("mlagg_unet_torch.models.msvm_unet", "MSVMUNet", False),
 }
 
 

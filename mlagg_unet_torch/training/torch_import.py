@@ -2,12 +2,15 @@
 
 Copied from ``mlagg_unet_tpu/training/torch_import.py``: the reference's key
 rules of ``MLLA_Uper`` (``REFERENCE_FLAGSHIP_RULES``, the ConvTranspose
-keys), U-Mamba Bot / Enc, VM-UNet, Mamba-UNet and Swin-UMamba(-D)
-(``:109-258``, ``:305-350``), the converter to the JAX package's flat layout
-and ``CONVERTERS_BY_NETWORK`` for those networks (``:661-688``). Composed
-with ``weights.jax_params_to_state_dict`` they take a reference
-``fold_X/checkpoint_final.pth``'s ``network_weights`` to a state_dict the
-port's network loads with ``strict=True`` (``reference_state_dict_to_port``),
+keys), U-Mamba Bot / Enc (also SS3D, whose A_logs / Ds merge 12 scan
+paths), VM-UNet, Mamba-UNet, Swin-UMamba(-D), VM-UNet-3D and MSVM-UNet
+(``:109-258``, ``:305-350``, ``:583-604``), the converter to the JAX
+package's flat layout and ``CONVERTERS_BY_NETWORK`` for those networks
+(``:661-688``). Composed with ``weights.jax_params_to_state_dict`` (and the
+BatchNorm running statistics renamed to the port's buffers) they take a
+reference ``fold_X/checkpoint_final.pth``'s ``network_weights`` to a
+state_dict the port's network loads with ``strict=True``
+(``reference_state_dict_to_port``),
 and ``load_pretrained_torch_weights`` transfers a reference checkpoint's
 weights for fine-tuning (the train verb's ``-pretrained_weights``). The
 other families' converters wait for their models (ROADMAP queue A, A16).
@@ -169,6 +172,49 @@ REFERENCE_UMAMBA_RULES = [
 ]
 
 
+# VM-UNet-3D / VSSM_UNETR (nnUNetTrainer_VMUNet3D.py:660-808: 3D VSSM with
+# 12-direction SS3D cells + UNETR decoder)
+REFERENCE_VMUNET3D_RULES = [
+    (r"relative_position_index$", None),     # buffer, recomputed statically
+    (r"^vssm\.downsample\.0\.", "vssm.patch_embed."),
+    # PatchMerging3D.reduction = Sequential[Permute, Conv3d, Permute, LN]
+    (r"^vssm\.downsample\.(\d+)\.reduction\.1\.", r"vssm.merge\1.reduction."),
+    (r"^vssm\.downsample\.(\d+)\.reduction\.3\.", r"vssm.merge\1.norm."),
+    (r"^vssm\.layers\.(\d+)\.blocks\.(\d+)\.", r"vssm.stage\1_block\2."),
+    (r"\.mlp\.dwconv\.dwconv\.", ".mlp.dwconv."),
+    (r"^(encoder\d)\.layer\.", r"\1."),
+    (r"\.transp_conv\.conv\.", ".transp_conv."),
+    (r"\.(conv1|conv2|conv3)\.conv\.", r".\1."),
+    (r"^((?:encoder|decoder)\d.*)\.(norm1|norm2|norm3)\.", r"\1.\2.GroupNorm_0."),
+    (r"^out\.conv\.conv\.", "out."),
+]
+
+
+# MSVM-UNet (nnUNetTrainer_MSVM_UNet.py:2685-2960: VSSM tiny_0230s encoder +
+# LKPE/MSVSS decoder)
+REFERENCE_MSVM_RULES = [
+    (r"^encoder\.layer0\.0\.", "encoder.patch_embed.conv1."),
+    (r"^encoder\.layer0\.2\.", "encoder.patch_embed.norm1."),
+    (r"^encoder\.layer1\.0\.", "encoder.patch_embed.conv2."),
+    (r"^encoder\.layer1\.2\.", "encoder.patch_embed.norm2."),
+    (r"^encoder\.layers\.(\d+)\.blocks\.(\d+)\.", r"encoder.layer\1_block\2."),
+    (r"^encoder\.downsamples\.(\d+)\.1\.", r"encoder.downsample\1.conv."),
+    (r"^encoder\.downsamples\.(\d+)\.3\.", r"encoder.downsample\1.norm."),
+    (r"^decoder\.layers\.(\d+)\.up\.expand\.0\.", r"up\1.up.expand_conv1."),
+    (r"^decoder\.layers\.(\d+)\.up\.expand\.1\.", r"up\1.up.bn."),
+    (r"^decoder\.layers\.(\d+)\.up\.expand\.3\.", r"up\1.up.expand_dwconv."),
+    (r"^decoder\.layers\.(\d+)\.up\.norm\.", r"up\1.up.norm."),
+    (r"^decoder\.layers\.(\d+)\.concat_layer\.", r"up\1.concat_layer."),
+    (r"^decoder\.layers\.(\d+)\.vss_layer\.blocks\.(\d+)\.", r"up\1.block\2."),
+    (r"^decoder\.out_layers\.0\.expand\.0\.", "final.expand_conv1."),
+    (r"^decoder\.out_layers\.0\.expand\.1\.", "final.bn."),
+    (r"^decoder\.out_layers\.0\.expand\.3\.", "final.expand_dwconv."),
+    (r"^decoder\.out_layers\.0\.norm\.", "final.norm."),
+    (r"^decoder\.out_layers\.0\.out\.", "final.out."),
+    (r"\.multiscale_conv\.dw_convs\.(\d+)\.", r".multiscale_conv.dw\1."),
+]
+
+
 # VM-UNet (nnUNetTrainer_VMUNet.py:713-880); SS2D-internal names match the
 # cell directly
 REFERENCE_VMUNET_RULES = [
@@ -226,6 +272,23 @@ def convert_reference_mamba_unet_state_dict(state_dict
                                          REFERENCE_MAMBA_UNET_RULES)
 
 
+def convert_reference_umamba_ss3d_state_dict(state_dict) -> Dict[str, np.ndarray]:
+    """torch UMambaBot/Enc_SS3D state_dict -> flax layout (the VSS blocks'
+    A_logs / Ds merge K = 12 scan paths)."""
+    return _convert_reference_state_dict(state_dict, REFERENCE_UMAMBA_RULES, k_dirs=12)
+
+
+def convert_reference_vmunet3d_state_dict(state_dict) -> Dict[str, np.ndarray]:
+    """torch VSSM_UNETR state_dict -> flax layout (K = 12 scan paths)."""
+    return _convert_reference_state_dict(state_dict, REFERENCE_VMUNET3D_RULES, k_dirs=12)
+
+
+def convert_reference_msvm_state_dict(state_dict) -> Dict[str, np.ndarray]:
+    """torch MSVMUNet state_dict -> flax layout. BatchNorm running statistics
+    come out as .../running_mean|running_var."""
+    return _convert_reference_state_dict(state_dict, REFERENCE_MSVM_RULES)
+
+
 def _swin_umamba_d_converter(state_dict):
     return convert_reference_swin_umamba_state_dict(state_dict,
                                                     d_variant=True)
@@ -239,6 +302,12 @@ CONVERTERS_BY_NETWORK = {
     "mamba_unet": convert_reference_mamba_unet_state_dict,
     "swin_umamba": convert_reference_swin_umamba_state_dict,
     "swin_umamba_d": _swin_umamba_d_converter,
+    "umamba_bot_ss3d": convert_reference_umamba_ss3d_state_dict,
+    "umamba_enc_ss3d": convert_reference_umamba_ss3d_state_dict,
+    "vmunet3d": convert_reference_vmunet3d_state_dict,
+    "vmunet3d_new": convert_reference_vmunet3d_state_dict,
+    "vmunet3d_swint": convert_reference_vmunet3d_state_dict,
+    "msvm_unet": convert_reference_msvm_state_dict,
 }
 
 
@@ -254,11 +323,16 @@ def _converter(network_key: str):
     return conv
 
 
+_RUNNING_STATS = _re.compile(r"/running_(mean|var)$")
+
+
 def reference_state_dict_to_port(network_key: str, state_dict) -> Dict[str, torch.Tensor]:
     """A reference state_dict of the network ``network_key`` (a registry
     network) -> the port's state_dict of that network
-    (``load_state_dict(strict=True)``)."""
-    return jax_params_to_state_dict(_converter(network_key)(state_dict))
+    (``load_state_dict(strict=True)``); BatchNorm's running statistics go to
+    the port's ``mean`` / ``var`` buffers (flax's ``batch_stats`` leaves)."""
+    flat = _converter(network_key)(state_dict)
+    return jax_params_to_state_dict({_RUNNING_STATS.sub(r"/\1", k): v for k, v in flat.items()})
 
 
 def load_torch_checkpoint_state_dict(path: str):

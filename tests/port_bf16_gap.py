@@ -1,18 +1,22 @@
-"""How far bf16 serving sits from fp32 for the U-Mambas and VM-UNet, in the
+"""How far bf16 serving sits from fp32 for the Mamba zoo's networks, in the
 JAX package and in the port, on the CPU.
 
-Both packages compute in bf16 as their predictors do: the parameters and
+Both packages compute in bf16 as their predictors do: the variables and
 the input cast to bf16, the network applied, the output read in fp32. The
 networks run at full width on a plan cut for the CPU (U-Mambas: nnU-Net's
-2d topology at 160x160, 6 stages, 32-512 features; VM-UNet at its
-published widths on 160x160), from one seeded JAX param tree loaded into
-the port, on a seeded batch of 2. For each network it prints the rel L2 of
-bf16 against fp32 in each package and of the port's bf16 against JAX's.
+2d topology at 160x160, 6 stages, 32-512 features; VM-UNet and MSVM-UNet
+at their published widths on 160x160; the SS3D U-Mambas on the 3-D bench
+topology, 6 stages, 32-320 features, and VM-UNet-3D at its published
+widths, on 16x64x64), from one seeded JAX param tree (BatchNorm's running
+statistics at flax's init) loaded into the port, on a seeded batch (2 in
+2-D, 1 in 3-D). For each network it prints the rel L2 of bf16 against fp32
+in each package and of the port's bf16 against JAX's.
 
     python tests/port_bf16_gap.py [network ...]
 
-Networks: umamba_bot, umamba_enc, vmunet (all by default). Takes a few
-minutes and a few GiB on the CPU.
+Networks: umamba_bot, umamba_enc, vmunet, umamba_bot_ss3d, umamba_enc_ss3d,
+vmunet3d, vmunet3d_new, vmunet3d_swint, msvm_unet (all by default). Takes a
+few minutes and a few GiB on the CPU.
 """
 import os
 import sys
@@ -29,11 +33,16 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from mlagg_unet_tpu.models import msvm_unet as JMS  # noqa: E402
 from mlagg_unet_tpu.models import umamba as JUM  # noqa: E402
 from mlagg_unet_tpu.models import vmamba as JVM  # noqa: E402
+from mlagg_unet_tpu.models import vmunet3d as JV3  # noqa: E402
+from mlagg_unet_torch.models import msvm_unet as TMS  # noqa: E402
 from mlagg_unet_torch.models import umamba as TUM  # noqa: E402
 from mlagg_unet_torch.models import vmamba as TVM  # noqa: E402
-from test_torch_port_mamba import load, mamba_params  # noqa: E402
+from mlagg_unet_torch.models import vmunet3d as TV3  # noqa: E402
+from mlagg_unet_torch.weights import jax_variables_to_state_dict  # noqa: E402
+from test_torch_port_mamba import mamba_params  # noqa: E402
 
 PATCH = (160, 160)
 CM = SimpleNamespace(
@@ -41,15 +50,36 @@ CM = SimpleNamespace(
     conv_kernel_sizes=[[3, 3]] * 6, pool_op_kernel_sizes=[[1, 1]] + [[2, 2]] * 5,
     n_conv_per_stage_encoder=[2] * 6, n_conv_per_stage_decoder=[2] * 5)
 CLASSES = 4
+PATCH_3D = (16, 64, 64)
+CM_3D = SimpleNamespace(
+    patch_size=list(PATCH_3D), UNet_base_num_features=32, unet_max_num_features=320,
+    conv_kernel_sizes=[[3, 3, 3]] * 6,
+    pool_op_kernel_sizes=[[1, 1, 1]] + [[2, 2, 2]] * 4 + [[1, 2, 2]],
+    n_conv_per_stage_encoder=[2] * 6, n_conv_per_stage_decoder=[2] * 5)
+CLASSES_3D = 3
 
 
 def networks():
+    """name: () -> (JAX module, port module, input shape)."""
+    def umamba(cm, classes, mode):
+        return (JUM.umamba_from_plans(cm, 1, classes, False, mode),
+                TUM.umamba_from_plans(cm, 1, classes, False, mode))
+
+    def vmunet3d(**kw):
+        return JV3.VMUNet3D(num_classes=CLASSES_3D, **kw), TV3.VMUNet3D(1, CLASSES_3D, **kw)
+
+    x2, x3 = (2, *PATCH, 1), (1, *PATCH_3D, 1)
+    new = dict(no_z=True, use_encoder5=False)
     return {
-        "umamba_bot": lambda: (JUM.umamba_from_plans(CM, 1, CLASSES, False, "bot"),
-                               TUM.umamba_from_plans(CM, 1, CLASSES, False, "bot")),
-        "umamba_enc": lambda: (JUM.umamba_from_plans(CM, 1, CLASSES, False, "enc"),
-                               TUM.umamba_from_plans(CM, 1, CLASSES, False, "enc")),
-        "vmunet": lambda: (JVM.VMUNet(num_classes=CLASSES), TVM.VMUNet(1, CLASSES)),
+        "umamba_bot": lambda: (*umamba(CM, CLASSES, "bot"), x2),
+        "umamba_enc": lambda: (*umamba(CM, CLASSES, "enc"), x2),
+        "vmunet": lambda: (JVM.VMUNet(num_classes=CLASSES), TVM.VMUNet(1, CLASSES), x2),
+        "umamba_bot_ss3d": lambda: (*umamba(CM_3D, CLASSES_3D, "bot_ss3d"), x3),
+        "umamba_enc_ss3d": lambda: (*umamba(CM_3D, CLASSES_3D, "enc_ss3d"), x3),
+        "vmunet3d": lambda: (*vmunet3d(), x3),
+        "vmunet3d_new": lambda: (*vmunet3d(**new), x3),
+        "vmunet3d_swint": lambda: (*vmunet3d(**new, last_stage_swin=True), x3),
+        "msvm_unet": lambda: (JMS.MSVMUNet(num_classes=CLASSES), TMS.MSVMUNet(1, CLASSES), x2),
     }
 
 
@@ -64,22 +94,32 @@ def first(o):
 
 def main(names):
     torch.set_num_threads(min(8, os.cpu_count() or 1))
-    x = np.random.RandomState(6).rand(2, *PATCH, 1).astype(np.float32)
     for name in names:
         t0 = time.perf_counter()
-        jm, tm = networks()[name]()
-        params = mamba_params(jm, jnp.asarray(x))
+        jm, tm, shape = networks()[name]()
+        x = np.random.RandomState(6).rand(*shape).astype(np.float32)
+        variables = {"params": mamba_params(jm, jnp.asarray(x))}
+        stats = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.asarray(x)).get("batch_stats")
+        if stats:  # flax's init: mean 0, var 1
+            variables["batch_stats"] = jax.tree_util.tree_map_with_path(
+                lambda path, v: jnp.full(v.shape, 0.0 if path[-1].key == "mean" else 1.0,
+                                         v.dtype), stats)
         apply = jax.jit(jm.apply)
-        j32 = np.asarray(first(apply({"params": params}, jnp.asarray(x))), np.float32)
-        p16 = jax.tree_util.tree_map(lambda v: v.astype(jnp.bfloat16), params)
-        j16 = first(apply({"params": p16}, jnp.asarray(x, jnp.bfloat16)))
+        j32 = np.asarray(first(apply(variables, jnp.asarray(x))), np.float32)
+        v16 = jax.tree_util.tree_map(lambda v: v.astype(jnp.bfloat16), variables)
+        j16 = first(apply(v16, jnp.asarray(x, jnp.bfloat16)))
         jdt, j16 = j16.dtype, np.asarray(j16, np.float32)
-        net = load(tm, params)
+        numpy_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+        net = tm.eval()
+        net.load_state_dict(jax_variables_to_state_dict(
+            numpy_tree(variables["params"]),
+            {"batch_stats": numpy_tree(stats and variables["batch_stats"])} if stats else None),
+            strict=True)
         with torch.no_grad():
             t32 = first(net(torch.from_numpy(x))).numpy()
             t16 = first(net.to(torch.bfloat16)(torch.from_numpy(x).to(torch.bfloat16)))
             tdt, t16 = t16.dtype, t16.float().numpy()
-        print(f"{name} at {PATCH}, batch 2: bf16 vs fp32 rel L2 JAX {rel_l2(j16, j32):.3e}, "
+        print(f"{name} at {shape[1:-1]}, batch {shape[0]}: bf16 vs fp32 rel L2 JAX {rel_l2(j16, j32):.3e}, "
               f"port {rel_l2(t16, t32):.3e}; port bf16 vs JAX bf16 {rel_l2(t16, j16):.3e}, "
               f"fp32 {rel_l2(t32, j32):.3e}; output dtypes JAX {jdt}, port {tdt} "
               f"({time.perf_counter() - t0:.0f} s)", flush=True)

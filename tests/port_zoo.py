@@ -1,0 +1,379 @@
+"""The Mamba zoo's networks of both packages at tiny widths, and the checks
+the zoo's test files run on each: the forward in fp32 against JAX, bf16
+against JAX's bf16, the param tree both ways, and a reference-format
+``.pth`` through JAX's converter and the port's.
+
+Each test file of the zoo (``test_torch_port_zoo_*.py``,
+``test_torch_port_mamba_zoo.py``) builds its own few networks with
+``build_nets`` in a module fixture, so a file's fixture costs only its own
+networks' JAX compiles. Weights come from numpy seeds into the JAX param
+tree (``test_torch_port_mamba.mamba_params``; BatchNorm's running statistics
+drawn beside them), then ``jax_variables_to_state_dict`` ->
+``load_state_dict(strict=True)``; inputs from numpy seeds. Every fp32 output
+is held within 1e-4 x max|ref| (+1e-5), a bf16 output within twice the
+distance bf16 moves JAX's own network.
+"""
+import copy
+import re
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from mlagg_unet_tpu.models import msvm_unet as JMS
+from mlagg_unet_tpu.models import swin_umamba as JSU
+from mlagg_unet_tpu.models import umamba as JUM
+from mlagg_unet_tpu.models import vmamba as JVM
+from mlagg_unet_tpu.models import vmunet3d as JV3
+from mlagg_unet_tpu.training import torch_import as jti
+from mlagg_unet_torch.models import msvm_unet as TMS
+from mlagg_unet_torch.models import swin_umamba as TSU
+from mlagg_unet_torch.models import umamba as TUM
+from mlagg_unet_torch.models import vmamba as TVM
+from mlagg_unet_torch.models import vmunet3d as TV3
+from mlagg_unet_torch.training import torch_import as tti
+from mlagg_unet_torch.weights import (
+    jax_params_to_state_dict,
+    jax_variables_to_state_dict,
+    state_dict_to_jax_params,
+)
+from port_helpers import assert_close, flat_params
+from test_torch_port_mamba import mamba_params
+
+T = torch.from_numpy
+
+# tiny plans: 2-D puts stage 3 (4x4 = 16 <= 16 channels) in channel-token
+# mode, 3-D stages 2 (2x4x4 = 32 <= 32) and 3 (1x2x2 = 4 <= 32); Enc 2-D has
+# Mamba layers after stages 1 and 3, Enc 3-D after every stage (stage 0:
+# 2048 tokens). At 3-D widths 4-16 this network is ill-conditioned: JAX's own
+# output moves by up to 3.4e-4 x max under a 1e-7 relative change of the
+# input, so the 3-D plan runs at widths 8-32 (2e-5 to 3e-5 there).
+CM_2D = SimpleNamespace(
+    patch_size=[32, 32], pool_op_kernel_sizes=[[1, 1], [2, 2], [2, 2], [2, 2]],
+    conv_kernel_sizes=[[3, 3]] * 4, UNet_base_num_features=4, unet_max_num_features=16,
+    n_conv_per_stage_encoder=[2, 2, 2, 2], n_conv_per_stage_decoder=[2, 2, 2])
+CM_3D = SimpleNamespace(
+    patch_size=[8, 16, 16], pool_op_kernel_sizes=[[1, 1, 1], [2, 2, 2], [2, 2, 2], [2, 2, 2]],
+    conv_kernel_sizes=[[1, 3, 3], [3, 3, 3], [3, 3, 3], [3, 3, 3]], UNet_base_num_features=8,
+    unet_max_num_features=32, n_conv_per_stage_encoder=[2, 2, 2, 2],
+    n_conv_per_stage_decoder=[2, 2, 2])
+DIMS = (8, 16, 32, 64)
+# VM-UNet's last LayerNorm normalises dims[0] / 4 channels: at dims[0] = 8
+# two, and JAX's own output then moves by 3.8e-3 x max under a 1e-7
+# relative change of the input; at 16 (four channels) by under 1e-5
+VMUNET_DIMS = (16, 32, 64, 128)
+# Enc 3-D runs four Mamba layers and norms over a few voxels in fp32: JAX's
+# own fp32 output is 1.9e-4 x max from its fp64 one there, the port's 3.8e-5;
+# its reference is JAX in fp64
+FP64_REFERENCE = ("umamba_enc_3d",)
+# VM-UNet-3D: the 2-4-4 patch, then 2-2-2, 2-2-2, 1-2-2: a 8x32x32 input
+# ends at 1x1x1; the SwinT variant takes 16x64x64 so that its last stage is
+# 2x2x2 and the (5, 6, 7) window is clamped to it
+VMUNET3D = dict(dims=DIMS)
+MSVM = dict(dims=(16, 32, 64, 128), depths=(1, 1, 2, 1), decoder_depths=(1, 1, 1, 1))
+
+
+def x_of(shape, seed=0):
+    return jnp.asarray(np.random.RandomState(seed).randn(*shape).astype(np.float32))
+
+
+def _umamba(cm, mode):
+    return (JUM.umamba_from_plans(cm, 1, 3, True, mode), TUM.umamba_from_plans(cm, 1, 3, True, mode),
+            x_of((2, *cm.patch_size, 1)))
+
+
+def _vmunet3d(**kw):
+    return JV3.VMUNet3D(num_classes=3, **VMUNET3D, **kw), TV3.VMUNet3D(1, 3, **VMUNET3D, **kw)
+
+
+# name: () -> (JAX module, port module, input, network key of the converter).
+# The order fixes each network's seed.
+FACTORIES = {
+    "umamba_bot_2d": lambda: (*_umamba(CM_2D, "bot"), "umamba_bot"),
+    "umamba_enc_2d": lambda: (*_umamba(CM_2D, "enc"), "umamba_enc"),
+    "umamba_bot_3d": lambda: (*_umamba(CM_3D, "bot"), "umamba_bot"),
+    "umamba_enc_3d": lambda: (*_umamba(CM_3D, "enc"), "umamba_enc"),
+    "vmunet": lambda: (JVM.VMUNet(num_classes=3, dims=VMUNET_DIMS),
+                       TVM.VMUNet(1, 3, dims=VMUNET_DIMS), x_of((1, 64, 64, 1)), "vmunet"),
+    "mamba_unet": lambda: (JVM.MambaUNet(num_classes=3, dims=DIMS), TVM.MambaUNet(1, 3, dims=DIMS),
+                           x_of((1, 64, 64, 1)), "mamba_unet"),
+    "swin_umamba": lambda: (JSU.SwinUMamba(num_classes=2, feat_size=(4, 8, 16, 32, 64),
+                                           hidden_size=64, vssm_depths=(1, 1, 1, 1),
+                                           deep_supervision=True),
+                            TSU.SwinUMamba(1, 2, feat_size=(4, 8, 16, 32, 64), hidden_size=64,
+                                           vssm_depths=(1, 1, 1, 1), deep_supervision=True),
+                            x_of((1, 64, 64, 1)), "swin_umamba"),
+    "swin_umamba_d": lambda: (JSU.SwinUMambaD(num_classes=2, dims=DIMS, deep_supervision=True),
+                              TSU.SwinUMambaD(1, 2, dims=DIMS, deep_supervision=True),
+                              x_of((1, 64, 64, 1)), "swin_umamba_d"),
+    "umamba_bot_ss3d": lambda: (*_umamba(CM_3D, "bot_ss3d"), "umamba_bot_ss3d"),
+    "umamba_enc_ss3d": lambda: (*_umamba(CM_3D, "enc_ss3d"), "umamba_enc_ss3d"),
+    "vmunet3d": lambda: (*_vmunet3d(), x_of((1, 8, 32, 32, 1)), "vmunet3d"),
+    "vmunet3d_new": lambda: (*_vmunet3d(no_z=True, use_encoder5=False),
+                             x_of((1, 8, 32, 32, 1)), "vmunet3d_new"),
+    "vmunet3d_swint": lambda: (*_vmunet3d(no_z=True, use_encoder5=False, last_stage_swin=True,
+                                          num_heads=2),
+                               x_of((1, 16, 64, 64, 1)), "vmunet3d_swint"),
+    "msvm_unet": lambda: (JMS.MSVMUNet(num_classes=3, **MSVM), TMS.MSVMUNet(1, 3, **MSVM),
+                          x_of((1, 64, 64, 1)), "msvm_unet"),
+}
+ORDER = list(FACTORIES)
+
+
+def outputs(o):
+    return list(o) if isinstance(o, (list, tuple)) else [o]
+
+
+def _batch_stats(jm, x, seed):
+    """The module's ``batch_stats`` (BatchNorm's running mean and variance),
+    drawn from numpy near flax's init; {} for a network without them."""
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), x)
+    if "batch_stats" not in shapes:
+        return {}
+    rs = np.random.RandomState(seed + 2000)
+    return jax.tree_util.tree_map_with_path(
+        lambda path, leaf: jnp.asarray(np.asarray(
+            0.1 * rs.randn(*leaf.shape) if path[-1].key == "mean"
+            else 1 + 0.2 * rs.rand(*leaf.shape), np.float32)), shapes["batch_stats"])
+
+
+def build_nets(names):
+    """Each named network of both packages with one seeded variable tree,
+    JAX's output on the seeded input (jitted), and the port's network
+    holding the same weights."""
+    out = {}
+    for name in names:
+        jm, tm, x, key = FACTORIES[name]()
+        seed = ORDER.index(name)
+        params = mamba_params(jm, x, seed=seed)
+        variables = {"params": params}
+        stats = _batch_stats(jm, x, seed)
+        if stats:
+            variables["batch_stats"] = stats
+        apply = jax.jit(jm.apply)
+        if name in FP64_REFERENCE:
+            with jax.enable_x64():
+                f64 = lambda t: jnp.asarray(np.asarray(t), jnp.float64)  # noqa: E731
+                ref = [np.asarray(r, np.float32) for r in outputs(jax.jit(jm.apply)(
+                    jax.tree_util.tree_map(f64, variables), f64(x)))]
+        else:
+            ref = apply(variables, x)
+        numpy_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+        tm.load_state_dict(jax_variables_to_state_dict(
+            numpy_tree(params), {"batch_stats": numpy_tree(stats)} if stats else None),
+            strict=True)
+        out[name] = dict(jm=jm, apply=apply, tm=tm.eval(), x=x, key=key, params=params,
+                         stats=stats, variables=variables, ref=ref)
+    return out
+
+
+def check_forward(n):
+    """Every output (each deep-supervision scale) of the port's network
+    equals JAX's within 1e-4."""
+    with torch.no_grad():
+        got = outputs(n["tm"](T(np.array(n["x"]))))
+    ref = outputs(n["ref"])
+    assert len(got) == len(ref) >= 1
+    for g, r in zip(got, ref):
+        assert_close(g, np.asarray(r))
+
+
+def rel_l2(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def check_bf16(n):
+    """In bf16 (the variables and the input cast, as both predictors do) the
+    port computes JAX's function: every output answers in JAX's dtype, the
+    port's bf16 output sits from its fp32 output within twice the distance
+    JAX's sits from JAX's fp32 output, and from JAX's bf16 output within
+    twice that distance too."""
+    v16 = jax.tree_util.tree_map(lambda v: v.astype(jnp.bfloat16), n["variables"])
+    j16 = outputs(n["apply"](v16, n["x"].astype(jnp.bfloat16)))
+    j32 = outputs(n["apply"](n["variables"], n["x"]))
+    x = T(np.array(n["x"]))
+    with torch.no_grad():
+        t32 = outputs(n["tm"](x))
+        t16 = outputs(copy.deepcopy(n["tm"]).to(torch.bfloat16)(x.to(torch.bfloat16)))
+    assert len(t16) == len(j16)
+    for a, b in zip(t16, j16):
+        assert str(a.dtype).replace("torch.", "") == str(b.dtype)
+    gap = rel_l2(np.asarray(j16[0], np.float32), np.asarray(j32[0]))
+    assert 0 < rel_l2(t16[0].float(), t32[0]) <= 2 * gap
+    assert rel_l2(t16[0].float(), np.asarray(j16[0], np.float32)) <= 2 * gap
+
+
+def check_tree(n):
+    """JAX tree -> state_dict -> JAX tree, exactly, for every parameter."""
+    flat = flat_params(n["params"])
+    back = state_dict_to_jax_params(jax_params_to_state_dict(flat), flat)
+    assert back.keys() == flat.keys()
+    for k in flat:
+        np.testing.assert_array_equal(back[k], flat[k], err_msg=k)
+
+
+# --------------------------------------------------------------- reference .pth
+_SWIN_SHARED = [
+    (r"^vssm_encoder\.patch_embed_proj\.", "vssm_encoder.patch_embed.proj."),
+    (r"^vssm_encoder\.patch_embed_norm\.", "vssm_encoder.patch_embed.norm."),
+    (r"^vssm_encoder\.layer(\d+)\.block(\d+)\.", r"vssm_encoder.layers.\1.blocks.\2."),
+    (r"^vssm_encoder\.downsample(\d+)\.", r"vssm_encoder.downsamples.\1."),
+]
+_UMAMBA = [
+    (r"^stem_block(\d+)\.", r"encoder.stem.\1."),
+    (r"^stage(\d+)_block(\d+)\.", r"encoder.stages.\1.\2."),
+    (r"^enc_mamba(\d+)\.", r"encoder.mamba_layers.\1."),
+    (r"^bot_mamba\.", "mamba_layer."),
+    (r"^up(\d+)\.", r"decoder.upsample_layers.\1."),
+    (r"^dec_stage(\d+)_block(\d+)\.", r"decoder.stages.\1.\2."),
+    (r"^seg(\d+)\.", r"decoder.seg_layers.\1."),
+    (r"\.GroupNorm_0\.", "."),
+]
+_VMUNET3D = [
+    (r"^vssm\.patch_embed\.", "vssm.downsample.0."),
+    (r"^vssm\.merge(\d+)\.reduction\.", r"vssm.downsample.\1.reduction.1."),
+    (r"^vssm\.merge(\d+)\.norm\.", r"vssm.downsample.\1.reduction.3."),
+    (r"^vssm\.stage(\d+)_block(\d+)\.", r"vssm.layers.\1.blocks.\2."),
+    (r"\.mlp\.dwconv\.", ".mlp.dwconv.dwconv."),
+    (r"^(encoder\d)\.", r"\1.layer."),
+    (r"\.transp_conv\.", ".transp_conv.conv."),
+    (r"\.(conv1|conv2|conv3)\.", r".\1.conv."),
+    (r"\.GroupNorm_0\.", "."),
+    (r"^out\.", "out.conv.conv."),
+]
+_MSVM = [
+    (r"^encoder\.patch_embed\.conv1\.", "encoder.layer0.0."),
+    (r"^encoder\.patch_embed\.norm1\.", "encoder.layer0.2."),
+    (r"^encoder\.patch_embed\.conv2\.", "encoder.layer1.0."),
+    (r"^encoder\.patch_embed\.norm2\.", "encoder.layer1.2."),
+    (r"^encoder\.layer(\d+)_block(\d+)\.", r"encoder.layers.\1.blocks.\2."),
+    (r"^encoder\.downsample(\d+)\.conv\.", r"encoder.downsamples.\1.1."),
+    (r"^encoder\.downsample(\d+)\.norm\.", r"encoder.downsamples.\1.3."),
+    (r"^up(\d+)\.up\.expand_conv1\.", r"decoder.layers.\1.up.expand.0."),
+    (r"^up(\d+)\.up\.bn\.", r"decoder.layers.\1.up.expand.1."),
+    (r"^up(\d+)\.up\.expand_dwconv\.", r"decoder.layers.\1.up.expand.3."),
+    (r"^up(\d+)\.up\.norm\.", r"decoder.layers.\1.up.norm."),
+    (r"^up(\d+)\.concat_layer\.", r"decoder.layers.\1.concat_layer."),
+    (r"^up(\d+)\.block(\d+)\.", r"decoder.layers.\1.vss_layer.blocks.\2."),
+    (r"^final\.expand_conv1\.", "decoder.out_layers.0.expand.0."),
+    (r"^final\.bn\.", "decoder.out_layers.0.expand.1."),
+    (r"^final\.expand_dwconv\.", "decoder.out_layers.0.expand.3."),
+    (r"^final\.norm\.", "decoder.out_layers.0.norm."),
+    (r"^final\.out\.", "decoder.out_layers.0.out."),
+    (r"\.multiscale_conv\.dw(\d+)\.", r".multiscale_conv.dw_convs.\1."),
+]
+# the port's (flax's) names -> the reference's, the inverse of each family's
+# REFERENCE_*_RULES
+TO_REFERENCE = {
+    "umamba_bot": _UMAMBA,
+    "umamba_enc": _UMAMBA,
+    "umamba_bot_ss3d": [(r"^bot_vss(\d+)\.", r"mamba_layer.blocks.\1."),
+                        (r"^enc_vss(\d+)\.", r"encoder.mamba_layers.\1.blocks.0."),
+                        (r"\.mlp\.dwconv\.", ".mlp.dwconv.dwconv.")] + _UMAMBA,
+    "vmunet": [
+        (r"^patch_embed\.", "vmunet.patch_embed.proj."),
+        (r"^patch_norm\.", "vmunet.patch_embed.norm."),
+        (r"^layer(\d+)_block(\d+)\.", r"vmunet.layers.\1.blocks.\2."),
+        (r"^downsample(\d+)\.", r"vmunet.layers.\1.downsample."),
+        (r"^uplayer(\d+)_block(\d+)\.", r"vmunet.layers_up.\1.blocks.\2."),
+        (r"^up(\d+)\.", r"vmunet.layers_up.\1.upsample."),
+        (r"^(final_up|final_conv)\.", r"vmunet.\1."),
+    ],
+    "mamba_unet": [
+        (r"^patch_embed\.", "patch_embed.proj."),
+        (r"^patch_norm\.", "patch_embed.norm."),
+        (r"^layer(\d+)_block(\d+)\.", r"layers.\1.blocks.\2."),
+        (r"^downsample(\d+)\.", r"layers.\1.downsample."),
+        (r"^up0\.", "layers_up.0."),
+        (r"^uplayer(\d+)_block(\d+)\.", r"layers_up.\1.blocks.\2."),
+        (r"^up(\d+)\.", r"layers_up.\1.upsample."),
+        (r"^concat_back(\d+)\.", r"concat_back_dim.\1."),
+    ],
+    "swin_umamba": _SWIN_SHARED + [
+        (r"^stem_conv\.", "stem.0."),
+        (r"^stem_norm\.GroupNorm_0\.", "stem.1."),
+        (r"^out(\d+)\.conv\.", r"out_layers.\1.conv.conv."),
+        (r"\.transp_conv\.", ".transp_conv.conv."),
+        (r"\.(conv1|conv2|conv3)\.", r".\1.conv."),
+        (r"\.(norm1|norm2|norm3)\.GroupNorm_0\.", r".\1."),
+    ],
+    "swin_umamba_d": _SWIN_SHARED + [
+        (r"^expand(\d+)\.", r"decoder.expand_layers.\1."),
+        (r"^stage(\d+)\.block(\d+)\.", r"decoder.stages.\1.blocks.\2."),
+        (r"^concat_back_dim(\d+)\.", r"decoder.concat_back_dim.\1."),
+        (r"^seg(\d+)\.", r"decoder.seg_layers.\1."),
+    ],
+    "vmunet3d": _VMUNET3D,
+    "msvm_unet": _MSVM,
+}
+TO_REFERENCE["umamba_enc_ss3d"] = TO_REFERENCE["umamba_bot_ss3d"]
+TO_REFERENCE["vmunet3d_new"] = TO_REFERENCE["vmunet3d_swint"] = _VMUNET3D
+_REF_TRANSPOSED = re.compile(r"transp_conv(\.conv)?\.weight$")
+
+
+def reference_state_dict(flat, key, stats=None):
+    """A reference-named, reference-layout torch state_dict of flax params
+    (and of flax's ``batch_stats``, as torch's running statistics), with the
+    reference's buffers the converters drop (the window attention's
+    relative-position index, BatchNorm's ``num_batches_tracked``)."""
+    sd = {}
+    for name, arr in flat.items():
+        *path, leaf = name.split("/")
+        prefix = ".".join(path) + "."
+        for pat, rep in TO_REFERENCE[key]:
+            prefix = re.sub(pat, rep, prefix)
+        if leaf == "kernel":
+            leaf = "weight"
+            if arr.ndim >= 3:
+                transposed = _REF_TRANSPOSED.search(prefix + leaf) and arr.shape[-1] != 1
+                arr = np.moveaxis(arr, (-2, -1), (0, 1)) if transposed else \
+                    np.moveaxis(arr, (-1, -2), (0, 1))
+            else:
+                arr = arr.T
+        elif leaf == "scale":
+            leaf = "weight"
+        elif leaf == "A_logs":
+            arr = arr.reshape(-1, arr.shape[-1])
+        elif leaf == "Ds":
+            arr = arr.reshape(-1)
+        elif leaf == "A_log":
+            arr = arr[0]
+        elif leaf in ("dt_proj_weight", "dt_proj_bias"):
+            leaf = "dt_proj." + leaf[len("dt_proj_"):]
+        elif leaf == "relative_position_bias_table":
+            sd[prefix + "relative_position_index"] = torch.zeros(8, 8, dtype=torch.long)
+        sd[prefix + leaf] = torch.from_numpy(np.array(arr))
+    for name, arr in (stats or {}).items():
+        *path, leaf = name.split("/")
+        prefix = ".".join(path) + "."
+        for pat, rep in TO_REFERENCE[key]:
+            prefix = re.sub(pat, rep, prefix)
+        sd[prefix + "running_" + leaf] = torch.from_numpy(np.array(arr))
+        sd[prefix + "num_batches_tracked"] = torch.tensor(7)
+    return sd
+
+
+def check_pth(n):
+    """A reference-format state_dict of the same weights maps back through
+    JAX's converter exactly; the port's converter (``CONVERTERS_BY_NETWORK``
+    composed with ``jax_params_to_state_dict``) loads it strict, BatchNorm's
+    running statistics included, and the network then matches JAX's
+    forward."""
+    flat = flat_params(n["params"])
+    stats = flat_params(n["stats"]) if n["stats"] else {}
+    sd = {"module." + k: v for k, v in reference_state_dict(flat, n["key"], stats).items()}
+    back = jti.convert_reference_network_state_dict(n["key"], sd)
+    want = {**flat, **{k.rsplit("/", 1)[0] + "/running_" + k.rsplit("/", 1)[1]: v
+                       for k, v in stats.items()}}
+    assert back.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(back[k], want[k], err_msg=k)
+    tm = copy.deepcopy(n["tm"])
+    tm.load_state_dict(tti.reference_state_dict_to_port(n["key"], sd), strict=True)
+    with torch.no_grad():
+        got = outputs(tm(T(np.array(n["x"]))))
+    for g, r in zip(got, outputs(n["ref"])):
+        assert_close(g, np.asarray(r))

@@ -223,9 +223,8 @@ def _bad_fwd(dev, name):
     args = _scan_args(dev, torch.bfloat16, b=1, d=8, l=128)
     if name == "fp16":
         args = [t.half() if t.dim() == 4 else t for t in args]
-    elif name == "8 states":
-        args[2] = args[2][..., :8].contiguous()
-        args[3], args[4] = args[3][:, :, :8].contiguous(), args[4][:, :, :8].contiguous()
+    elif name == "65 states":  # over MAX_STATE
+        args = _scan_args(dev, torch.bfloat16, b=1, d=8, n=65, l=128)
     elif name == "mixed dtypes":
         args[1] = args[1].float()
     elif name == "non-contiguous u":
@@ -243,7 +242,7 @@ def _bad_fwd(dev, name):
     return args
 
 
-@pytest.mark.parametrize("name", ["fp16", "8 states", "mixed dtypes", "non-contiguous u",
+@pytest.mark.parametrize("name", ["fp16", "65 states", "mixed dtypes", "non-contiguous u",
                                   "B's shape", "C on the CPU", "D's shape", "L = 0"])
 def test_scan_fwd_raises_on_what_k1_does_not_take(cuda_device, name):
     args = _bad_fwd(cuda_device, name)
@@ -370,6 +369,21 @@ def test_scan_bwd_fp32_matches_autograd_of_step_scan(cuda_device, reverse):
     got = selective_scan_bwd(*args, True, reverse, gy, states)
     for name, g_, r_ in zip(SCAN_GRADS, got, ref):
         _close(g_, r_, 2e-4)
+
+
+@pytest.mark.parametrize("n", [1, 5, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_scan_kernels_at_other_state_counts(cuda_device, n, dtype, reverse):
+    """K1 and K5 at n = 1 (an instance of their own), 5 (padded to 16) and
+    40 (three passes of 16, the last padded) against the twins: y, the
+    states and every gradient, two runs bit-equal."""
+    args = _scan_args(cuda_device, dtype, n=n)
+    plan, states = _scan_fwd_against_twins(args, reverse)
+    assert (plan.n_state, plan.passes) == ((1, 1) if n == 1 else (16, -(-n // 16)))
+    assert states.shape[-1] == n
+    gy = _rand(args[0].shape, cuda_device, torch.float32, 7)
+    _scan_bwd_against_twins(args, reverse, gy, states, 2e-4 if dtype == torch.float32 else 2e-2)
 
 
 def test_scan_autograd_on_card_matches_plain(cuda_device):
@@ -580,10 +594,10 @@ def test_wrappers_raise_on_what_kernels_do_not_take(cuda_device):
         mlla_tail(z16(4, 8, 32), z16(4, 8, 32), z16(4, 8, 32), z16(32, 32), z16(32), z16(32),
                   z16(32), z16(48, 32), z16(48), z16(32, 48), z16(32))
     u = torch.zeros(1, 1, 4, 10, device=cuda_device)
-    with pytest.raises(ValueError):  # 8 states: the kernel takes 16
-        selective_scan_fwd(u, u, torch.zeros(1, 4, 8, device=cuda_device),
-                           torch.zeros(1, 1, 8, 10, device=cuda_device),
-                           torch.zeros(1, 1, 8, 10, device=cuda_device))
+    with pytest.raises(ValueError):  # 65 states: the kernels take 1 to 64
+        selective_scan_fwd(u, u, torch.zeros(1, 4, 65, device=cuda_device),
+                           torch.zeros(1, 1, 65, 10, device=cuda_device),
+                           torch.zeros(1, 1, 65, 10, device=cuda_device))
     A, B = torch.zeros(1, 4, 16, device=cuda_device), torch.zeros(1, 1, 16, 10, device=cuda_device)
     _, states = selective_scan_fwd_states(u, u, A, B, B)
     with pytest.raises(ValueError):  # K5: states of another length

@@ -60,3 +60,37 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         port.Trainer(patch_size=(64, 64), batch_size=1,
                      network_overrides=dict(TINY))
     assert port.resolve_device("cpu") == torch.device("cpu")
+
+
+# the networks the registry builds since the SS3D slice, each with the input
+# its builder takes (a plan of the right rank) and CPU-sized widths
+_CM_3D = dict(patch_size=[8, 32, 32], pool_op_kernel_sizes=[[1, 1, 1], [2, 2, 2], [2, 2, 2]],
+              conv_kernel_sizes=[[3, 3, 3]] * 3, UNet_base_num_features=4,
+              unet_max_num_features=16, n_conv_per_stage_encoder=[2, 2, 2],
+              n_conv_per_stage_decoder=[2, 2])
+_NEW_BUILDERS = {
+    "umamba_bot_ss3d": ({}, {}), "umamba_enc_ss3d": ({}, {}),
+    "vmunet3d": ({}, dict(dims=(8, 16, 32, 64))),
+    "vmunet3d_new": ({}, dict(dims=(8, 16, 32, 64))),
+    "vmunet3d_swint": ({}, dict(dims=(8, 16, 32, 64), num_heads=2)),
+    "msvm_unet": (dict(patch_size=[64, 64]), dict(dims=(8, 16, 32, 64))),
+}
+
+
+@pytest.mark.parametrize("key", sorted(_NEW_BUILDERS))
+def test_new_zoo_builders_default_to_the_card(monkeypatch, key):
+    """The registry's SS3D U-Mamba, VM-UNet-3D and MSVM-UNet builders take
+    the GPU unless the caller names another device: without CUDA they raise,
+    with ``device="cpu"`` they build on the CPU."""
+    from types import SimpleNamespace
+
+    from mlagg_unet_torch.training.registry import get_network_builder
+
+    cm_kw, overrides = _NEW_BUILDERS[key]
+    cm = SimpleNamespace(**{**_CM_3D, **cm_kw})
+    build = get_network_builder(key)
+    net = build(cm, 1, 3, False, device="cpu", **overrides)
+    assert next(net.parameters()).device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build(cm, 1, 3, False, **overrides)

@@ -1,6 +1,8 @@
 """The Mamba zoo's ops and blocks in the PyTorch port against the JAX package
-on the CPU (fp32, and bf16 against JAX's bf16): the one-scale cross-scan
-layouts, ``MambaBlock`` and the ``SS2D`` cell; the plain scan in fp64.
+on the CPU: the one-scale cross-scan layouts, ``MambaBlock`` (forward and
+every gradient, causality, its param tree) and the SS2D forward-type parser;
+the plain scan in fp64. ``SS2D`` is in ``test_torch_port_ss2d.py``, both
+blocks in bf16 in ``test_torch_port_mamba_bf16.py``.
 
 Inputs and weights come from numpy seeds (weights into the JAX param tree,
 then ``jax_params_to_state_dict`` -> ``load_state_dict(strict=True)``); the
@@ -168,34 +170,6 @@ def test_mamba_block_tree_round_trip_and_raises():
 
 # ---------------------------------------------------------------- SS2D
 
-FORWARD_TYPES = ["v0", "v2", "v04", "v05_noz", "v31d", "v32d", "v2_nozact",
-                 "v2_onsoftmax", "v2_onsigmoid", "v2_ondwconv3"]
-
-
-@pytest.mark.parametrize("forward_type", FORWARD_TYPES)
-def test_ss2d_matches_jax(forward_type):
-    """SS2D (d_model 8, a 5x6 map) per forward type: the output and the
-    input's gradient."""
-    x = jnp.asarray(np.random.RandomState(4).randn(2, 5, 6, 8).astype(np.float32))
-    jmod = JMB.SS2D(d_model=8, forward_type=forward_type)
-    params = random_jax_params(jmod, x)
-    tmod = load(TMB.SS2D(8, forward_type=forward_type), params)
-    pair, gx, _, _ = grads_pair(jmod, tmod, params, x)
-    assert_close(*pair)
-    assert_close(gx[0], np.asarray(gx[1]), rel=TOL_GRAD, atol=1e-6)
-
-
-@pytest.mark.parametrize("forward_type", ["v0", "v05_noz"])
-def test_ss2d_parameter_grads_match_jax(forward_type):
-    """Every parameter's gradient of SS2D against ``jax.grad``: v0 (the
-    zoo's cell, fp32 scan, 4 directions) and v05_noz (the scan in the input
-    dtype, no z)."""
-    x = jnp.asarray(np.random.RandomState(5).randn(1, 4, 6, 8).astype(np.float32))
-    jmod = JMB.SS2D(d_model=8, forward_type=forward_type)
-    params = random_jax_params(jmod, x, seed=1)
-    tmod = load(TMB.SS2D(8, forward_type=forward_type), params)
-    check_grads(*grads_pair(jmod, tmod, params, x))
-
 
 def test_forward_type_parse():
     """Tags stripped in any order; the scan's dtype and directions as JAX
@@ -209,48 +183,6 @@ def test_forward_type_parse():
 
 
 # ---------------------------------------------------------------- bf16
-
-def bf16_pair(jmod, tmod, params, x):
-    """The module in bf16 in both packages (parameters and input cast, as
-    the predictors cast them): (port output, JAX output, JAX fp32 output)."""
-    p16 = jax.tree_util.tree_map(lambda v: v.astype(jnp.bfloat16), params)
-    j16 = jmod.apply({"params": p16}, x.astype(jnp.bfloat16))
-    j32 = jmod.apply({"params": params}, x)
-    with torch.no_grad():
-        t16 = load(tmod, params).to(torch.bfloat16)(T(np.array(x)).to(torch.bfloat16))
-    return t16, j16, j32
-
-
-def assert_bf16_follows(t16, j16, j32):
-    """The port's bf16 output in JAX's dtype (fp32: the scan's fp32 output
-    promotes the gate and out_proj), within 2e-2 rel L2 of JAX's bf16
-    output (measured up to 9.4e-3; bf16 itself moves these modules by
-    4e-3 to 1.2e-2 from fp32)."""
-    assert str(t16.dtype).replace("torch.", "") == str(j16.dtype) == "float32"
-    a, b = t16.double().numpy(), np.asarray(j16, np.float64)
-    assert np.linalg.norm(a - b) / np.linalg.norm(b) <= 2e-2
-    assert np.linalg.norm(b - np.asarray(j32)) > 0    # bf16 did round
-
-
-@pytest.mark.parametrize("case", list(MAMBA))
-def test_mamba_block_bf16_follows_jax(case):
-    """MambaBlock in bf16 against JAX's in bf16."""
-    kw = MAMBA[case]
-    x = jnp.asarray(np.random.RandomState(1).randn(2, 20, 8).astype(np.float32))
-    jmod = JMB.MambaBlock(d_model=8, **kw)
-    assert_bf16_follows(*bf16_pair(jmod, TMB.MambaBlock(8, **kw), mamba_params(jmod, x), x))
-
-
-@pytest.mark.parametrize("forward_type", ["v0", "v04", "v05_noz", "v31d", "v2_onsoftmax",
-                                          "v2_ondwconv3"])
-def test_ss2d_bf16_follows_jax(forward_type):
-    """SS2D in bf16 against JAX's in bf16: the fp32 scan (v0), the scan in
-    bf16 (v04, v05_noz, v31d) and the out-norm tails that take the scan's
-    output."""
-    x = jnp.asarray(np.random.RandomState(4).randn(2, 5, 6, 8).astype(np.float32))
-    jmod = JMB.SS2D(d_model=8, forward_type=forward_type)
-    assert_bf16_follows(*bf16_pair(jmod, TMB.SS2D(8, forward_type=forward_type),
-                                   random_jax_params(jmod, x), x))
 
 
 @pytest.mark.parametrize("reverse", [False, True])

@@ -1,0 +1,61 @@
+"""VM-UNet-3D in its three forms in the PyTorch port against the JAX package
+on the CPU: ``vmunet3d`` (the z gate, encoder5), ``vmunet3d_new`` (neither)
+and ``vmunet3d_swint`` (the shifted-window bottleneck, its (5, 6, 7) window
+clamped to a 2x2x2 map): the forward in fp32 and in bf16 against JAX's
+bf16, the param tree both ways and the reference ``.pth`` converter (the
+transposed convs with output padding, the relative-position index
+dropped).
+
+Weights come from numpy seeds into the JAX param tree; inputs from numpy
+seeds (``port_zoo``). Every fp32 output is held within 1e-4 x max|ref|
+(+1e-5), a bf16 output within twice the distance bf16 moves JAX's own
+network.
+"""
+import pytest
+
+import port_zoo
+from port_helpers import one_torch_thread  # noqa: F401  (an autouse fixture)
+
+NAMES = ["vmunet3d", "vmunet3d_new", "vmunet3d_swint"]
+
+
+@pytest.fixture(scope="module")
+def nets():
+    """The file's networks of both packages with one seeded param tree, and
+    JAX's output on the seeded input (jitted)."""
+    return port_zoo.build_nets(NAMES)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_network_matches_jax(nets, name):
+    """Every output (each deep-supervision scale) of the port's network
+    equals JAX's within 1e-4."""
+    port_zoo.check_forward(nets[name])
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_bf16_network_follows_jax(nets, name):
+    """In bf16 (parameters and input cast, as both predictors do) the port
+    computes JAX's function: every output answers in JAX's dtype (fp32: the
+    Mamba blocks' fp32 output promotes the layers after them), the port's
+    bf16 output sits from its fp32 output within twice the distance JAX's
+    sits from JAX's fp32 output, and from JAX's bf16 output within twice
+    that distance too. Two bf16 implementations of these networks differ by
+    about what bf16 itself moves them (measured: 0.5-1.2x JAX's own gap, which is 1.5e-2 to 5.2e-1 here), so the distance is held to
+    the network's own gap and not to a fixed tolerance."""
+    port_zoo.check_bf16(nets[name])
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_param_tree_round_trip(nets, name):
+    """JAX tree -> state_dict -> JAX tree, exactly, for every parameter."""
+    port_zoo.check_tree(nets[name])
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_reference_pth_converts_and_loads_strict(nets, name):
+    """A reference-format state_dict of the same weights maps back through
+    JAX's converter exactly; the port's converter (``CONVERTERS_BY_NETWORK``
+    composed with ``jax_params_to_state_dict``) loads it strict, and the
+    network then matches JAX's forward."""
+    port_zoo.check_pth(nets[name])

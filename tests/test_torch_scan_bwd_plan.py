@@ -221,9 +221,9 @@ def test_plan_stages_16_bytes_at_a_time_where_it_can():
 
 def _bad(name):
     ops = _operands()
-    if name == "8 states":
-        ops = _operands(n=8)
-        ops[8] = torch.zeros(1, 2, 2, 8, 16)
+    if name == "65 states":  # over MAX_STATE
+        ops = _operands(n=65)
+        ops[8] = torch.zeros(1, 2, 2, 8, 65)
     elif name == "B's shape":
         ops[3] = torch.zeros(1, 2, 16, 127, dtype=BF16)
     elif name == "mixed dtypes":
@@ -249,7 +249,7 @@ def _bad(name):
     return ops
 
 
-@pytest.mark.parametrize("name", ["8 states", "B's shape", "mixed dtypes", "non-contiguous u",
+@pytest.mark.parametrize("name", ["65 states", "B's shape", "mixed dtypes", "non-contiguous u",
                                   "states of another length", "bf16 states", "no gy",
                                   "bf16 gy", "gy's shape", "D's shape", "u of another shape"])
 def test_plan_raises_on_operands_the_kernels_do_not_take(name):

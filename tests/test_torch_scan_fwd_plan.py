@@ -249,8 +249,8 @@ def test_plan_takes_16_bytes_at_a_time_where_it_can():
 
 def _bad(name):
     ops = _operands()
-    if name == "8 states":
-        ops = _operands(n=8)
+    if name == "65 states":  # over MAX_STATE
+        ops = _operands(n=65)
     elif name == "B's shape":
         ops[3] = torch.zeros(1, 2, 16, 127, dtype=BF16)
     elif name == "C's dtype":
@@ -276,7 +276,7 @@ def _bad(name):
     return ops
 
 
-@pytest.mark.parametrize("name", ["8 states", "B's shape", "C's dtype", "mixed dtypes",
+@pytest.mark.parametrize("name", ["65 states", "B's shape", "C's dtype", "mixed dtypes",
                                   "non-contiguous u", "non-contiguous B", "A's shape",
                                   "D's shape", "delta_bias's shape", "u of another shape",
                                   "u of another dtype"])
