@@ -99,13 +99,13 @@ failure exits non-zero:
    1x10x320x260 ``.nii.gz`` from ``RandomState(0)``, smooth blobs labelled
    by 3 thresholds of the image, preprocessed by the port's
    ``run_case_save``; the predict phase's 2d plan at 256x224, batch 10, 4
-   labels), with the flagship recipe cut to 2 epochs of 20 steps, 5
+   labels), with the flagship recipe cut to 2 epochs of 10 steps, 5
    validation steps and 1 warm-up epoch (registered here only). Every loss
    finite; checkpoint_final, _best and _latest written; a Dice per label in
    ``validation/summary.json``; K1, K4 and K5 launched in the training
    steps and no other kernel; K1-K4 in the validation steps and the final
    validation and K5-K8 not; K2 and K3 nowhere else. Then ``--c`` with the
-   recipe at 3 epochs: it loads checkpoint_final, trains one epoch of 20
+   recipe at 3 epochs: it loads checkpoint_final, trains one epoch of 10
    steps and keeps the logger's first two epochs. Then the predict verb on
    the folder it wrote: shape and labels. On the first training batch the
    verb's loader produced, from the verb's final weights, the fp32 loss and
@@ -172,11 +172,12 @@ failure exits non-zero:
     profiled volume, and bf16 against fp32 rel L2 of volume 0 (5e-2).
     ``nnUNetTrainerBN`` for 3 bf16 steps on a cached batch: its fp32 running
     statistics must move; its eval forward card against CPU. The train verb:
-    5 training and 2 test cases of 1x96x192x192 at 1 mm (seeded blobs, 3
+    5 training cases and 1 test case of 1x96x192x192 at 1 mm (seeded blobs, 3
     labels) through ``plan_and_preprocess_entry -c 3d_fullres`` (the plan
     printed), ``nnUNetTrainer`` cut to 2 epochs of 10 steps and 2 validation
     steps on fold 0 (seconds per epoch, ms per step with the loader against
-    one cached batch, peak memory), the predict verb on the test cases. The
+    one cached batch, peak memory), the predict verb on the test case (the
+    verbs' predictors at the memory budget's tile batch, not autotuned). The
     cascade: a hand-written 3d_lowres at 2 mm and 3d_cascade_fullres after
     it; lowres trains one epoch of 5 steps on fold ``all`` and its final
     validation writes every case's ``predicted_next_stage``; the cascade
@@ -225,30 +226,55 @@ failure exits non-zero:
     fp32, card vs CPU (1e-3 x max); the 3-D ones on a tile cut for the CPU
     (U-Mambas 16x64x64, VM-UNet-3D 8x32x32; at 64x128x128 their CPU forwards
     took 144 s). (c) U-Mamba Enc
-    SS3D and ``vmunet3d`` served on 2 volumes of 1x96x192x192 (tile
+    SS3D and ``vmunet3d`` served on 1 volume of 1x96x192x192 (tile
     64x128x128, mirror (0, 1, 2); the memory budget's tile batch, not
     autotuned; a one-tile warm-up volume, 1x64x128x128, on which the
     kernels are held to their twins: the plain scans of a whole volume took
-    ~60 s a network) and MSVM-UNet on 2 of 1x10x320x320 (mirror
+    ~60 s a network) and MSVM-UNet on 1 of 1x10x320x320 (mirror
     (0, 1)), after 1 warm-up, bf16, as phase 11 serves (bf16 vs fp32 within
     5e-2; no profile). (d)
     ``nnUNetTrainerUMambaEnc_SS3D`` through ``train_entry`` on phase 10's
     cases (its preprocessed folder; preprocessed here under ``--only``) and
-    its 2 test cases, trained on phase 10's 3-D plan at batch 2, cut to 1
+    its test case, trained on phase 10's 3-D plan at batch 2, cut to 1
     epoch of 5 steps and 2 validation steps on fold 0: launches; the first
     training batch's first case from the final weights, its centre cut to
     32x64x64 (the network in fp64 does not fit the card at 2 cases, and
     takes minutes at the full patch), the fp32 loss and gradients held as
     phase 11 holds them;
     ms per step with the loader and on one cached batch; the predict verb on
-    the 2 test cases. Only K1 and K5 run;
-13. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
+    the test case. Only K1 and K5 run;
+13. variants: the networks of ``models/mamba_variants.py`` at full width,
+    seeded: SegMamba and nnMamba on phase 10's 3-D plan (3 classes; nnMamba's
+    strides its pools [1:5], four times 2x2x2), LightM-UNet and UltraLight
+    VM-UNet on phase 11's 2d plan (4 classes). (a) One fp32 forward and
+    backward of each in training mode (3-D at batch 2, 2-D at 4) records
+    every (b, g, d, L, n, dtype, reverse) at which K1 and K5 run (SegMamba's
+    L = 262,144 at d = 96 and UltraLight's d = 12 must be among them), each
+    network's peak memory beside it; at each shape phases 11 and 12 did not
+    hold in this run, K1 with its states and K5 against their plain twins
+    (phase 3's tolerances; the skipped shapes printed); both timed at
+    SegMamba's stage 0 beside their plain twins (one run) and bound. (b)
+    Each network on one tile, fp32, card vs CPU (1e-3 x max), cut for the
+    CPU: the 3-D ones on phase 12's CPU tile, the 2-D ones on 160x160. (c)
+    SegMamba served on 1 volume of 1x96x192x192 as phase 12 serves (the
+    budget's tile batch, a one-tile warm-up volume for the kernels-vs-twins
+    checks), LightM-UNet and
+    UltraLight on 1 of 1x10x320x320 as phase 11 serves but at the budget's
+    tile batch (phase 11 times the autotune); bf16 against fp32 within
+    twice JAX's own gap (``VARIANT_BF16_TOL``). (d)
+    ``nnUNetTrainer_SegMamba`` through ``train_entry`` as phase 12 (d)
+    trains U-Mamba Enc SS3D: phase 10's cases and plan, 1 epoch of 5 steps
+    and 2 validation steps on fold 0, launches, the gradients on the 32x64x64
+    cut (``hold_mamba_grads``), ms per step with the loader and cached, the
+    predict verb on the test case. Only K1 and K5 run;
+14. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
+Every line of the run's output is led by the seconds since the start.
 ``--only predict`` runs phases 1, 2 and 6 alone, ``--only train-verb``
 phases 1, 2 and 8, ``--only pipeline`` phases 1, 2 and 9, ``--only unet3d``
 phases 1, 2 and 10, ``--only mamba`` phases 1, 2 and 11, ``--only ss3d``
-phases 1, 2 and 12; ``--only serve-timing``
+phases 1, 2 and 12, ``--only variants`` phases 1, 2 and 13; ``--only serve-timing``
 runs phases 1 and 2 and then phase 5's default timing alone, in two
 windows, from the package under ``--root`` (default: this script's
 directory): run it for two checkouts in turns in one call to compare them.
@@ -402,12 +428,12 @@ PREDICT_DATASET = {"channel_names": {"0": "MRI"}, "file_ending": ".nii.gz",
                    "labels": {"background": 0, "a": 1, "b": 2, "c": 3}}
 # the train verb's dataset: 10 cases of 1x10x320x260 (smooth seeded blobs,
 # labels = 3 thresholds of the image), the predict phase's 2d plan (batch 10,
-# 256x224, 4 labels), the flagship recipe cut to 2 epochs of 20 steps
+# 256x224, 4 labels), the flagship recipe cut to 2 epochs of 10 steps
 TRAIN_VERB_DATASET = "Dataset996_ChipSmokeTrain"
 TRAIN_VERB_CASES = 10
 TRAIN_VERB_THRESHOLDS = (-0.5, 0.3, 1.0)
 TRAIN_VERB_RECIPE = "nnUNetTrainer_MLAgg_2D_dt_MS_chip_smoke"
-TRAIN_VERB_EPOCHS, TRAIN_VERB_STEPS, TRAIN_VERB_VAL_STEPS, TRAIN_VERB_WARMUP = 2, 20, 5, 1
+TRAIN_VERB_EPOCHS, TRAIN_VERB_STEPS, TRAIN_VERB_VAL_STEPS, TRAIN_VERB_WARMUP = 2, 10, 5, 1
 TRAIN_VERB_PROFILED_STEPS = 5
 LOADER_RATE_BATCHES = 20                 # timed after the prefetch queue (6) is drained
 # the pipeline phase: a raw dataset of 10 training and 2 test cases of
@@ -436,7 +462,7 @@ UNET3D_THRESHOLDS = (0.3, 1.0)           # 3 labels: two thresholds of the image
 UNET3D_DATASET, UNET3D_ID = "Dataset993_ChipSmokeUNet3D", "993"
 UNET3D_DATASET_JSON = {"channel_names": {"0": "MRI"}, "file_ending": ".nii.gz",
                        "numTraining": 0, "labels": {"background": 0, "a": 1, "b": 2}}
-UNET3D_CASES, UNET3D_TEST_CASES = 5, 2
+UNET3D_CASES, UNET3D_TEST_CASES = 5, 1
 UNET3D_RECIPE = "nnUNetTrainer_chip_smoke_3d"
 UNET3D_EPOCHS, UNET3D_STEPS, UNET3D_VAL_STEPS = 2, 10, 2
 UNET3D_BN_STEPS = 3
@@ -469,6 +495,8 @@ MAMBA_BF16_TOL = {"nnUNetTrainerUMambaBot": 2 * 1.119e-01,
 # times the twins' distance, which a scan gradient wired to the wrong
 # operand or direction would exceed (hold_mamba_grads)
 MAMBA_GRAD_TWIN_FACTOR = 2.0
+# where keep_grad_fault keeps a refused gradient check's case for replay
+GRAD_FAULT_DIR = Path(__file__).resolve().parent / "chip_smoke_out" / "grad_fault"
 MAMBA_GRAD_LEAF_TOL = 0.25
 MAMBA_GRAD_BATCH = MAMBA_BATCH           # the forward and backward that record the scan shapes
 MAMBA_KERNELS = ("selective_scan_fwd", "selective_scan_bwd")
@@ -491,9 +519,10 @@ SS3D_NETWORKS = ("nnUNetTrainerUMambaBot_SS3D", "nnUNetTrainerUMambaEnc_SS3D",
                  "nnUNetTrainer_VMUNet3D", "nnUNetTrainer_VMUNet3D_woinit_new",
                  "nnUNetTrainer_VMUNet3D_woinit_new_SwinT", "nnUNetTrainer_MSVM_UNet")
 MSVM_TRAINER = "nnUNetTrainer_MSVM_UNet"
+SS3D_3D = tuple(n for n in SS3D_NETWORKS if n != MSVM_TRAINER)
 SS3D_BATCH, SS3D_CLASSES = 2, 3
 SS3D_SERVED = ("nnUNetTrainerUMambaEnc_SS3D", "nnUNetTrainer_VMUNet3D")
-SS3D_VOLUMES = 2                         # of UNET3D_VOLUME, and of MAMBA_VOLUME for MSVM
+SS3D_VOLUMES = 1                         # of UNET3D_VOLUME, and of MAMBA_VOLUME for MSVM
 # the largest scan: U-Mamba Enc SS3D's stage 0 at the training batch
 SS3D_LARGEST = (SS3D_BATCH, 12, 2 * UNET3D_FEATURES[0], UNET3D_TILE[0] * UNET3D_TILE[1]
                 * UNET3D_TILE[2], 1)
@@ -508,6 +537,30 @@ SS3D_GRAD_BATCH = 1                      # the gradient check: the first trainin
 # served networks of the phase less than that (U-Mamba Enc SS3D 2.773e-02,
 # VM-UNet-3D 1.099e-02 at full width on 16x64x64, MSVM-UNet 1.415e-02 on
 # 160x160, on the CPU: tests/port_bf16_gap.py)
+# phase 13: the networks of models/mamba_variants.py at full width, seeded:
+# SegMamba and nnMamba on phase 10's 3-D plan (nnMamba's strides from its
+# pools[1:5]), LightM-UNet and UltraLight VM-UNet on phase 11's 2d plan
+VARIANT_NETWORKS = ("nnUNetTrainer_SegMamba", "nnUNetTrainer_nnMamba",
+                    "nnUNetTrainer_LightMUNet", "nnUNetTrainer_UltraLightVMUNet")
+VARIANT_3D = ("nnUNetTrainer_SegMamba", "nnUNetTrainer_nnMamba")
+VARIANT_SERVED = ("nnUNetTrainer_SegMamba", "nnUNetTrainer_LightMUNet",
+                  "nnUNetTrainer_UltraLightVMUNet")
+VARIANT_TRAINER = "nnUNetTrainer_SegMamba"
+VARIANT_RECIPE = "nnUNetTrainer_SegMamba_chip_smoke"
+VARIANT_VOLUMES = 1
+# the 2-D networks' tile for the card vs CPU check, cut for the CPU (LightM-UNet's
+# 21 Mamba layers at L = 102,400 made its 320x320 CPU forward the phase's
+# slowest step); the scans at 320x320 are held in (a)
+VARIANT_CPU_TILE_2D = (160, 160)
+# SegMamba's stage 0 at the training batch: 2 x 64 x 64 x 64 tokens, d_inner 96
+SEGMAMBA_LARGEST = (SS3D_BATCH, 1, 96, UNET3D_TILE[0] * UNET3D_TILE[1] * UNET3D_TILE[2] // 4, 16)
+# bf16 against fp32 serving: within twice the distance bf16 moves JAX's own
+# network (full width, on the CPU: SegMamba 6.196e-02 on 16x64x64,
+# LightM-UNet 1.353e-01 and UltraLight 8.861e-03 on 160x160;
+# tests/port_bf16_gap.py)
+VARIANT_BF16_TOL = {"nnUNetTrainer_SegMamba": 2 * 6.196e-02,
+                    "nnUNetTrainer_LightMUNet": 2 * 1.353e-01,
+                    "nnUNetTrainer_UltraLightVMUNet": 2 * 8.861e-03}
 UNET3D_CASCADE_RECIPE, UNET3D_CASCADE_STEPS = "nnUNetTrainer_chip_smoke_cascade", 5
 UNET3D_LOWRES_SPACING = 2.0              # mm: 48x96x96 cases, the patch their size
 UNET3D_LOWRES_POOLS = ((1, 1, 1), (2, 2, 2), (2, 2, 2), (2, 2, 2), (1, 2, 2))
@@ -518,8 +571,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run's output, led by the seconds since the script
+    started (where each step's time goes)."""
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {msg}", flush=True)
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 2) -> float:
@@ -1179,7 +1237,14 @@ def profile(torch, label, fn, stats: dict = None) -> tuple:
     wall time (torch.profiler, whose own host overhead is in the wall time).
     Returns two dicts, each port kernel's launch count and device ms in the
     trace ((None, None): no device time recorded); ``stats``, when given,
-    receives the wall and busy ms."""
+    receives the wall and busy ms. The device events (kernels, copies,
+    memsets) are summed by name from the trace's raw events: the same sums
+    as ``key_averages()``'s device rows, without the event tree it builds
+    first, which took most of a long trace's time. A torch whose profiler
+    has no raw events (``kineto_results`` is private) is read through
+    ``key_averages()``."""
+    from collections import defaultdict
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as trace
 
@@ -1188,8 +1253,18 @@ def profile(torch, label, fn, stats: dict = None) -> tuple:
         t0 = time.perf_counter()
         fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    raw = getattr(prof.profiler, "kineto_results", None)
+    if raw is None:
+        dev = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    else:
+        by_name = defaultdict(lambda: [0.0, 0])
+        for e in raw.events():
+            if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+                row = by_name[e.name()]
+                row[0] += e.duration_ns() / 1e6
+                row[1] += 1
+        dev = [(k, t, c) for k, (t, c) in by_name.items()]
     if not dev:
         log("  profile: no device time recorded (not measured)")
         return None, None
@@ -2896,8 +2971,8 @@ def unet3d_train_verb(torch, card: str, tmp: Path, raw: Path) -> None:
     check_segs(out, [f"case_{i:03d}.nii.gz" for i in range(UNET3D_CASES, UNET3D_CASES +
                                                            UNET3D_TEST_CASES)],
                "the 3-D predict verb")
-    log(f"  predict verb (bf16, automatic tile batch, mirror (0, 1, 2)) on the "
-        f"{UNET3D_TEST_CASES} test cases: {time.perf_counter() - t0:.1f} s | {card}")
+    log(f"  predict verb (bf16, the budget's tile batch, mirror (0, 1, 2)) on the "
+        f"{UNET3D_TEST_CASES} test case(s): {time.perf_counter() - t0:.1f} s | {card}")
 
 
 def unet3d_cascade(torch, card: str, tmp: Path, raw: Path) -> None:
@@ -3001,12 +3076,16 @@ def phase_unet3d(torch, card: str, keep: Path = None) -> None:
             log(f"[unet3d] the train verb: {UNET3D_CASES} training and {UNET3D_TEST_CASES} "
                 f"test cases of {'x'.join(map(str, UNET3D_VOLUME))} at 1 mm written in "
                 f"{time.perf_counter() - t0:.1f} s")
-            unet3d_train_verb(torch, card, tmp, raw)
-            if keep is not None:
-                shutil.copytree(tmp / "preprocessed" / UNET3D_DATASET, keep / "preprocessed")
-                shutil.copytree(raw, keep / "raw")
-            log("[unet3d] the cascade: 3d_lowres -> 3d_cascade_fullres")
-            unet3d_cascade(torch, card, tmp, raw)
+            # the verbs' predictors take the budget's tile batch: the serve
+            # step above times the autotune's candidates, which each new
+            # predictor would time again (~5 s a 3-D network)
+            with no_autotune():
+                unet3d_train_verb(torch, card, tmp, raw)
+                if keep is not None:
+                    shutil.copytree(tmp / "preprocessed" / UNET3D_DATASET, keep / "preprocessed")
+                    shutil.copytree(raw, keep / "raw")
+                log("[unet3d] the cascade: 3d_lowres -> 3d_cascade_fullres")
+                unet3d_cascade(torch, card, tmp, raw)
         finally:
             paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = saved
     launched = {k.name: k.launches for k in _ext.ALL_KERNELS if k.launches}
@@ -3214,7 +3293,7 @@ def mamba_scan_shapes(torch, nets: dict) -> dict:
     return calls
 
 
-def mamba_scan_checks(torch, card: str, calls: dict) -> None:
+def mamba_scan_checks(torch, card: str, calls: dict, held: set) -> None:
     """K1 (with its tile-entry states) and K5 against their plain twins at
     every recorded shape, phase 3's tolerances; the shapes must include L <
     64, L % 8 != 0, L >= 1e5, g = 2 reversed and a bf16 scan. Then K1 and K5
@@ -3226,7 +3305,7 @@ def mamba_scan_checks(torch, card: str, calls: dict) -> None:
     missing = [w for w, f in want.items() if not any(f(k) for k in calls)]
     if missing or any(v != {"K1", "K5"} for v in calls.values()):
         fail(f"the family's scans miss {missing} or a shape ran K1 or K5 only: {calls}")
-    scan_shape_checks(torch, calls)
+    scan_shape_checks(torch, calls, held)
     # the largest shape: U-Mamba Enc's stage 0 at the training batch
     scan_timing(torch, card, (MAMBA_BATCH, 1, 2 * MAMBA_FEATURES[0],
                               MAMBA_PATCH[0] * MAMBA_PATCH[1], 16),
@@ -3252,16 +3331,23 @@ def scan_operands(torch, b, g, d, L, n, dtype, seed):
     return (u, dl, A, Bm, Cm, Dp, bias), rnd(b, g, d, L)
 
 
-def scan_shape_checks(torch, calls: dict) -> None:
+def scan_shape_checks(torch, calls: dict, held: set) -> None:
     """K1 (with its tile-entry states) and K5 against their plain twins at
-    every recorded (b, g, d, L, n, dtype, reverse), phase 3's tolerances."""
+    every recorded (b, g, d, L, n, dtype, reverse) not in ``held`` (the
+    shapes an earlier phase of this run held), phase 3's tolerances; each
+    shape held is added to ``held``."""
     from mlagg_unet_torch.ops.selective_scan import selective_scan_bwd_plain
     from mlagg_unet_torch.ops.selective_scan_cuda import (
         scan_fwd_plain, selective_scan_bwd, selective_scan_fwd_states)
 
     names = ("du", "ddelta", "dA", "dB", "dC", "dD", "dbias")
-    log(f"  {len(calls)} distinct shapes; holding K1 and K5 to their plain twins at each")
+    skipped = sorted(k for k in calls if k in held)
+    log(f"  {len(calls)} distinct shapes; {len(skipped)} held by an earlier phase of this run "
+        f"and skipped {skipped}; holding K1 and K5 to their plain twins at each of the others")
     for i, (b, g, d, L, n, dt, rev) in enumerate(sorted(calls)):
+        if (b, g, d, L, n, dt, rev) in held:
+            continue
+        held.add((b, g, d, L, n, dt, rev))
         dtype = getattr(torch, dt)
         ops, gy = scan_operands(torch, b, g, d, L, n, dtype, seed=11 + i)
         args = (*ops, True, rev)
@@ -3467,6 +3553,71 @@ def hold_mamba_grads(torch, label: str, kernels, twins, reordered, ref, card: st
     return d <= TOL_TRAIN_LOSS and rows[0][0] <= 1.0 and r_k <= max(TOL_TRAIN_GRAD, f * r_t)
 
 
+def scan_calls_vs_fp64(torch, label: str, trainer, net, x, y) -> tuple:
+    """The kernels' fp32 pass of ``hold_mamba_grads`` again, keeping each K5
+    call's operands; at each call K1's y and K5's gradients against the
+    plain twin in fp64, beside the fp32 twin's distance to it (not gated:
+    it says whether a refused gradient comes from one call's K1 or K5, or
+    from the network's own amplification of fp32 rounding). Returns the
+    kept calls and the index of the one where K1 or K5 stands furthest out
+    by that ratio."""
+    from mlagg_unet_torch.ops.selective_scan import selective_scan_bwd_plain
+    from mlagg_unet_torch.ops.selective_scan_cuda import (
+        scan_fwd_plain, selective_scan_bwd, selective_scan_fwd_states)
+
+    def dist(got, ref):
+        return ((got.double() - ref).abs().max() / ref.abs().max().clamp_min(1e-300)).item()
+
+    kept, names = [], ("du", "ddelta", "dA", "dB", "dC", "dD", "dbias")
+    t0 = time.perf_counter()
+    with keeping_scan_bwd_calls(kept):
+        train_grads(trainer, net, x, y)
+    worst = (-1.0, 0)
+    with torch.no_grad():
+        for i, (args, kwargs) in enumerate(kept):
+            ops, gy = args[:9], args[9] if len(args) > 9 else kwargs["gy"]
+            y32, states = selective_scan_fwd_states(*ops)
+            y64 = scan_fp64(*ops)
+            rows = {"y": (dist(y32, y64), dist(scan_fwd_plain(*ops), y64))}
+            del y32, y64
+            got = selective_scan_bwd(*ops, gy, states)
+            twin = selective_scan_bwd_plain(*ops, gy.float())
+            ref = selective_scan_bwd_plain(*(t.double() if torch.is_tensor(t) else t
+                                             for t in ops), gy.double())
+            rows.update({nm: (dist(a, r), dist(t, r)) for nm, a, t, r in zip(names, got, twin, ref)
+                         if a is not None})
+            del got, twin, ref, states
+            ratio, nm = max((k / max(t, 1e-12), nm) for nm, (k, t) in rows.items())
+            log(f"    call {i} {tuple(ops[0].shape)} n={ops[2].shape[-1]} reverse={ops[8]}: "
+                + ", ".join(f"{nm} {k:.2e} / {t:.2e}" for nm, (k, t) in rows.items())
+                + f"; furthest out: {nm} at {ratio:.2f}x the twin's")
+            worst = max(worst, (ratio, i))
+    log(f"  {label}: its {len(kept)} K5 calls on the network's operands against the plain twin "
+        "in fp64 (distance / max|fp64|, K1 or K5 / the fp32 twin, above): furthest out at call "
+        f"{worst[1]}, {worst[0]:.2f}x the fp32 twin's distance; {time.perf_counter() - t0:.1f} s")
+    return kept, worst[1]
+
+
+def keep_grad_fault(torch, label: str, net, x, y, kept: list, worst: int) -> None:
+    """After ``hold_mamba_grads`` refused the kernels' gradients, the case
+    kept for replay: the network's weights in GRAD_FAULT_DIR/<label>_weights.pt;
+    the batch, and the operands and output gradient of the scan call that
+    ``scan_calls_vs_fp64`` found furthest out, in <label>_case.pt."""
+    def cpu(t):
+        return t.detach().cpu() if torch.is_tensor(t) else t
+
+    GRAD_FAULT_DIR.mkdir(parents=True, exist_ok=True)
+    tag = re.sub(r"\W+", "_", label)
+    torch.save({k: cpu(v) for k, v in net.state_dict().items()},
+               GRAD_FAULT_DIR / f"{tag}_weights.pt")
+    args, kwargs = kept[worst]
+    torch.save({"x": cpu(x), "y": cpu(y), "call": worst,
+                "scan_operands": [cpu(t) for t in args[:9]],
+                "gy": cpu(args[9] if len(args) > 9 else kwargs["gy"])},
+               GRAD_FAULT_DIR / f"{tag}_case.pt")
+    log(f"  {label}: the refused case kept in {GRAD_FAULT_DIR} for replay")
+
+
 def mamba_train_verb(torch, card: str, tmp: Path) -> None:
     """nnUNetTrainerUMambaEnc through the train verb on the train verb's 10
     cases with the family's plan, cut to 1 epoch of MAMBA_STEPS steps and
@@ -3575,6 +3726,9 @@ def mamba_train_verb(torch, card: str, tmp: Path) -> None:
                                                                       "twins 128")), ref, card)
             for dtype, label in ((torch.float64, "fp64 around the scans"), (torch.float32, "fp32"))]
     if not all(held):
+        net = tr.network.to(torch.float32)
+        keep_grad_fault(torch, "U-Mamba Enc", net, x, y,
+                        *scan_calls_vs_fp64(torch, "U-Mamba Enc", tr, net, x, y))
         fail("U-Mamba Enc's loss or gradients with the kernels beyond their limits (above)")
     tr.network.zero_grad(set_to_none=True)
     del tr, net, res
@@ -3625,9 +3779,11 @@ def mamba_train_verb(torch, card: str, tmp: Path) -> None:
         f"shape (1, 10, 320, 260), labels {labels.tolist()}, launches {ran} | {card}")
 
 
-def phase_mamba(torch, card: str) -> None:
-    """Phase 11: the Mamba zoo's first family on the card. Only K1 and K5
-    may be launched, and each must be."""
+def zoo_phase(torch, card: str, tag: str, steps, held: set = None, *args) -> None:
+    """``steps(torch, card, held, *args)``, one phase of the Mamba zoo
+    (``held``: the scan shapes earlier phases of this run held, to which it
+    adds its own), with the port kernels' launches summed over the resets
+    its checks make: only K1 and K5 may be launched, and each must be."""
     from mlagg_unet_torch.ops import _ext
 
     t_phase = time.perf_counter()
@@ -3635,25 +3791,30 @@ def phase_mamba(torch, card: str) -> None:
     total = {}
     reset = _ext.reset_launch_counts
 
-    def reset_keeping_total():   # the checks below reset the counts: keep the phase's sum
+    def reset_keeping_total():   # the checks reset the counts: keep the phase's sum
         for k in _ext.ALL_KERNELS:
             total[k.name] = total.get(k.name, 0) + k.launches
         reset()
 
     _ext.reset_launch_counts = reset_keeping_total
     try:
-        mamba_phase_steps(torch, card)
+        steps(torch, card, set() if held is None else held, *args)
     finally:
         _ext.reset_launch_counts = reset
     reset_keeping_total()
     launched = {k: v for k, v in total.items() if v}
     if set(launched) != set(MAMBA_KERNELS):
-        fail(f"the Mamba phase launched {launched} (want K1 and K5 only, each)")
+        fail(f"the {tag} phase launched {launched} (want K1 and K5 only, each)")
     log(f"  launches of the port's kernels in the phase: {launched} | {card}")
-    log(f"[mamba] phase done in {time.perf_counter() - t_phase:.1f} s")
+    log(f"[{tag}] phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
-def mamba_phase_steps(torch, card: str) -> None:
+def phase_mamba(torch, card: str, held: set = None) -> None:
+    """Phase 11: the Mamba zoo's first family on the card."""
+    zoo_phase(torch, card, "mamba", mamba_phase_steps, held)
+
+
+def mamba_phase_steps(torch, card: str, held: set) -> None:
     """Phase 11's steps (a), (b) and (c)."""
     import tempfile
 
@@ -3662,7 +3823,7 @@ def mamba_phase_steps(torch, card: str) -> None:
     log(f"[mamba] the six networks at full width on the {MAMBA_PATCH} plan")
     nets = mamba_networks(torch)
     log("[mamba] (a) K1 and K5 at every shape one forward and backward of each network emits")
-    mamba_scan_checks(torch, card, mamba_scan_shapes(torch, nets))
+    mamba_scan_checks(torch, card, mamba_scan_shapes(torch, nets), held)
     torch.cuda.empty_cache()
     log("[mamba] (b) one tile, fp32, card vs CPU")
     mamba_tile_agreement(torch, card, nets)
@@ -3705,24 +3866,62 @@ def ss3d_configuration(batch: int = SS3D_BATCH):
     return unet3d_configuration(UNET3D_TILE, batch)
 
 
-def ss3d_networks(torch) -> dict:
-    """The six networks at full width, seeded, fp32, on the card, as their
-    trainers build them: the 3-D ones for phase 10's plan, MSVM-UNet for
-    phase 11's."""
+def zoo_networks(torch, names, three_d) -> dict:
+    """The named trainers' networks at full width, seeded, fp32, on the
+    card, as their trainers build them: those in ``three_d`` for phase
+    10's 3-D plan (SS3D_CLASSES), the others for phase 11's 2d plan."""
     from mlagg_unet_torch.training.registry import get_network_builder, get_trainer_config
 
     nets = {}
-    for name in SS3D_NETWORKS:
+    for name in names:
         cfg = get_trainer_config(name)
-        two_d = name == MSVM_TRAINER
         net = get_network_builder(cfg.network)(
-            mamba_configuration() if two_d else ss3d_configuration(), 1,
-            MAMBA_CLASSES if two_d else SS3D_CLASSES, cfg.enable_deep_supervision, seed=0,
-            device="cuda")
+            ss3d_configuration() if name in three_d else mamba_configuration(), 1,
+            SS3D_CLASSES if name in three_d else MAMBA_CLASSES, cfg.enable_deep_supervision,
+            seed=0, device="cuda")
         nets[name] = net
         log(f"  {name} ({cfg.network}): {sum(p.numel() for p in net.parameters())} params, "
             f"{type(net).__name__}")
     return nets
+
+
+def zoo_scan_shapes(torch, nets: dict, three_d, g, calls: dict, per_model: dict,
+                    train_mode: bool = False) -> None:
+    """Adds to ``calls`` every (b, g, d, L, n, dtype, reverse) at which one
+    fp32 forward and backward of each network (3-D at batch SS3D_BATCH,
+    2-D at MAMBA_BATCH; in training mode with ``train_mode``) calls K1 and
+    K5, and to ``per_model`` each network's shapes under a label with its
+    seconds and peak memory. Inputs from the generator ``g``."""
+    for name, net in nets.items():
+        x = torch.randn(SS3D_BATCH if name in three_d else MAMBA_BATCH,
+                        *(UNET3D_TILE if name in three_d else MAMBA_PATCH), 1,
+                        generator=g).cuda()
+        seen = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        net.train(train_mode)
+        with recording_scan_calls(seen):
+            outs = net(x)
+            outs = outs if isinstance(outs, (list, tuple)) else [outs]
+            sum(o.float().square().mean() for o in outs).backward()
+            del outs
+        net.eval()
+        torch.cuda.synchronize()
+        net.zero_grad(set_to_none=True)
+        per_model[f"{name} (fp32 forward and backward at batch {x.shape[0]}"
+                  + (", training mode" if train_mode else "")
+                  + f", {time.perf_counter() - t0:.1f} s, peak "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB)"] = sorted(seen)
+        for k, v in seen.items():
+            calls.setdefault(k, set()).update(v)
+        del x
+        torch.cuda.empty_cache()
+
+
+def log_scan_shapes(per_model: dict) -> None:
+    for name, keys in per_model.items():
+        log(f"  {name}: K1/K5 at (b, g, d, L, n, dtype, reverse) " + ", ".join(map(str, keys)))
 
 
 def ss3d_scan_shapes(torch, nets: dict) -> dict:
@@ -3732,28 +3931,7 @@ def ss3d_scan_shapes(torch, nets: dict) -> dict:
     dtype) call K1 and K5; each network's peak memory beside it."""
     calls, per_model = {}, {}
     g = torch.Generator().manual_seed(3)
-    for name, net in nets.items():
-        two_d = name == MSVM_TRAINER
-        x = torch.randn(MAMBA_BATCH if two_d else SS3D_BATCH,
-                        *(MAMBA_PATCH if two_d else UNET3D_TILE), 1, generator=g).cuda()
-        seen = {}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        with recording_scan_calls(seen):
-            outs = net(x)
-            outs = outs if isinstance(outs, (list, tuple)) else [outs]
-            sum(o.float().square().mean() for o in outs).backward()
-            del outs
-        torch.cuda.synchronize()
-        net.zero_grad(set_to_none=True)
-        per_model[f"{name} (fp32 forward and backward at batch {x.shape[0]}, "
-                  f"{time.perf_counter() - t0:.1f} s, peak "
-                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB)"] = sorted(seen)
-        for k, v in seen.items():
-            calls.setdefault(k, set()).update(v)
-        del x
-        torch.cuda.empty_cache()
+    zoo_scan_shapes(torch, nets, SS3D_3D, g, calls, per_model)
     x = torch.randn(MAMBA_BATCH, *MAMBA_PATCH, 1, generator=g).to("cuda", torch.bfloat16)
     seen = {}
     with torch.no_grad(), recording_scan_calls(seen):
@@ -3762,12 +3940,11 @@ def ss3d_scan_shapes(torch, nets: dict) -> dict:
     for k, v in seen.items():
         calls.setdefault(k, set()).update(v)
     torch.cuda.empty_cache()
-    for name, keys in per_model.items():
-        log(f"  {name}: K1/K5 at (b, g, d, L, n, dtype, reverse) " + ", ".join(map(str, keys)))
+    log_scan_shapes(per_model)
     return calls
 
 
-def ss3d_scan_checks(torch, card: str, calls: dict) -> None:
+def ss3d_scan_checks(torch, card: str, calls: dict, held: set) -> None:
     """K1 and K5 against their plain twins at every recorded shape (phase
     3's tolerances); the shapes must include n = 1 at g = 12 and L =
     SS3D_LARGEST's, n = 16 at g = 12, a reverse and a bf16 scan, and every
@@ -3780,13 +3957,14 @@ def ss3d_scan_checks(torch, card: str, calls: dict) -> None:
     both = [k for k, v in calls.items() if k[5] == "float32" and v != {"K1", "K5"}]
     if missing or both:
         fail(f"phase 12's scans miss {missing}, or ran K1 or K5 only at {both}: {calls}")
-    scan_shape_checks(torch, calls)
+    scan_shape_checks(torch, calls, held)
     scan_timing(torch, card, SS3D_LARGEST, "U-Mamba Enc SS3D stage 0, training batch",
                 plain_reps=1)
 
 
-def ss3d_train_verb(torch, card: str, tmp: Path, shared: Path = None) -> None:
-    """nnUNetTrainerUMambaEnc_SS3D through the train verb on phase 10's 3-D
+def train_verb_3d(torch, card: str, tmp: Path, shared: Path, trainer: str, recipe: str,
+                  label: str) -> None:
+    """``trainer`` (a 3-D Mamba recipe) through the train verb on phase 10's 3-D
     cases (``shared``: phase 10's preprocessed folder and raw test cases;
     else written and preprocessed here), trained on phase 10's 3-D plan at
     batch SS3D_BATCH, cut to 1 epoch of SS3D_STEPS steps and SS3D_VAL_STEPS
@@ -3794,8 +3972,9 @@ def ss3d_train_verb(torch, card: str, tmp: Path, shared: Path = None) -> None:
     case (SS3D_GRAD_BATCH) from the final weights, cut to UNET3D_GRAD_PATCH,
     its fp32 loss and gradients with the kernels held to every wrapper on
     its plain twin and to the network and scans in fp64
-    (``hold_mamba_grads``); ms per step with the loader and on one cached
-    batch; the predict verb on the two test cases."""
+    (``hold_mamba_grads``), each scan call's K1 and K5 against the fp64 twin
+    (``scan_calls_vs_fp64``; a refused case kept by ``keep_grad_fault``); ms per step with the loader and on one cached
+    batch; the predict verb on the test cases."""
     from dataclasses import replace
 
     from mlagg_unet_torch.cli import entrypoints as cli
@@ -3827,10 +4006,10 @@ def ss3d_train_verb(torch, card: str, tmp: Path, shared: Path = None) -> None:
         f"{planned[0]} at batch {planned[1]} replaced by phase 10's plan: patch "
         f"{list(UNET3D_TILE)}, batch {SS3D_BATCH}, features {list(UNET3D_FEATURES)}")
     registry.register_trainer(replace(
-        registry.get_trainer_config("nnUNetTrainerUMambaEnc_SS3D"), name=SS3D_RECIPE,
+        registry.get_trainer_config(trainer), name=recipe,
         num_epochs=1, num_iterations_per_epoch=SS3D_STEPS,
         num_val_iterations_per_epoch=SS3D_VAL_STEPS))
-    base = tmp / "results" / UNET3D_DATASET / f"{SS3D_RECIPE}__nnUNetPlans__3d_fullres"
+    base = tmp / "results" / UNET3D_DATASET / f"{recipe}__nnUNetPlans__3d_fullres"
     first, steps = {}, []
     train_c, val_c, final_c = {}, {}, {}
     with recording_first_batches(first), \
@@ -3841,7 +4020,7 @@ def ss3d_train_verb(torch, card: str, tmp: Path, shared: Path = None) -> None:
         torch.cuda.reset_peak_memory_stats()
         _ext.reset_launch_counts()
         t0 = time.perf_counter()
-        cli.train_entry([UNET3D_ID, "3d_fullres", "0", "-tr", SS3D_RECIPE, "-device", "cuda"])
+        cli.train_entry([UNET3D_ID, "3d_fullres", "0", "-tr", recipe, "-device", "cuda"])
         verb_s = time.perf_counter() - t0
         launches = {k.name: k.launches for k in _ext.ALL_KERNELS}
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3852,7 +4031,7 @@ def ss3d_train_verb(torch, card: str, tmp: Path, shared: Path = None) -> None:
     gaps = [1e3 * (b[0] - a[0]) for a, b in zip(steps[1:], steps[2:])]
     step_ms = statistics.median(gaps)
     summary = load_json(str(base / "fold_0" / "validation" / "summary.json"))
-    log(f"  verb train {UNET3D_ID} 3d_fullres 0 -tr {SS3D_RECIPE}: {verb_s:.1f} s (1 epoch of "
+    log(f"  verb train {UNET3D_ID} 3d_fullres 0 -tr {recipe}: {verb_s:.1f} s (1 epoch of "
         f"{SS3D_STEPS} steps at batch {SS3D_BATCH} of {UNET3D_TILE} + {SS3D_VAL_STEPS} "
         f"validation steps, the final validation of {len(summary['metric_per_case'])} cases), "
         f"peak memory {peak:.2f} GiB; loss train {lg['train_losses']}, validation "
@@ -3862,22 +4041,22 @@ def ss3d_train_verb(torch, card: str, tmp: Path, shared: Path = None) -> None:
         f"validation {final_c}")
     if len(steps) != SS3D_STEPS or not all(math.isfinite(v) for v in
                                            lg["train_losses"] + lg["val_losses"]):
-        fail(f"the U-Mamba Enc SS3D verb ran {len(steps)} steps, losses {lg['train_losses']} "
+        fail(f"the {label} verb ran {len(steps)} steps, losses {lg['train_losses']} "
              f"{lg['val_losses']}")
     for counts, where, want in ((train_c, "training steps", MAMBA_KERNELS),
                                 (val_c, "validation steps", ("selective_scan_fwd",)),
                                 (final_c, "final validation", ("selective_scan_fwd",))):
         bad = {k: v for k, v in counts.items() if v and k not in want}
         if bad or any(counts.get(k, 0) <= 0 for k in want):
-            fail(f"the U-Mamba Enc SS3D verb's {where} launched {counts} (want {want} only)")
+            fail(f"the {label} verb's {where} launched {counts} (want {want} only)")
     if any(v for k, v in launches.items() if k not in MAMBA_KERNELS):
-        fail(f"the U-Mamba Enc SS3D verb run launched {launches}")
+        fail(f"the {label} verb run launched {launches}")
 
     # the first training batch's first case from the final weights, its
     # centre cut to UNET3D_GRAD_PATCH (the reference's fp64 network does not
     # fit the card at the batch of 2, and takes minutes at the full patch):
     # the loss and gradients as phase 11 holds them
-    tr = Trainer(SS3D_RECIPE, batch_size=SS3D_GRAD_BATCH, num_input_channels=1,
+    tr = Trainer(recipe, batch_size=SS3D_GRAD_BATCH, num_input_channels=1,
                  num_classes=SS3D_CLASSES, batch_dice=False, seed=0, device="cuda",
                  compute_dtype=torch.float32,
                  configuration_manager=unet3d_configuration(UNET3D_GRAD_PATCH, SS3D_GRAD_BATCH))
@@ -3902,23 +4081,26 @@ def ss3d_train_verb(torch, card: str, tmp: Path, shared: Path = None) -> None:
         with plain_scan_half_chunks():
             res["twins reordered"] = train_grads(tr, net, x, y)
     if any(k.launches for k in _ext.ALL_KERNELS) or any(ran[k] <= 0 for k in MAMBA_KERNELS):
-        fail(f"the U-Mamba Enc SS3D batch ran {ran} with the kernels, or the plain run "
+        fail(f"the {label} batch ran {ran} with the kernels, or the plain run "
              "launched one")
     log(f"  the verb's first training batch's first case {tuple(x.shape)} from its final "
         f"weights, fp32: kernels ({ran['selective_scan_fwd']} K1, {ran['selective_scan_bwd']} "
         f"K5 launches) vs plain twins on the card, {time.perf_counter() - t0:.1f} s with the "
         "reference in fp64")
-    if not hold_mamba_grads(torch, "fp32", res["kernels"], res["twins"], res["twins reordered"],
-                            ref, card):
-        fail("U-Mamba Enc SS3D's loss or gradients with the kernels beyond their limits (above)")
+    held = hold_mamba_grads(torch, "fp32", res["kernels"], res["twins"],
+                            res["twins reordered"], ref, card)
+    calls = scan_calls_vs_fp64(torch, label, tr, net, x, y)
+    if not held:
+        keep_grad_fault(torch, label, net, x, y, *calls)
+        fail(f"{label}'s loss or gradients with the kernels beyond their limits (above)")
     tr.network.zero_grad(set_to_none=True)
-    del tr, net, res, ref
+    del tr, net, res, ref, calls
     gc.collect()
     torch.cuda.empty_cache()
 
     # ms per step: the verb's with the loader, and one cached batch
     plans, dataset = (load_json(str(pre / f)) for f in ("nnUNetPlans.json", "dataset.json"))
-    vt = NNUNetTrainer(plans, "3d_fullres", 0, dataset, trainer_name=SS3D_RECIPE, device="cuda")
+    vt = NNUNetTrainer(plans, "3d_fullres", 0, dataset, trainer_name=recipe, device="cuda")
     vt.initialize()
     xb, yb = vt.feed.batch(first["train"])
     vt.step.run_steps([(xb, yb)] * 2)
@@ -3936,52 +4118,30 @@ def ss3d_train_verb(torch, card: str, tmp: Path, shared: Path = None) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    out = tmp / "ss3d_predicted"
+    # the predict verb on the test cases (a 3-D volume takes ~7 s)
+    out = tmp / f"{recipe}_predicted"
     t0 = time.perf_counter()
     _ext.reset_launch_counts()
     cli.predict_entry(["-i", str(raw / "imagesTs"), "-o", str(out), "-d", UNET3D_ID, "-c",
-                       "3d_fullres", "-tr", SS3D_RECIPE, "-f", "0"])
+                       "3d_fullres", "-tr", recipe, "-f", "0"])
     ran = {k.name: k.launches for k in _ext.ALL_KERNELS if k.launches}
-    check_segs(out, [f"case_{i:03d}.nii.gz" for i in range(UNET3D_CASES, UNET3D_CASES +
-                                                           UNET3D_TEST_CASES)],
-               "the U-Mamba Enc SS3D predict verb")
+    check_segs(out, [f"case_{i:03d}.nii.gz" for i in range(UNET3D_CASES, UNET3D_CASES
+                                                            + UNET3D_TEST_CASES)],
+               f"the {label} predict verb")
     if set(ran) != {"selective_scan_fwd"}:
-        fail(f"the predict verb on the U-Mamba Enc SS3D folder launched {ran}")
-    log(f"  predict verb (bf16, automatic tile batch, mirror (0, 1, 2)) on the "
-        f"{UNET3D_TEST_CASES} test cases: {time.perf_counter() - t0:.1f} s, launches {ran} | "
-        f"{card}")
+        fail(f"the predict verb on the {label} folder launched {ran}")
+    log(f"  predict verb (bf16, the budget's tile batch, mirror (0, 1, 2)) on the "
+        f"{UNET3D_TEST_CASES} test case(s): {time.perf_counter() - t0:.1f} s, launches {ran} "
+        f"| {card}")
 
 
-def phase_ss3d(torch, card: str, shared: Path = None) -> None:
+def phase_ss3d(torch, card: str, held: set = None, shared: Path = None) -> None:
     """Phase 12: the SS3D U-Mambas, VM-UNet-3D and MSVM-UNet on the card
-    (``shared``: phase 10's preprocessed 3-D cases, for the train verb).
-    Only K1 and K5 may be launched, and each must be."""
-    from mlagg_unet_torch.ops import _ext
-
-    t_phase = time.perf_counter()
-    _ext.reset_launch_counts()
-    total = {}
-    reset = _ext.reset_launch_counts
-
-    def reset_keeping_total():   # the checks below reset the counts: keep the phase's sum
-        for k in _ext.ALL_KERNELS:
-            total[k.name] = total.get(k.name, 0) + k.launches
-        reset()
-
-    _ext.reset_launch_counts = reset_keeping_total
-    try:
-        ss3d_phase_steps(torch, card, shared)
-    finally:
-        _ext.reset_launch_counts = reset
-    reset_keeping_total()
-    launched = {k: v for k, v in total.items() if v}
-    if set(launched) != set(MAMBA_KERNELS):
-        fail(f"the SS3D phase launched {launched} (want K1 and K5 only, each)")
-    log(f"  launches of the port's kernels in the phase: {launched} | {card}")
-    log(f"[ss3d] phase done in {time.perf_counter() - t_phase:.1f} s")
+    (``shared``: phase 10's preprocessed 3-D cases, for the train verb)."""
+    zoo_phase(torch, card, "ss3d", ss3d_phase_steps, held, shared)
 
 
-def ss3d_phase_steps(torch, card: str, shared: Path = None) -> None:
+def ss3d_phase_steps(torch, card: str, held: set, shared: Path = None) -> None:
     """Phase 12's steps (a)-(d)."""
     import tempfile
 
@@ -3993,9 +4153,9 @@ def ss3d_phase_steps(torch, card: str, shared: Path = None) -> None:
     t0 = time.perf_counter()
     log(f"[ss3d] the six networks at full width: 3-D on the {UNET3D_TILE} plan, MSVM-UNet on "
         f"the {MAMBA_PATCH} plan")
-    nets = ss3d_networks(torch)
+    nets = zoo_networks(torch, SS3D_NETWORKS, SS3D_3D)
     log("[ss3d] (a) K1 and K5 at every shape one forward and backward of each network emits")
-    ss3d_scan_checks(torch, card, ss3d_scan_shapes(torch, nets))
+    ss3d_scan_checks(torch, card, ss3d_scan_shapes(torch, nets), held)
     log(f"  (a) done in {stamp(t0)}")
     t0 = time.perf_counter()
     log(f"[ss3d] (b) one tile, fp32, card vs CPU (U-Mambas {SS3D_CPU_TILE}, VM-UNet-3D "
@@ -4030,7 +4190,90 @@ def ss3d_phase_steps(torch, card: str, shared: Path = None) -> None:
             str(tmp / "raw"), str(tmp / "preprocessed"), str(tmp / "results"))
         try:
             with no_autotune():
-                ss3d_train_verb(torch, card, tmp, shared)
+                train_verb_3d(torch, card, tmp, shared, "nnUNetTrainerUMambaEnc_SS3D",
+                              SS3D_RECIPE, "U-Mamba Enc SS3D")
+        finally:
+            paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = saved
+    log(f"  (d) done in {stamp(t0)}")
+
+
+def variant_scan_checks(torch, card: str, calls: dict, held: set) -> None:
+    """K1 and K5 against their plain twins at every recorded shape an
+    earlier phase did not hold (phase 3's tolerances); the shapes must
+    include SegMamba's L = 262,144 and UltraLight's d = 12, and every shape
+    must have run both kernels. Then both timed at SegMamba's stage 0
+    beside their plain twins (one run each) and their bound."""
+    want = {"L = 262,144": lambda k: k[3] == SEGMAMBA_LARGEST[3], "d = 12": lambda k: k[2] == 12}
+    missing = [w for w, f in want.items() if not any(f(k) for k in calls)]
+    both = [k for k, v in calls.items() if v != {"K1", "K5"}]
+    if missing or both:
+        fail(f"phase 13's scans miss {missing}, or ran K1 or K5 only at {both}: {calls}")
+    scan_shape_checks(torch, calls, held)
+    scan_timing(torch, card, SEGMAMBA_LARGEST, "SegMamba stage 0, training batch",
+                plain_reps=1)
+
+
+def phase_variants(torch, card: str, held: set = None, shared: Path = None) -> None:
+    """Phase 13: SegMamba, nnMamba, LightM-UNet and UltraLight VM-UNet on
+    the card (``shared``: phase 10's preprocessed 3-D cases, for the train
+    verb)."""
+    zoo_phase(torch, card, "variants", variant_phase_steps, held, shared)
+
+
+def variant_phase_steps(torch, card: str, held: set, shared: Path = None) -> None:
+    """Phase 13's steps (a)-(d)."""
+    import tempfile
+
+    from mlagg_unet_torch import paths
+
+    def stamp(t0):
+        return f"{time.perf_counter() - t0:.1f} s"
+
+    t0 = time.perf_counter()
+    log(f"[variants] the four networks at full width: 3-D on the {UNET3D_TILE} plan, 2-D on "
+        f"the {MAMBA_PATCH} plan")
+    nets = zoo_networks(torch, VARIANT_NETWORKS, VARIANT_3D)
+    log("[variants] (a) K1 and K5 at every shape one forward and backward of each network "
+        "emits, in training mode (nnMamba's BatchNorm on the batch's statistics)")
+    calls, per_model = {}, {}
+    zoo_scan_shapes(torch, nets, VARIANT_3D, torch.Generator().manual_seed(3), calls, per_model,
+                    train_mode=True)
+    log_scan_shapes(per_model)
+    variant_scan_checks(torch, card, calls, held)
+    log(f"  (a) done in {stamp(t0)}")
+    t0 = time.perf_counter()
+    log(f"[variants] (b) one tile, fp32, card vs CPU (cut for the CPU: 3-D on {SS3D_CPU_TILE}, "
+        f"2-D on {VARIANT_CPU_TILE_2D})")
+    mamba_tile_agreement(torch, card, {k: nets[k] for k in VARIANT_3D}, SS3D_CPU_TILE,
+                         SS3D_CLASSES)
+    mamba_tile_agreement(torch, card, {k: v for k, v in nets.items() if k not in VARIANT_3D},
+                         VARIANT_CPU_TILE_2D)
+    log(f"  (b) done in {stamp(t0)}")
+    t0 = time.perf_counter()
+    log(f"[variants] (c) serve | {card}")
+    with no_autotune():
+        mamba_serve(torch, card, VARIANT_TRAINER, nets[VARIANT_TRAINER], UNET3D_TILE,
+                    SS3D_CLASSES, (0, 1, 2), UNET3D_VOLUME, VARIANT_VOLUMES,
+                    bf16_tol=VARIANT_BF16_TOL[VARIANT_TRAINER], profiled=False,
+                    fp32_own_batch=True, warmup_volume=(1, *UNET3D_TILE))
+        for name in VARIANT_SERVED[1:]:
+            mamba_serve(torch, card, name, nets[name], n_volumes=VARIANT_VOLUMES,
+                        bf16_tol=VARIANT_BF16_TOL[name], profiled=False)
+    log(f"  (c) done in {stamp(t0)}")
+    del nets
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"[variants] (d) the train verb: {VARIANT_TRAINER} | {card}")
+    saved = (paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_variants_") as tmp:
+        tmp = Path(tmp)
+        paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = (
+            str(tmp / "raw"), str(tmp / "preprocessed"), str(tmp / "results"))
+        try:
+            with no_autotune():
+                train_verb_3d(torch, card, tmp, shared, VARIANT_TRAINER, VARIANT_RECIPE,
+                              "SegMamba")
         finally:
             paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = saved
     log(f"  (d) done in {stamp(t0)}")
@@ -4040,7 +4283,7 @@ def main() -> None:
     global REPO
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     ap.add_argument("--only", choices=("predict", "serve-timing", "train-verb", "pipeline",
-                                       "unet3d", "mamba", "ss3d"),
+                                       "unet3d", "mamba", "ss3d", "variants"),
                     help="run the device and build phases and this one alone, with no "
                          "kernels line and no final line")
     ap.add_argument("--root", type=Path, default=REPO,
@@ -4096,7 +4339,7 @@ def main() -> None:
         {"serve-timing": serve_timing, "predict": phase_predict,
          "train-verb": phase_train_verb, "pipeline": phase_pipeline,
          "unet3d": phase_unet3d, "mamba": phase_mamba,
-         "ss3d": phase_ss3d}[opts.only](torch, card)
+         "ss3d": phase_ss3d, "variants": phase_variants}[opts.only](torch, card)
         done(opts.only)
         return
     report = Report(sfu_exp_per_s(torch))
@@ -4127,10 +4370,13 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_3d_") as shared3d:
         phase_unet3d(torch, card, Path(shared3d))
         done("unet3d")
-        phase_mamba(torch, card)
+        held = set()   # the scan shapes phases 11-13 held K1 and K5 at
+        phase_mamba(torch, card, held)
         done("mamba")
-        phase_ss3d(torch, card, Path(shared3d))
+        phase_ss3d(torch, card, held, Path(shared3d))
         done("ss3d")
+        phase_variants(torch, card, held, Path(shared3d))
+        done("variants")
 
     launches = {**serve, "selective_scan_bwd": train["selective_scan_bwd"],
                 **{k: serve_f[k] for k in FUSED_KERNELS}}

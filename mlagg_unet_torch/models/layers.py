@@ -153,12 +153,14 @@ class Dense(nn.Module):
 
 
 class PointwiseConv(Dense):
-    """1x1 conv as a channel matmul. Its weight keeps the conv layout
-    (out, in, 1, 1) so it converts like every other conv kernel."""
+    """1x1 (1x1x1 with ``spatial_dims=3``) conv as a channel matmul on the
+    channels-last input. Its weight keeps the conv layout (out, in, 1, 1[, 1])
+    so it converts like every other conv kernel."""
 
-    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 spatial_dims: int = 2):
         super().__init__(in_features, out_features, bias)
-        self.weight = _empty(out_features, in_features, 1, 1)
+        self.weight = _empty(out_features, in_features, *(1,) * spatial_dims)
 
     def forward(self, x):
         return F.linear(*promote_dtype(x, self.weight.view(self.out_features, self.in_features),
@@ -177,26 +179,29 @@ def _channels_last(x):
     return x.permute(0, *range(2, x.ndim), 1)
 
 
-_CONV = {2: F.conv2d, 3: F.conv3d}
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 _CONV_T = {2: F.conv_transpose2d, 3: F.conv_transpose3d}
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv`` on channels-last 2-D or 3-D input with symmetric
-    integer padding (``padding=1``, or by default ``k // 2`` per axis, the
-    SAME padding of an odd kernel at stride 1). The kernel's length sets the
-    dimension (an int kernel is 2-D); strides may differ per axis. ``weight``
-    is (out, in / groups, *kernel); ``bias=False`` drops the bias, as flax's
+    """flax ``nn.Conv`` on channels-last 1-D, 2-D or 3-D input with
+    symmetric integer padding (``padding=1``, or by default ``k // 2`` per
+    axis, the SAME padding of an odd kernel at stride 1). The kernel's length
+    sets the dimension (an int kernel is 2-D); strides and the dilation
+    (flax's ``kernel_dilation``) may differ per axis. ``weight`` is (out,
+    in / groups, *kernel); ``bias=False`` drops the bias, as flax's
     ``use_bias=False`` does."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: IntOrN,
                  stride: IntOrN = 1, padding: Optional[IntOrN] = None,
-                 groups: int = 1, torch_bias: bool = False, bias: bool = True):
+                 groups: int = 1, torch_bias: bool = False, bias: bool = True,
+                 dilation: IntOrN = 1):
         super().__init__()
         k = _ntuple(kernel_size, 2)
         self.stride = _ntuple(stride, len(k))
         self.padding = (_ntuple(padding, len(k)) if padding is not None
                         else tuple(i // 2 for i in k))
+        self.dilation = _ntuple(dilation, len(k))
         self.groups = groups
         self.torch_bias = torch_bias
         self.weight = _empty(out_channels, in_channels // groups, *k)
@@ -215,8 +220,8 @@ class Conv(nn.Module):
 
     def forward(self, x):
         x, w, b = promote_dtype(x, self.weight, self.bias)
-        y = _CONV[w.ndim - 2](_channels_first(x), w, b, self.stride, self.padding, 1,
-                              self.groups)
+        y = _CONV[w.ndim - 2](_channels_first(x), w, b, self.stride, self.padding,
+                              self.dilation, self.groups)
         return _channels_last(y)
 
 
@@ -331,16 +336,49 @@ class RMSNorm(nn.Module):
         return rms_norm(x, self.weight, self.eps)
 
 
+def _moments(xf: torch.Tensor, axes, two_pass: bool):
+    """Mean and biased variance over ``axes`` (kept): flax's fast variance
+    ``E[x^2] - E[x]^2`` clipped at 0, or with ``two_pass`` ``E[(x - E[x])^2]``
+    from ``torch.var_mean`` (one reduction kernel, no squared copy)."""
+    if two_pass:
+        var, mu = torch.var_mean(xf, axes, correction=0, keepdim=True)
+        return mu, var
+    mu = xf.mean(axes, keepdim=True)
+    return mu, torch.clamp((xf * xf).mean(axes, keepdim=True) - mu * mu, min=0.0)
+
+
+def instance_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
+                  bias: Optional[torch.Tensor] = None, eps: float = 1e-5,
+                  two_pass: bool = False) -> torch.Tensor:
+    """Each channel normalised over every spatial axis by its mean and
+    biased variance in at least fp32, then ``weight`` and ``bias`` where
+    given (JAX's ``InstanceNorm``, affine or not); the output in the
+    promoted input/param dtype."""
+    xf = x.to(_stats_dtype(x))
+    mu, var = _moments(xf, tuple(range(1, x.ndim - 1)), two_pass)
+    # xf is dropped once it is centred: the two-pass form then keeps two fp32
+    # temporaries of the activation, not four
+    d = xf - mu
+    del xf
+    scale = torch.rsqrt(var + eps)
+    if weight is None:
+        return (d * scale).to(x.dtype)
+    scale = scale * weight.to(d.dtype)
+    y = torch.addcmul(bias.to(d.dtype), d, scale) if two_pass else d * scale + bias.to(d.dtype)
+    return y.to(_norm_dtype(x, weight))
+
+
 class InstanceNorm(nn.Module):
     """flax ``GroupNorm(num_groups=C)`` == InstanceNorm with affine
     (``layers.py:199``; also ``ChannelGroupNorm``). Params in a child
-    ``GroupNorm_0``; stats over every spatial axis in at least fp32, the
-    variance flax's fast ``E[x^2] - E[x]^2`` (clipped at 0), or with
-    ``two_pass`` ``E[(x - E[x])^2]`` from ``torch.var_mean``: the same
-    function, which needs no squared copy and keeps two fp32 temporaries of
-    the activation where the fast form keeps four (the 3-D U-Net's
-    activations are large), and does not cancel where a channel's mean is
-    large against its spread."""
+    ``GroupNorm_0`` (the parameterless form, JAX's
+    ``InstanceNorm(affine=False)``, is the function ``instance_norm``).
+    Stats over every spatial axis in at least fp32, the variance
+    flax's fast ``E[x^2] - E[x]^2`` (clipped at 0), or with ``two_pass``
+    ``E[(x - E[x])^2]`` from ``torch.var_mean``: the same function, which
+    needs no squared copy and keeps two fp32 temporaries of the activation
+    where the fast form keeps four (the 3-D U-Net's activations are large),
+    and does not cancel where a channel's mean is large against its spread."""
 
     def __init__(self, channels: int, eps: float = 1e-5, two_pass: bool = False):
         super().__init__()
@@ -350,21 +388,29 @@ class InstanceNorm(nn.Module):
 
     def forward(self, x):
         p = self.GroupNorm_0
-        xf = x.to(_stats_dtype(x))
-        axes = tuple(range(1, x.ndim - 1))
-        if self.two_pass:
-            # one reduction kernel and no squared copy; xf is dropped once
-            # it is centred, so the fp32 temporaries are two, not four
-            var, mu = torch.var_mean(xf, axes, correction=0, keepdim=True)
-            d = xf - mu
-            del xf
-            scale = torch.rsqrt(var + self.eps) * p.weight.to(d.dtype)
-            return torch.addcmul(p.bias.to(d.dtype), d, scale).to(_norm_dtype(x, p.weight))
-        mu = xf.mean(axes, keepdim=True)
-        var = torch.clamp((xf * xf).mean(axes, keepdim=True) - mu * mu, min=0.0)
-        y = (xf - mu) * (torch.rsqrt(var + self.eps) * p.weight.to(xf.dtype)) \
-            + p.bias.to(xf.dtype)
-        return y.to(_norm_dtype(x, p.weight))
+        return instance_norm(x, p.weight, p.bias, self.eps, self.two_pass)
+
+
+class GroupNorm(_Affine):
+    """flax ``nn.GroupNorm(num_groups, epsilon)``: the channels split into
+    ``num_groups`` groups of consecutive channels, each normalised over the
+    spatial axes and its channels by its fp32 mean and fast variance (as
+    ``InstanceNorm``), then the per-channel ``weight`` (flax's ``scale``)
+    and ``bias``; the output in the promoted input/param dtype."""
+
+    def __init__(self, channels: int, num_groups: int, eps: float = 1e-5):
+        super().__init__(channels)
+        if channels % num_groups:
+            raise ValueError(f"GroupNorm: {channels} channels in {num_groups} groups")
+        self.num_groups, self.eps = num_groups, eps
+
+    def forward(self, x):
+        G, C = self.num_groups, x.shape[-1]
+        xf = x.to(_stats_dtype(x)).reshape(*x.shape[:-1], G, C // G)
+        mu, var = _moments(xf, tuple(range(1, xf.ndim - 2)) + (xf.ndim - 1,), False)
+        scale = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype).view(G, C // G)
+        y = (xf - mu) * scale + self.bias.to(xf.dtype).view(G, C // G)
+        return y.reshape(x.shape).to(_norm_dtype(x, self.weight))
 
 
 class BatchNorm(_Affine):
@@ -452,3 +498,49 @@ def avg_pool_to(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     y = torch.einsum("oh,bhwc->bowc", mh, x.float())
     y = torch.einsum("pw,bowc->bopc", mw, y)
     return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------- resampling
+
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+def max_pool2(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.max_pool(x, (2,) * d, strides=(2,) * d)`` (VALID: an odd
+    extent drops its last row) on channels-last input."""
+    return _channels_last(_MAX_POOL[x.ndim - 2](_channels_first(x), 2, 2))
+
+
+def nearest2(x: torch.Tensor) -> torch.Tensor:
+    """Each spatial axis repeated twice (``jnp.repeat(x, 2, axis)`` per
+    axis): 2x nearest upsampling of channels-last input."""
+    B, *sp, C = x.shape
+    y = x.reshape(B, *[v for s in sp for v in (s, 1)], C)
+    y = y.expand(B, *[v for s in sp for v in (s, 2)], C)
+    return y.reshape(B, *(2 * s for s in sp), C)
+
+
+def bilinear_ac(x: torch.Tensor) -> torch.Tensor:
+    """2x ``F.interpolate(mode="bilinear", align_corners=True)`` of
+    channels-last (B, H, W, C) (``mamba_variants.py:313``): the output
+    grid's end points on the input's. An axis of extent 1 is repeated, as
+    JAX's special case repeats it (align-corners samples index 0 there)."""
+    B, H, W, C = x.shape
+    y = F.interpolate(_channels_first(x), size=(2 * H, 2 * W), mode="bilinear",
+                      align_corners=True)
+    return _channels_last(y)
+
+
+_LINEAR_MODE = {1: "linear", 2: "bilinear", 3: "trilinear"}
+
+
+def linear_resize(x: torch.Tensor, scale: Sequence[int]) -> torch.Tensor:
+    """Half-pixel linear upsampling of channels-last input by an integer
+    factor per spatial axis (``_trilinear``, ``mamba_variants.py:519``):
+    ``F.interpolate(mode="trilinear", align_corners=False)``, which for
+    upsampling is ``jax.image.resize(method="linear")``; a factor of 1 is
+    the identity."""
+    sp = x.shape[1:-1]
+    y = F.interpolate(_channels_first(x), size=tuple(s * f for s, f in zip(sp, scale)),
+                      mode=_LINEAR_MODE[len(sp)], align_corners=False)
+    return _channels_last(y)

@@ -1,7 +1,10 @@
-"""UNETR residual conv blocks, 2D NHWC.
+"""UNETR residual conv blocks, channels-last 2-D (NHWC) or 3-D (NDHWC).
 
 Counterparts of ``UnetResBlock``, ``UnetrBasicBlock`` and ``UnetrUpBlock``
-in ``mlagg_unet_tpu/models/unetr_blocks.py``. With ``fused_instance_norm``
+in ``mlagg_unet_tpu/models/unetr_blocks.py``: ``spatial_dims`` sets the
+dimension, and kernels and strides are ints or per-axis sequences, as JAX's
+``_per_axis`` takes them (SegMamba's decoder upsamples by (1, 2, 2)). With
+``fused_instance_norm``
 (``None``: the JAX package's ``MLAGG_FUSED_IN == "1"``, read at construction)
 each InstanceNorm + LeakyReLU (+ residual) chain runs through
 ``ops.fused_norm.fused_instance_norm`` (kernels K7 and K8 on the GPU), as
@@ -9,7 +12,7 @@ each InstanceNorm + LeakyReLU (+ residual) chain runs through
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -19,27 +22,40 @@ from mlagg_unet_torch.models.layers import Conv, ConvTransposeTorch, InstanceNor
 from mlagg_unet_torch.ops.fused_norm import fused_instance_norm, fused_norms_enabled
 
 
+IntOrN = Union[int, Sequence[int]]
+
+
 def lrelu(x):
     return F.leaky_relu(x, 0.01)
 
 
+def _per_axis(v: IntOrN, d: int) -> Tuple[int, ...]:
+    return tuple(int(i) for i in v) if isinstance(v, (tuple, list)) else (int(v),) * d
+
+
 class UnetResBlock(nn.Module):
     """conv(k, s) -> IN -> lrelu -> conv(k) -> IN [+ 1x1 conv / IN residual]
-    -> lrelu."""
+    -> lrelu. ``two_pass`` takes the instance norms' two-pass variance (the
+    same function, fewer fp32 temporaries: SegMamba's full-resolution 3-D
+    blocks); the fused path is 2-D only."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 3, stride: int = 1,
-                 fused_instance_norm: Optional[bool] = None):
+                 kernel_size: IntOrN = 3, stride: IntOrN = 1,
+                 fused_instance_norm: Optional[bool] = None, spatial_dims: int = 2,
+                 two_pass: bool = False):
         super().__init__()
-        self.has_proj = in_channels != out_channels or stride != 1
+        ks, ss = _per_axis(kernel_size, spatial_dims), _per_axis(stride, spatial_dims)
+        self.has_proj = in_channels != out_channels or any(s != 1 for s in ss)
         self.fused = fused_norms_enabled(fused_instance_norm)
-        self.conv1 = Conv(in_channels, out_channels, kernel_size, stride)
-        self.norm1 = InstanceNorm(out_channels)
-        self.conv2 = Conv(out_channels, out_channels, kernel_size)
-        self.norm2 = InstanceNorm(out_channels)
+        if self.fused and spatial_dims != 2:
+            raise ValueError("the fused instance norm (K7/K8) is 2-D only")
+        self.conv1 = Conv(in_channels, out_channels, ks, ss)
+        self.norm1 = InstanceNorm(out_channels, two_pass=two_pass)
+        self.conv2 = Conv(out_channels, out_channels, ks)
+        self.norm2 = InstanceNorm(out_channels, two_pass=two_pass)
         if self.has_proj:
-            self.conv3 = Conv(in_channels, out_channels, 1, stride)
-            self.norm3 = InstanceNorm(out_channels)
+            self.conv3 = Conv(in_channels, out_channels, (1,) * spatial_dims, ss)
+            self.norm3 = InstanceNorm(out_channels, two_pass=two_pass)
 
     def forward(self, x):
         if not self.fused:
@@ -59,11 +75,12 @@ class UnetResBlock(nn.Module):
 
 class UnetrBasicBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 3, stride: int = 1,
-                 fused_instance_norm: Optional[bool] = None):
+                 kernel_size: IntOrN = 3, stride: IntOrN = 1,
+                 fused_instance_norm: Optional[bool] = None, spatial_dims: int = 2,
+                 two_pass: bool = False):
         super().__init__()
         self.layer = UnetResBlock(in_channels, out_channels, kernel_size, stride,
-                                  fused_instance_norm)
+                                  fused_instance_norm, spatial_dims, two_pass)
 
     def forward(self, x):
         return self.layer(x)
@@ -74,15 +91,16 @@ class UnetrUpBlock(nn.Module):
     UnetResBlock."""
 
     def __init__(self, in_channels: int, out_channels: int, skip_channels: int,
-                 kernel_size: int = 3, upsample_kernel_size: int = 2,
-                 fused_instance_norm: Optional[bool] = None):
+                 kernel_size: IntOrN = 3, upsample_kernel_size: IntOrN = 2,
+                 fused_instance_norm: Optional[bool] = None, spatial_dims: int = 2,
+                 two_pass: bool = False):
         super().__init__()
-        self.transp_conv = ConvTransposeTorch(
-            in_channels, out_channels, upsample_kernel_size,
-            upsample_kernel_size, 0)
+        up = _per_axis(upsample_kernel_size, spatial_dims)
+        self.transp_conv = ConvTransposeTorch(in_channels, out_channels, up, up, 0)
         self.conv_block = UnetResBlock(out_channels + skip_channels,
                                        out_channels, kernel_size,
-                                       fused_instance_norm=fused_instance_norm)
+                                       fused_instance_norm=fused_instance_norm,
+                                       spatial_dims=spatial_dims, two_pass=two_pass)
 
     def forward(self, x, skip):
         return self.conv_block(torch.cat([self.transp_conv(x), skip], dim=-1))

@@ -14,8 +14,9 @@ change the length, the optimizer, the loss, the schedule, the norm, the
 augmentation or the sampling, with the JAX entries' values. The model zoo's
 names are all registered with the JAX entries' values; the networks of
 U-Mamba Bot / Enc (also with SS3D), VM-UNet, Mamba-UNet, Swin-UMamba(-D),
-VM-UNet-3D (three forms) and MSVM-UNet are built, the others' raise when a
-trainer checks them (ROADMAP queue A, A16).
+VM-UNet-3D (three forms), MSVM-UNet, SegMamba, LightM-UNet, UltraLight
+VM-UNet and nnMamba are built, the others' raise when a trainer checks them
+(ROADMAP queue A, A16).
 """
 from __future__ import annotations
 
@@ -177,6 +178,66 @@ def _build_2d(module: str, cls_name: str, with_ds: bool):
     return build
 
 
+def _seeded_variant(cls_name: str, num_input_channels: int, num_output_channels: int,
+                    seed: int, device: DeviceLike, **kwargs):
+    """A network of ``models/mamba_variants.py``, seeded, fp32, in eval mode
+    on ``device``; ``kwargs`` are its constructor's."""
+    from mlagg_unet_torch.models import mamba_variants
+    from mlagg_unet_torch.models.vmamba import build_seeded
+
+    model = getattr(mamba_variants, cls_name)(num_input_channels, num_output_channels, **kwargs)
+    return build_seeded(model, seed, device)
+
+
+# the networks of mamba_variants.py at their reference defaults, without deep
+# supervision (JAX's _make_simple_builder and _build_nnmamba,
+# registry.py:289-332); ``overrides`` replace constructor arguments
+def _build_segmamba(configuration_manager, num_input_channels: int, num_output_channels: int,
+                    deep_supervision: bool, *, seed: int = 0, device: DeviceLike = "cuda",
+                    **overrides):
+    """SegMamba, 3-D only: its strides are its own (a (1, 2, 2) stem, then
+    2x2x2), not the plans'."""
+    if len(getattr(configuration_manager, "patch_size", configuration_manager)) != 3:
+        raise ValueError("SegMamba is a 3D network: give a 3D configuration")
+    return _seeded_variant("SegMamba", num_input_channels, num_output_channels, seed, device,
+                           **overrides)
+
+
+def _build_lightm_unet(configuration_manager, num_input_channels: int, num_output_channels: int,
+                       deep_supervision: bool, *, seed: int = 0, device: DeviceLike = "cuda",
+                       **overrides):
+    """LightM-UNet in the patch's dimension."""
+    patch = getattr(configuration_manager, "patch_size", configuration_manager)
+    return _seeded_variant("LightMUNet", num_input_channels, num_output_channels, seed, device,
+                           **{"spatial_dims": len(patch), **overrides})
+
+
+def _build_ultralight(configuration_manager, num_input_channels: int, num_output_channels: int,
+                      deep_supervision: bool, *, seed: int = 0, device: DeviceLike = "cuda",
+                      **overrides):
+    """UltraLight VM-UNet: 2-D, and five 2x poolings need a patch divisible
+    by 32."""
+    patch = tuple(getattr(configuration_manager, "patch_size", configuration_manager))
+    if len(patch) != 2 or any(p % 32 for p in patch):
+        raise ValueError(f"UltraLightVMUNet is a 2D network whose patch divides by 32: {patch}")
+    return _seeded_variant("UltraLightVMUNet", num_input_channels, num_output_channels, seed,
+                           device, **overrides)
+
+
+def _build_nnmamba(configuration_manager, num_input_channels: int, num_output_channels: int,
+                   deep_supervision: bool, *, seed: int = 0, device: DeviceLike = "cuda",
+                   **overrides):
+    """nnMamba with its four strides from ``pool_op_kernel_sizes[1:5]``,
+    padded with ones."""
+    if not hasattr(configuration_manager, "pool_op_kernel_sizes"):
+        raise ValueError("nnMamba takes its strides from the plans: pass the "
+                         "ConfigurationManager, not a patch size")
+    strides = [tuple(s) for s in configuration_manager.pool_op_kernel_sizes[1:5]]
+    strides += [(1,) * len(configuration_manager.patch_size)] * (4 - len(strides))
+    return _seeded_variant("NNMamba", num_input_channels, num_output_channels, seed, device,
+                           **{"strides": tuple(strides), **overrides})
+
+
 NETWORK_BUILDERS: Dict[str, Callable] = {
     "mlla_uper": _build_mlla_uper,
     "plans_unet": _build_plans_unet,
@@ -193,6 +254,10 @@ NETWORK_BUILDERS: Dict[str, Callable] = {
     "vmunet3d_new": _build_vmunet3d(new=True),
     "vmunet3d_swint": _build_vmunet3d(swin=True, new=True),
     "msvm_unet": _build_2d("mlagg_unet_torch.models.msvm_unet", "MSVMUNet", False),
+    "segmamba": _build_segmamba,
+    "lightm_unet": _build_lightm_unet,
+    "ultralight_vmunet": _build_ultralight,
+    "nnmamba": _build_nnmamba,
 }
 
 

@@ -3,10 +3,13 @@
 Copied from ``mlagg_unet_tpu/training/torch_import.py``: the reference's key
 rules of ``MLLA_Uper`` (``REFERENCE_FLAGSHIP_RULES``, the ConvTranspose
 keys), U-Mamba Bot / Enc (also SS3D, whose A_logs / Ds merge 12 scan
-paths), VM-UNet, Mamba-UNet, Swin-UMamba(-D), VM-UNet-3D and MSVM-UNet
-(``:109-258``, ``:305-350``, ``:583-604``), the converter to the JAX
+paths), VM-UNet, Mamba-UNet, Swin-UMamba(-D), VM-UNet-3D, MSVM-UNet,
+SegMamba, LightM-UNet, UltraLight VM-UNet and nnMamba (``:109-258``,
+``:259-350``, ``:397-420``, ``:583-604``), the converter to the JAX
 package's flat layout and ``CONVERTERS_BY_NETWORK`` for those networks
-(``:661-688``). Composed with ``weights.jax_params_to_state_dict`` (and the
+(``:661-688``). nnMamba's shared Mamba layer sits under both of its blocks
+in a reference state_dict (the same tensors); both keys map to its one
+``mamba{k}`` scope. Composed with ``weights.jax_params_to_state_dict`` (and the
 BatchNorm running statistics renamed to the port's buffers) they take a
 reference ``fold_X/checkpoint_final.pth``'s ``network_weights`` to a
 state_dict the port's network loads with ``strict=True``
@@ -241,6 +244,70 @@ REFERENCE_MAMBA_UNET_RULES = [
 ]
 
 
+# SegMamba (nnUNetTrainer_SegMamba.py:264-416: MambaEncoder 'vit' + monai's
+# UnetrBasicBlock / UnetrUpBlock decoder); the tri-orientated branches'
+# dt_proj_b / dt_proj_s flatten as the main branch's
+REFERENCE_SEGMAMBA_RULES = [
+    (r"^vit\.downsample_layers\.0\.0\.", "vit.stem."),
+    (r"^vit\.downsample_layers\.(\d+)\.1\.", r"vit.downsample\1."),
+    (r"^vit\.gscs\.(\d+)\.", r"vit.gsc\1."),
+    (r"^vit\.stages\.(\d+)\.(\d+)\.", r"vit.stage\1_\2."),
+    (r"^vit\.mlps\.(\d+)\.", r"vit.mlp\1."),
+    (r"\.dt_proj(_b|_s)?\.(weight|bias)$", r".dt_proj\1_\2"),
+    (r"^out\.conv\.conv\.", "out."),
+    (r"\.transp_conv\.conv\.", ".transp_conv."),
+    (r"\.(conv1|conv2|conv3)\.conv\.", r".\1."),
+    (r"\.(norm1|norm2|norm3)\.", r".\1.GroupNorm_0."),
+]
+
+
+# LightM-UNet (nnUNetTrainer_LightMUNet.py:292-417, MONAI SegResNet skeleton)
+REFERENCE_LIGHTM_RULES = [
+    (r"^convInit\.0\.conv\.", "convInit.dw."),
+    (r"^convInit\.1\.conv\.", "convInit.pw."),
+    (r"^down_layers\.(\d+)\.0\.0\.", r"down\1_mamba."),
+    (r"^down_layers\.(\d+)\.(\d+)\.", lambda m: (
+        f"down{m.group(1)}_block{int(m.group(2)) - 1}.")),
+    (r"^up_samples\.(\d+)\.0\.conv\.", r"up\1_conv."),
+    (r"^up_layers\.(\d+)\.(\d+)\.", r"up\1_block\2."),
+    (r"^conv_final\.0\.", "final_norm.GroupNorm_0."),
+    (r"^conv_final\.2\.0\.conv\.", "conv_final.dw."),
+    (r"^conv_final\.2\.1\.conv\.", "conv_final.pw."),
+    (r"\.conv\.0\.conv\.", ".conv.dw."),        # ResUpBlock dwconv
+    (r"\.conv\.1\.conv\.", ".conv.pw."),
+    (r"\.(norm1|norm2)\.", r".\1.GroupNorm_0."),
+    (r"\.dt_proj\.(weight|bias)$", r".dt_proj_\1"),
+]
+
+
+# UltraLight VM-UNet (nnUNetTrainer_UltraLightVMUNet.py:209-326)
+REFERENCE_ULTRALIGHT_RULES = [
+    (r"^(encoder|decoder)(\d+)\.0\.", r"\1\2."),
+    (r"^scab\.catt\.get_all_att\.", "scab.get_all_att."),
+    (r"^scab\.catt\.att(\d+)\.", r"scab.att\1."),
+    (r"^scab\.satt\.shared_conv2d\.0\.", "scab.satt_conv."),
+    (r"\.dt_proj\.(weight|bias)$", r".dt_proj_\1"),
+]
+
+
+# nnMamba (nnUNetTrainer_nnMamba.py:237-296); the layer-shared MambaLayer
+# appears under both owning blocks (the same tensors), both mapped to the
+# one mamba{k} scope; BatchNorm's running statistics come out as
+# .../running_mean|running_var
+REFERENCE_NNMAMBA_RULES = [
+    (r"^layer(\d+)\.\d+\.mamba_layer\.", r"mamba\1."),
+    (r"^layer(\d+)\.(\d+)\.", r"layer\1_block\2."),
+    (r"\.downsample\.0\.", ".ds_conv."),
+    (r"\.downsample\.1\.", ".ds_bn."),
+    (r"^att(\d+)\.layer(\d+)\.", r"att\1_layer\2."),
+    (r"\.conv\.0\.", ".conv_a."),
+    (r"\.conv\.1\.", ".bn_a."),
+    (r"\.conv\.3\.", ".conv_b."),
+    (r"\.conv\.4\.", ".bn_b."),
+    (r"\.dt_proj\.(weight|bias)$", r".dt_proj_\1"),
+]
+
+
 def convert_reference_flagship_state_dict(state_dict) -> Dict[str, np.ndarray]:
     """torch MLLA_Uper state_dict -> {'a/b/c': array} in flax layout."""
     return _convert_reference_state_dict(state_dict,
@@ -289,6 +356,27 @@ def convert_reference_msvm_state_dict(state_dict) -> Dict[str, np.ndarray]:
     return _convert_reference_state_dict(state_dict, REFERENCE_MSVM_RULES)
 
 
+def convert_reference_segmamba_state_dict(state_dict) -> Dict[str, np.ndarray]:
+    """torch SegMamba state_dict -> flax layout."""
+    return _convert_reference_state_dict(state_dict, REFERENCE_SEGMAMBA_RULES)
+
+
+def convert_reference_lightm_state_dict(state_dict) -> Dict[str, np.ndarray]:
+    """torch LightMUNet state_dict -> flax layout."""
+    return _convert_reference_state_dict(state_dict, REFERENCE_LIGHTM_RULES)
+
+
+def convert_reference_ultralight_state_dict(state_dict) -> Dict[str, np.ndarray]:
+    """torch UltraLight_VM_UNet state_dict -> flax layout."""
+    return _convert_reference_state_dict(state_dict, REFERENCE_ULTRALIGHT_RULES)
+
+
+def convert_reference_nnmamba_state_dict(state_dict) -> Dict[str, np.ndarray]:
+    """torch nnMambaSeg state_dict -> flax layout. BatchNorm running
+    statistics come out as .../running_mean|running_var."""
+    return _convert_reference_state_dict(state_dict, REFERENCE_NNMAMBA_RULES)
+
+
 def _swin_umamba_d_converter(state_dict):
     return convert_reference_swin_umamba_state_dict(state_dict,
                                                     d_variant=True)
@@ -308,6 +396,10 @@ CONVERTERS_BY_NETWORK = {
     "vmunet3d_new": convert_reference_vmunet3d_state_dict,
     "vmunet3d_swint": convert_reference_vmunet3d_state_dict,
     "msvm_unet": convert_reference_msvm_state_dict,
+    "segmamba": convert_reference_segmamba_state_dict,
+    "lightm_unet": convert_reference_lightm_state_dict,
+    "ultralight_vmunet": convert_reference_ultralight_state_dict,
+    "nnmamba": convert_reference_nnmamba_state_dict,
 }
 
 

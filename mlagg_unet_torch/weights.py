@@ -11,7 +11,12 @@ The port's submodules are named after the flax scopes, so a flat JAX key
 - ``scale`` becomes ``weight``;
 - raw params (``A_logs``, ``Ds``, ``x_proj_weight``, ``dt_projs_*``,
   MambaBlock's ``dt_proj*_weight``, ``dt_proj*_bias``, ``A*_log`` and
-  ``D*``, ``lambda_*``, ``grn_*``) and biases keep the JAX shape.
+  ``D*``, ``lambda_*``, ``grn_*``, the variants' ``skip_scale``) and biases
+  keep the JAX shape.
+
+A parameterless norm (JAX's ``InstanceNorm(affine=False)``, the port's
+``instance_norm``) has no key on either side; a module that several blocks call (nnMamba's shared Mamba layer) is
+one scope on both.
 
 Transposed convs are told apart by their scope names (the flagship's
 ``up_*/conv1``, ``up_*/res_conv`` and ``transp_conv``, the U-Net's

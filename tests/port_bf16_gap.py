@@ -7,7 +7,9 @@ networks run at full width on a plan cut for the CPU (U-Mambas: nnU-Net's
 2d topology at 160x160, 6 stages, 32-512 features; VM-UNet and MSVM-UNet
 at their published widths on 160x160; the SS3D U-Mambas on the 3-D bench
 topology, 6 stages, 32-320 features, and VM-UNet-3D at its published
-widths, on 16x64x64), from one seeded JAX param tree (BatchNorm's running
+widths, on 16x64x64; SegMamba and nnMamba (its strides from the 3-D plan)
+at their published widths on 16x64x64, LightM-UNet and UltraLight VM-UNet
+on 160x160), from one seeded JAX param tree (BatchNorm's running
 statistics at flax's init) loaded into the port, on a seeded batch (2 in
 2-D, 1 in 3-D). For each network it prints the rel L2 of bf16 against fp32
 in each package and of the port's bf16 against JAX's.
@@ -15,7 +17,8 @@ in each package and of the port's bf16 against JAX's.
     python tests/port_bf16_gap.py [network ...]
 
 Networks: umamba_bot, umamba_enc, vmunet, umamba_bot_ss3d, umamba_enc_ss3d,
-vmunet3d, vmunet3d_new, vmunet3d_swint, msvm_unet (all by default). Takes a
+vmunet3d, vmunet3d_new, vmunet3d_swint, msvm_unet, segmamba, nnmamba,
+lightm_unet, ultralight_vmunet (all by default). Takes a
 few minutes and a few GiB on the CPU.
 """
 import os
@@ -33,10 +36,12 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from mlagg_unet_tpu.models import mamba_variants as JMV  # noqa: E402
 from mlagg_unet_tpu.models import msvm_unet as JMS  # noqa: E402
 from mlagg_unet_tpu.models import umamba as JUM  # noqa: E402
 from mlagg_unet_tpu.models import vmamba as JVM  # noqa: E402
 from mlagg_unet_tpu.models import vmunet3d as JV3  # noqa: E402
+from mlagg_unet_torch.models import mamba_variants as TMV  # noqa: E402
 from mlagg_unet_torch.models import msvm_unet as TMS  # noqa: E402
 from mlagg_unet_torch.models import umamba as TUM  # noqa: E402
 from mlagg_unet_torch.models import vmamba as TVM  # noqa: E402
@@ -57,6 +62,8 @@ CM_3D = SimpleNamespace(
     pool_op_kernel_sizes=[[1, 1, 1]] + [[2, 2, 2]] * 4 + [[1, 2, 2]],
     n_conv_per_stage_encoder=[2] * 6, n_conv_per_stage_decoder=[2] * 5)
 CLASSES_3D = 3
+# nnMamba's strides: pool_op_kernel_sizes[1:5] of the 3-D plan
+NNMAMBA_STRIDES = tuple(tuple(p) for p in CM_3D.pool_op_kernel_sizes[1:5])
 
 
 def networks():
@@ -80,6 +87,14 @@ def networks():
         "vmunet3d_new": lambda: (*vmunet3d(**new), x3),
         "vmunet3d_swint": lambda: (*vmunet3d(**new, last_stage_swin=True), x3),
         "msvm_unet": lambda: (JMS.MSVMUNet(num_classes=CLASSES), TMS.MSVMUNet(1, CLASSES), x2),
+        "segmamba": lambda: (JMV.SegMamba(num_classes=CLASSES_3D),
+                             TMV.SegMamba(1, CLASSES_3D), x3),
+        "nnmamba": lambda: (JMV.NNMamba(num_classes=CLASSES_3D, strides=NNMAMBA_STRIDES),
+                            TMV.NNMamba(1, CLASSES_3D, strides=NNMAMBA_STRIDES), x3),
+        "lightm_unet": lambda: (JMV.LightMUNet(num_classes=CLASSES),
+                                TMV.LightMUNet(1, CLASSES), x2),
+        "ultralight_vmunet": lambda: (JMV.UltraLightVMUNet(num_classes=CLASSES),
+                                      TMV.UltraLightVMUNet(1, CLASSES), x2),
     }
 
 

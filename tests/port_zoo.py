@@ -22,12 +22,14 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from mlagg_unet_tpu.models import mamba_variants as JMV
 from mlagg_unet_tpu.models import msvm_unet as JMS
 from mlagg_unet_tpu.models import swin_umamba as JSU
 from mlagg_unet_tpu.models import umamba as JUM
 from mlagg_unet_tpu.models import vmamba as JVM
 from mlagg_unet_tpu.models import vmunet3d as JV3
 from mlagg_unet_tpu.training import torch_import as jti
+from mlagg_unet_torch.models import mamba_variants as TMV
 from mlagg_unet_torch.models import msvm_unet as TMS
 from mlagg_unet_torch.models import swin_umamba as TSU
 from mlagg_unet_torch.models import umamba as TUM
@@ -73,6 +75,15 @@ FP64_REFERENCE = ("umamba_enc_3d",)
 # 2x2x2 and the (5, 6, 7) window is clamped to it
 VMUNET3D = dict(dims=DIMS)
 MSVM = dict(dims=(16, 32, 64, 128), depths=(1, 1, 2, 1), decoder_depths=(1, 1, 1, 1))
+# the variants of mamba_variants.py. SegMamba keeps the reference's slices
+# (64, 32, 16, 8): a 16x32x32 input scans 4,096, 512, 64 and 8 tokens.
+# LightM-UNet at 16 filters (GroupNorm(8) on 2 channels a group), in 2-D
+# and 3-D; UltraLight at its published widths; nnMamba at 16 channels on a
+# batch of 2 (its BatchNorm statistics over two samples)
+SEGMAMBA = dict(depths=(1, 1, 1, 1), feat_size=(8, 16, 16, 32), hidden_size=32)
+LIGHTM = dict(init_filters=16)
+LIGHTM_3D = dict(init_filters=16, blocks_down=(1, 1, 1, 1))
+NNMAMBA = dict(channels=16, strides=((1, 1, 1), (2, 2, 2), (2, 2, 2), (2, 2, 2)))
 
 
 def x_of(shape, seed=0):
@@ -118,6 +129,18 @@ FACTORIES = {
                                x_of((1, 16, 64, 64, 1)), "vmunet3d_swint"),
     "msvm_unet": lambda: (JMS.MSVMUNet(num_classes=3, **MSVM), TMS.MSVMUNet(1, 3, **MSVM),
                           x_of((1, 64, 64, 1)), "msvm_unet"),
+    "segmamba": lambda: (JMV.SegMamba(num_classes=3, **SEGMAMBA), TMV.SegMamba(1, 3, **SEGMAMBA),
+                         x_of((1, 16, 32, 32, 1)), "segmamba"),
+    "lightm_unet": lambda: (JMV.LightMUNet(num_classes=3, **LIGHTM),
+                            TMV.LightMUNet(1, 3, **LIGHTM), x_of((1, 32, 32, 1)), "lightm_unet"),
+    "lightm_unet_3d": lambda: (JMV.LightMUNet(num_classes=3, **LIGHTM_3D),
+                               TMV.LightMUNet(1, 3, **LIGHTM_3D, spatial_dims=3),
+                               x_of((1, 16, 16, 16, 1)), "lightm_unet"),
+    "ultralight_vmunet": lambda: (JMV.UltraLightVMUNet(num_classes=3),
+                                  TMV.UltraLightVMUNet(1, 3), x_of((1, 64, 64, 1)),
+                                  "ultralight_vmunet"),
+    "nnmamba": lambda: (JMV.NNMamba(num_classes=3, **NNMAMBA), TMV.NNMamba(1, 3, **NNMAMBA),
+                        x_of((2, 8, 16, 16, 1)), "nnmamba"),
 }
 ORDER = list(FACTORIES)
 
@@ -309,6 +332,53 @@ TO_REFERENCE = {
     "vmunet3d": _VMUNET3D,
     "msvm_unet": _MSVM,
 }
+TO_REFERENCE.update({
+    "segmamba": [
+        (r"^vit\.stem\.", "vit.downsample_layers.0.0."),
+        (r"^vit\.downsample(\d+)\.", r"vit.downsample_layers.\1.1."),
+        (r"^vit\.gsc(\d+)\.", r"vit.gscs.\1."),
+        (r"^vit\.stage(\d+)_(\d+)\.", r"vit.stages.\1.\2."),
+        (r"^vit\.mlp(\d+)\.", r"vit.mlps.\1."),
+        (r"^out\.", "out.conv.conv."),
+        (r"\.transp_conv\.", ".transp_conv.conv."),
+        (r"\.(conv1|conv2|conv3)\.", r".\1.conv."),
+        (r"\.(norm1|norm2|norm3)\.GroupNorm_0\.", r".\1."),
+    ],
+    "lightm_unet": [
+        (r"^convInit\.dw\.", "convInit.0.conv."),
+        (r"^convInit\.pw\.", "convInit.1.conv."),
+        (r"^down(\d+)_mamba\.", r"down_layers.\1.0.0."),
+        (r"^down(\d+)_block(\d+)\.",
+         lambda m: f"down_layers.{m.group(1)}.{int(m.group(2)) + 1}."),
+        (r"^up(\d+)_conv\.", r"up_samples.\1.0.conv."),
+        (r"^up(\d+)_block(\d+)\.", r"up_layers.\1.\2."),
+        (r"^final_norm\.GroupNorm_0\.", "conv_final.0."),
+        (r"^conv_final\.dw\.", "conv_final.2.0.conv."),
+        (r"^conv_final\.pw\.", "conv_final.2.1.conv."),
+        (r"\.conv\.dw\.", ".conv.0.conv."),
+        (r"\.conv\.pw\.", ".conv.1.conv."),
+        (r"\.(norm1|norm2)\.GroupNorm_0\.", r".\1."),
+    ],
+    "ultralight_vmunet": [
+        (r"^(encoder|decoder)(\d+)\.", r"\1\2.0."),
+        (r"^scab\.get_all_att\.", "scab.catt.get_all_att."),
+        (r"^scab\.att(\d+)\.", r"scab.catt.att\1."),
+        (r"^scab\.satt_conv\.", "scab.satt.shared_conv2d.0."),
+    ],
+    # the shared Mamba layer under its first user; ``reference_state_dict``
+    # writes it under the second one too, as the reference's state_dict does
+    "nnmamba": [
+        (r"^mamba(\d+)\.", r"layer\1.1.mamba_layer."),
+        (r"^layer(\d+)_block(\d+)\.", r"layer\1.\2."),
+        (r"\.ds_conv\.", ".downsample.0."),
+        (r"\.ds_bn\.", ".downsample.1."),
+        (r"^att(\d+)_layer(\d+)\.", r"att\1.layer\2."),
+        (r"\.conv_a\.", ".conv.0."),
+        (r"\.bn_a\.", ".conv.1."),
+        (r"\.conv_b\.", ".conv.3."),
+        (r"\.bn_b\.", ".conv.4."),
+    ],
+})
 TO_REFERENCE["umamba_enc_ss3d"] = TO_REFERENCE["umamba_bot_ss3d"]
 TO_REFERENCE["vmunet3d_new"] = TO_REFERENCE["vmunet3d_swint"] = _VMUNET3D
 _REF_TRANSPOSED = re.compile(r"transp_conv(\.conv)?\.weight$")
@@ -339,10 +409,10 @@ def reference_state_dict(flat, key, stats=None):
             arr = arr.reshape(-1, arr.shape[-1])
         elif leaf == "Ds":
             arr = arr.reshape(-1)
-        elif leaf == "A_log":
+        elif re.fullmatch(r"A(_b|_s)?_log", leaf):
             arr = arr[0]
-        elif leaf in ("dt_proj_weight", "dt_proj_bias"):
-            leaf = "dt_proj." + leaf[len("dt_proj_"):]
+        elif re.fullmatch(r"dt_proj(_b|_s)?_(weight|bias)", leaf):
+            leaf = re.sub(r"_(weight|bias)$", r".\1", leaf)
         elif leaf == "relative_position_bias_table":
             sd[prefix + "relative_position_index"] = torch.zeros(8, 8, dtype=torch.long)
         sd[prefix + leaf] = torch.from_numpy(np.array(arr))
@@ -353,6 +423,9 @@ def reference_state_dict(flat, key, stats=None):
             prefix = re.sub(pat, rep, prefix)
         sd[prefix + "running_" + leaf] = torch.from_numpy(np.array(arr))
         sd[prefix + "num_batches_tracked"] = torch.tensor(7)
+    if key == "nnmamba":   # the shared layer again under its second block
+        sd.update({re.sub(r"^layer(\d+)\.1\.mamba_layer\.", r"layer\1.2.mamba_layer.", k): v
+                   for k, v in sd.items() if ".1.mamba_layer." in k})
     return sd
 
 

@@ -30,7 +30,8 @@ TOL_GRAD = 2e-4
 def mamba_params(module, *inputs, seed: int = 0):
     """``random_jax_params`` with MambaBlock's scan parameters near their
     init: A_log (A_b_log...) near log(1..n), D near 1, the dt bias the
-    softplus-inverse of dt in [1e-3, 0.1], the dt weight U(-1, 1) / sqrt(r)."""
+    softplus-inverse of dt in [1e-3, 0.1], the dt weight U(-1, 1) / sqrt(r);
+    and the variants' ``skip_scale`` near its init of 1."""
     params = random_jax_params(module, *inputs, seed=seed)
     rs = np.random.RandomState(seed + 1000)
 
@@ -38,7 +39,7 @@ def mamba_params(module, *inputs, seed: int = 0):
         name, shape = path[-1].key, leaf.shape
         if name.startswith("A") and name.endswith("_log"):
             v = np.log(np.arange(1, shape[-1] + 1)) + 0.1 * rs.randn(*shape)
-        elif name in ("D", "D_b", "D_s"):
+        elif name in ("D", "D_b", "D_s", "skip_scale"):
             v = 1 + 0.1 * rs.randn(*shape)
         elif name.startswith("dt_proj") and name.endswith("_bias"):
             dt = np.exp(rs.uniform(np.log(1e-3), np.log(0.1), shape))
