@@ -68,7 +68,7 @@ failure exits non-zero:
    at least 99.9 % equal to the argmax of the predictor's own
    ``VolumePredictor`` on the preprocessed case, K1-K4 launched and K5-K8
    never; cases/s through ``predict_from_files`` after a warm-up pass,
-   over the 4 cases and over 12 (the last 8 outputs' write times give the
+   over the 4 cases and over 8 (the last 4 outputs' write times give the
    steady rate); on one case that predictor (bf16, the tile batch the
    verb chose) and an fp32 one at the same batch against themselves with
    every kernel wrapper switched to its plain twin on the card (bf16: rel
@@ -99,13 +99,13 @@ failure exits non-zero:
    1x10x320x260 ``.nii.gz`` from ``RandomState(0)``, smooth blobs labelled
    by 3 thresholds of the image, preprocessed by the port's
    ``run_case_save``; the predict phase's 2d plan at 256x224, batch 10, 4
-   labels), with the flagship recipe cut to 2 epochs of 10 steps, 5
+   labels), with the flagship recipe cut to 2 epochs of 6 steps, 2
    validation steps and 1 warm-up epoch (registered here only). Every loss
    finite; checkpoint_final, _best and _latest written; a Dice per label in
    ``validation/summary.json``; K1, K4 and K5 launched in the training
    steps and no other kernel; K1-K4 in the validation steps and the final
    validation and K5-K8 not; K2 and K3 nowhere else. Then ``--c`` with the
-   recipe at 3 epochs: it loads checkpoint_final, trains one epoch of 10
+   recipe at 3 epochs: it loads checkpoint_final, trains one epoch of 6
    steps and keeps the logger's first two epochs. Then the predict verb on
    the folder it wrote: shape and labels. On the first training batch the
    verb's loader produced, from the verb's final weights, the fp32 loss and
@@ -116,7 +116,7 @@ failure exits non-zero:
    seconds per epoch, ms per step and images/s with the loader (median over
    epoch 2), the step on one cached batch, the loader's batches/s alone
    on threads (a worker that hangs fails the phase),
-   the device busy share of 5 profiled steps fed by the loader, the peak
+   the device busy share of 2 profiled steps fed by the loader, the peak
    memory, the losses and pseudo dice per epoch and the final validation's
    seconds per case;
 9. pipeline: the nnU-Net pipeline through the port's verbs in this
@@ -133,13 +133,14 @@ failure exits non-zero:
    native output (seg equal, data within 1e-6 x max|data|), one case
    resampled in this process both ways, and what a spawned worker pays to
    import the package (it must not open the card). Two flagship recipes
-   cut to 1 and 2 epochs of 10 steps and 2 validation steps (registered
+   cut to 1 and 2 epochs of 3 steps and 2 validation steps (registered
    here only) train fold 0 with ``--npz`` through ``train_entry``
    at the planner's patch and batch: K1, K4 and K5 launched in the training
    steps and no other kernel, K1-K4 in the validation steps and the final
-   validations, K6-K8 never; on the first training batch the loss and every
-   gradient, and the first validation batch's logits, against every wrapper
-   switched to its plain twin (phase 8's helper and tolerances).
+   validations, K6-K8 never; on the first recipe's first training batch the
+   loss and every gradient, and the first validation batch's logits,
+   against every wrapper switched to its plain twin (phase 8's helper and
+   tolerances).
    ``find_best_configuration_entry`` over both recipes and their ensemble:
    ``inference_information.json`` names the best and its
    ``postprocessing.pkl`` exists. The predict verb on the test cases for
@@ -165,7 +166,7 @@ failure exits non-zero:
     CPU in fp64; in fp32 the loss (1e-5), and each side's largest gradient
     error against fp64 printed (in fp32 neither side reaches 1e-3 x max on
     this network, the CPU no more than the card). The tool's
-    workload on ``VolumePredictor``: 4 volumes of 1x96x192x192 after 1
+    workload on ``VolumePredictor``: 2 volumes of 1x96x192x192 after 1
     warm-up, tile 64x128x128, step 0.5, Gaussian, mirror (0, 1, 2), bf16
     compute and transfer, automatic tile batch: volumes/s, the chosen batch,
     each candidate's ms per tile, peak memory, the device busy share of one
@@ -174,12 +175,12 @@ failure exits non-zero:
     statistics must move; its eval forward card against CPU. The train verb:
     5 training cases and 1 test case of 1x96x192x192 at 1 mm (seeded blobs, 3
     labels) through ``plan_and_preprocess_entry -c 3d_fullres`` (the plan
-    printed), ``nnUNetTrainer`` cut to 2 epochs of 10 steps and 2 validation
+    printed), ``nnUNetTrainer`` cut to 1 epoch of 4 steps and 2 validation
     steps on fold 0 (seconds per epoch, ms per step with the loader against
     one cached batch, peak memory), the predict verb on the test case (the
     verbs' predictors at the memory budget's tile batch, not autotuned). The
     cascade: a hand-written 3d_lowres at 2 mm and 3d_cascade_fullres after
-    it; lowres trains one epoch of 5 steps on fold ``all`` and its final
+    it; lowres trains one epoch of 2 steps on fold ``all`` and its final
     validation writes every case's ``predicted_next_stage``; the cascade
     stage (1 + 2 input channels) trains one epoch on fold 0; the predict
     verbs, lowres then the cascade with ``-prev_stage_predictions``. The
@@ -193,24 +194,29 @@ failure exits non-zero:
     g = 2 reversed, bf16); at each, K1 with its states and K5 against their
     plain twins (phase 3's tolerances); K1 and K5 timed at U-Mamba Enc's
     stage 0 at batch 4 beside their plain twins and bound. (b) Each
-    network's 320x320 tile, fp32, card vs CPU (1e-3 x max); U-Mamba Bot,
-    Enc and VM-UNet served by ``VolumePredictor`` (2 volumes of
-    1x10x320x320 after 1 warm-up, step 0.5, mirror (0, 1), bf16, automatic
-    tile batch): volumes/s, peak memory, K1 launches per volume, the
-    warm-up volume with the kernels against the plain twins in bf16 (rel L2
-    5e-2) and in fp32 at the chosen batch (1e-3 x max), bf16 against fp32
-    (VM-UNet held to 5e-2, the U-Mambas to ``MAMBA_BF16_TOL``).
-    (c) ``nnUNetTrainerUMambaEnc`` through ``train_entry`` on phase 8's 10
-    cases with that plan, cut to 1 epoch of 10 steps and 2 validation steps
-    on fold 0: the loss and every gradient of its first batch from its final
-    weights, with the network in fp64 around the fp32 scans and in fp32: the
-    loss kernels against plain twins (1e-5), the gradients against the
+    network's tile, fp32, card vs CPU (1e-3 x max): the U-Mambas' at
+    320x320 (their channel-token stages norm over the plan's token count),
+    the others' on 128x128, cut for the CPU; VM-UNet served by
+    ``VolumePredictor`` (2 volumes of 1x10x320x320 after 1 warm-up, step
+    0.5, mirror (0, 1), bf16, automatic tile batch): volumes/s, peak
+    memory, K1 launches per volume, the warm-up volume with the kernels
+    against the plain twins in bf16 (rel L2 5e-2) and in fp32 at the chosen
+    batch (1e-3 x max), bf16 against fp32 (5e-2). (c)
+    ``nnUNetTrainerUMambaEnc`` through ``train_entry`` on phase 8's 10 cases
+    with that plan, cut to 1 epoch of 5 steps and 2 validation steps on fold
+    0; the gradient gates (ROADMAP C2): the network-level gate on the
+    network's seeded initial weights and a seeded batch of blobs at batch 4
+    (``seeded_grad_gate``: the same weights and batch in every run, cuDNN
+    deterministic; the network in fp64 around the fp32 scans and in fp32:
+    the loss kernels against plain twins (1e-5), the gradients against the
     network and scans in fp64 (``hold_mamba_grads``: the whole gradient to
     twice the twins' distance, each to a quarter of its max or twice the
-    twins' distance), and K1 / K5
-    on that batch's own operands against their twins; ms per
-    step with the loader and on one cached batch, the predict verb on its
-    folder for 2 cases. Only K1 and K5 run;
+    twins' distance), and K1 / K5 on that batch's own operands against their
+    twins), and the per-call gate on the verb's final weights and first
+    training batch (``scan_calls_vs_fp64``: each K1 y and K5 gradient within
+    max(32 x the fp32 twin's distance to the fp64 twin, 4e-5 x max|fp64|));
+    ms per step with the loader and on one cached batch, the predict verb on
+    its folder for 1 case. Only K1 and K5 run;
 12. ss3d: the families that scan at d_state 1 and in 12 directions, at
     full width, seeded: U-Mamba Bot and Enc SS3D and VM-UNet-3D in its three
     forms (``vmunet3d``, ``vmunet3d_new``, ``vmunet3d_swint``) on phase 10's
@@ -225,24 +231,20 @@ failure exits non-zero:
     their plain twins (one run) and bound. (b) Each network on one tile,
     fp32, card vs CPU (1e-3 x max); the 3-D ones on a tile cut for the CPU
     (U-Mambas 16x64x64, VM-UNet-3D 8x32x32; at 64x128x128 their CPU forwards
-    took 144 s). (c) U-Mamba Enc
-    SS3D and ``vmunet3d`` served on 1 volume of 1x96x192x192 (tile
-    64x128x128, mirror (0, 1, 2); the memory budget's tile batch, not
+    took 144 s). (c) U-Mamba Enc SS3D served on 1 volume of 1x96x192x192
+    (tile 64x128x128, mirror (0, 1, 2); the memory budget's tile batch, not
     autotuned; a one-tile warm-up volume, 1x64x128x128, on which the
     kernels are held to their twins: the plain scans of a whole volume took
-    ~60 s a network) and MSVM-UNet on 1 of 1x10x320x320 (mirror
-    (0, 1)), after 1 warm-up, bf16, as phase 11 serves (bf16 vs fp32 within
-    5e-2; no profile). (d)
-    ``nnUNetTrainerUMambaEnc_SS3D`` through ``train_entry`` on phase 10's
-    cases (its preprocessed folder; preprocessed here under ``--only``) and
-    its test case, trained on phase 10's 3-D plan at batch 2, cut to 1
-    epoch of 5 steps and 2 validation steps on fold 0: launches; the first
-    training batch's first case from the final weights, its centre cut to
-    32x64x64 (the network in fp64 does not fit the card at 2 cases, and
-    takes minutes at the full patch), the fp32 loss and gradients held as
-    phase 11 holds them;
-    ms per step with the loader and on one cached batch; the predict verb on
-    the test case. Only K1 and K5 run;
+    ~60 s a network), bf16, as phase 11 serves (bf16 vs fp32 within 5e-2; no
+    profile). (d) ``nnUNetTrainerUMambaEnc_SS3D`` through ``train_entry`` on
+    phase 10's cases (its preprocessed folder; preprocessed here under
+    ``--only``) and its test case, trained on phase 10's 3-D plan at batch
+    2, cut to 1 epoch of 3 steps and 2 validation steps on fold 0, without
+    mirroring (its final validation and the predict verb too): launches; the gradient gates as phase 11's at batch 1 of 32x64x64 (the
+    network in fp64 does not fit the card at 2 cases, and takes minutes at
+    the full patch; the per-call gate on the centre of the first training
+    batch's first case); ms per step with the loader and on one cached
+    batch; the predict verb on the test case. Only K1 and K5 run;
 13. variants: the networks of ``models/mamba_variants.py`` at full width,
     seeded: SegMamba and nnMamba on phase 10's 3-D plan (3 classes; nnMamba's
     strides its pools [1:5], four times 2x2x2), LightM-UNet and UltraLight
@@ -255,26 +257,48 @@ failure exits non-zero:
     (phase 3's tolerances; the skipped shapes printed); both timed at
     SegMamba's stage 0 beside their plain twins (one run) and bound. (b)
     Each network on one tile, fp32, card vs CPU (1e-3 x max), cut for the
-    CPU: the 3-D ones on phase 12's CPU tile, the 2-D ones on 160x160. (c)
-    SegMamba served on 1 volume of 1x96x192x192 as phase 12 serves (the
-    budget's tile batch, a one-tile warm-up volume for the kernels-vs-twins
-    checks), LightM-UNet and
-    UltraLight on 1 of 1x10x320x320 as phase 11 serves but at the budget's
-    tile batch (phase 11 times the autotune); bf16 against fp32 within
-    twice JAX's own gap (``VARIANT_BF16_TOL``). (d)
+    CPU: the 3-D ones on phase 12's CPU tile, the 2-D ones on 128x128. (c)
+    SegMamba served on 1 volume of 1x96x192x192 as phase 12 serves; bf16
+    against fp32 within twice JAX's own gap (``SEGMAMBA_BF16_TOL``). (d)
     ``nnUNetTrainer_SegMamba`` through ``train_entry`` as phase 12 (d)
-    trains U-Mamba Enc SS3D: phase 10's cases and plan, 1 epoch of 5 steps
-    and 2 validation steps on fold 0, launches, the gradients on the 32x64x64
-    cut (``hold_mamba_grads``), ms per step with the loader and cached, the
-    predict verb on the test case. Only K1 and K5 run;
-14. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
+    trains U-Mamba Enc SS3D: phase 10's cases and plan, 1 epoch of 3 steps
+    and 2 validation steps on fold 0, launches, the gradient gates at batch
+    1 of 32x64x64, ms per step with the loader and cached, the predict verb
+    on the test case. Only K1 and K5 run;
+14. lkm-mednext: LKM-UNet and MedNeXt B k3, with and without its Mamba
+    skip, at full width, seeded, on phase 11's 2d plan; LKM-UNet also in 3-D
+    on phase 10's plan. (a) One fp32 forward and backward in training mode
+    at batch 4 of LKM-UNet and MedNeXt Mambaskip, and of the 3-D LKM-UNet at
+    batch 1 of 32x64x64 (its pixel layers take the whole-volume fallback),
+    record every (b, g, d, L, n, dtype, reverse) at which K1 and K5 run (L =
+    1, LKM-UNet's stage-0 pixel layer at L = 64, b = 6,400, and the Mamba
+    skip's five scales at L = 136,400, g = 2, both directions, must be among
+    them); at each shape an earlier phase did not hold in this run, K1 with
+    its states and K5 against their plain twins; both timed at that stage-0
+    pixel shape beside their plain twins and bound. (b) Each of the three on
+    one 128x128 tile, fp32, card vs CPU (1e-3 x max; LKM-UNet's pixel layers
+    take their whole-map fallback there). (c) LKM-UNet and
+    MedNeXt Mambaskip served on 1 volume of 1x10x320x320 at the budget's
+    tile batch, mirror (0, 1), bf16, the kernels held to their twins on a
+    one-slice warm-up volume, bf16 against fp32 within twice JAX's own gap
+    (``LKM_BF16_TOL``). (d) ``nnUNetTrainer_LKM_UNet`` through
+    ``train_entry`` on phase 8's cases with that plan, 1 epoch of 5 steps
+    and 2 validation steps, with phase 11's gradient gates at batch 2 (the
+    seeded batch; the first two of the verb's first batch), ms per step, the
+    predict verb on its folder for 1 case; MedNeXt Mambaskip's gates through
+    ``Trainer``: the seeded gate, then 2 bf16 steps on one cached batch and
+    the per-call gate on the weights they leave. Only K1 and K5 run;
+15. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Every line of the run's output is led by the seconds since the start.
 ``--only predict`` runs phases 1, 2 and 6 alone, ``--only train-verb``
 phases 1, 2 and 8, ``--only pipeline`` phases 1, 2 and 9, ``--only unet3d``
 phases 1, 2 and 10, ``--only mamba`` phases 1, 2 and 11, ``--only ss3d``
-phases 1, 2 and 12, ``--only variants`` phases 1, 2 and 13; ``--only serve-timing``
+phases 1, 2 and 12, ``--only variants`` phases 1, 2 and 13, ``--only lkm-mednext``
+phases 1, 2 and 14; ``--only grad-gates`` runs phases 1 and 2 and then the
+network-level gradient gates of phases 11-14 alone (run it twice in one call:
+both runs give the same verdicts and figures); ``--only serve-timing``
 runs phases 1 and 2 and then phase 5's default timing alone, in two
 windows, from the package under ``--root`` (default: this script's
 directory): run it for two checkouts in turns in one call to compare them.
@@ -394,7 +418,7 @@ PROFILED = {"mlla_front": ("front_mma_kernel", "front_kernel"),
 PROFILE_TRIES = 3  # torch.profiler can drop device records: a trace that
                    # holds fewer launches than the wrappers counted is taken again
 PREDICT_CASES = 4                        # cases of 1x10x320x260 through the predict verb
-PREDICT_STEADY_CASES = 12                # 4x the 3 export threads: a steady-state cases/s
+PREDICT_STEADY_CASES = 8                 # over twice the 3 export threads: a steady-state cases/s
 PREDICT_SPACING = (5.0, 1.0, 1.0)        # (z, y, x): the plan's in-plane spacing, no resampling
 TOL_PREDICT_AGREE = 0.999                # share of voxels equal to the predictor's own argmax
 TOL_HOST_FALLBACK = 1e-5                 # host accumulator vs the device one, fp32, x max|ref|
@@ -428,13 +452,13 @@ PREDICT_DATASET = {"channel_names": {"0": "MRI"}, "file_ending": ".nii.gz",
                    "labels": {"background": 0, "a": 1, "b": 2, "c": 3}}
 # the train verb's dataset: 10 cases of 1x10x320x260 (smooth seeded blobs,
 # labels = 3 thresholds of the image), the predict phase's 2d plan (batch 10,
-# 256x224, 4 labels), the flagship recipe cut to 2 epochs of 10 steps
+# 256x224, 4 labels), the flagship recipe cut to 2 epochs of 6 steps
 TRAIN_VERB_DATASET = "Dataset996_ChipSmokeTrain"
 TRAIN_VERB_CASES = 10
 TRAIN_VERB_THRESHOLDS = (-0.5, 0.3, 1.0)
 TRAIN_VERB_RECIPE = "nnUNetTrainer_MLAgg_2D_dt_MS_chip_smoke"
-TRAIN_VERB_EPOCHS, TRAIN_VERB_STEPS, TRAIN_VERB_VAL_STEPS, TRAIN_VERB_WARMUP = 2, 10, 5, 1
-TRAIN_VERB_PROFILED_STEPS = 5
+TRAIN_VERB_EPOCHS, TRAIN_VERB_STEPS, TRAIN_VERB_VAL_STEPS, TRAIN_VERB_WARMUP = 2, 6, 2, 1
+TRAIN_VERB_PROFILED_STEPS = 2
 LOADER_RATE_BATCHES = 20                 # timed after the prefetch queue (6) is drained
 # the pipeline phase: a raw dataset of 10 training and 2 test cases of
 # 1x10x320x260 (smooth seeded blobs, labels = 3 thresholds of the image) whose
@@ -445,26 +469,26 @@ PIPELINE_CASES, PIPELINE_TEST_CASES = 10, 2
 PIPELINE_Z_SPACING, PIPELINE_INPLANE = 3.0, (0.75, 0.85)   # mm
 PIPELINE_RECIPES = (("nnUNetTrainer_MLAgg_2D_dt_MS_chip_pipeline_A", 1),
                     ("nnUNetTrainer_MLAgg_2D_dt_MS_chip_pipeline_B", 2))   # (name, epochs)
-PIPELINE_STEPS, PIPELINE_VAL_STEPS = 10, 2
+PIPELINE_STEPS, PIPELINE_VAL_STEPS = 3, 2
 PIPELINE_FOLDS = ("0",)
 TOL_NATIVE_PREPROCESS = 1e-6             # native vs scipy preprocessed data, x max|data|
 # phase 10: the default nnU-Net recipe in 3-D. The network: tools/bench_3d_unet.py's
 # topology (6 stages, features 32-320, 3x3x3 kernels) at its tile; the serve: that
 # tool's workload; the train verb: a dataset of 1 mm isotropic volumes planned by the
-# port, nnUNetTrainer cut to 2 epochs of 10 steps and 2 validation steps (from 1000
+# port, nnUNetTrainer cut to 1 epoch of 4 steps and 2 validation steps (from 1000
 # epochs of 250 + 50); the cascade: a hand-written 3d_lowres at 2 mm before it
 UNET3D_TILE = (64, 128, 128)
 UNET3D_FEATURES = (32, 64, 128, 256, 320, 320)
 UNET3D_POOLS = ((1, 1, 1), (2, 2, 2), (2, 2, 2), (2, 2, 2), (2, 2, 2), (1, 2, 2))
 UNET3D_GRAD_PATCH = (32, 64, 64)         # the loss and gradients: the patch cut for the CPU
-UNET3D_VOLUME, UNET3D_VOLUMES = (1, 96, 192, 192), 4
+UNET3D_VOLUME, UNET3D_VOLUMES = (1, 96, 192, 192), 2
 UNET3D_THRESHOLDS = (0.3, 1.0)           # 3 labels: two thresholds of the image
 UNET3D_DATASET, UNET3D_ID = "Dataset993_ChipSmokeUNet3D", "993"
 UNET3D_DATASET_JSON = {"channel_names": {"0": "MRI"}, "file_ending": ".nii.gz",
                        "numTraining": 0, "labels": {"background": 0, "a": 1, "b": 2}}
 UNET3D_CASES, UNET3D_TEST_CASES = 5, 1
 UNET3D_RECIPE = "nnUNetTrainer_chip_smoke_3d"
-UNET3D_EPOCHS, UNET3D_STEPS, UNET3D_VAL_STEPS = 2, 10, 2
+UNET3D_EPOCHS, UNET3D_STEPS, UNET3D_VAL_STEPS = 1, 4, 2
 UNET3D_BN_STEPS = 3
 # phase 11: the Mamba zoo's first family. Its plan: nnU-Net's default 2d
 # topology at 320x320 as phase 9's planner wrote it (7 stages, features 32 to
@@ -474,27 +498,45 @@ MAMBA_PATCH, MAMBA_BATCH = (320, 320), 4
 MAMBA_POOLS = ((1, 1),) + ((2, 2),) * 6
 MAMBA_FEATURES = (32, 512)               # base, max
 MAMBA_CLASSES = 4
-MAMBA_SERVED = ("nnUNetTrainerUMambaBot", "nnUNetTrainerUMambaEnc", "nnUNetTrainer_VMUNet")
-MAMBA_TRAINERS = MAMBA_SERVED + ("nnUNetTrainer_MambaUNet", "nnUNetTrainerSwinUMambaScratch",
-                                 "nnUNetTrainerSwinUMambaDScratch")
+MAMBA_TRAINERS = ("nnUNetTrainerUMambaBot", "nnUNetTrainerUMambaEnc", "nnUNetTrainer_VMUNet",
+                  "nnUNetTrainer_MambaUNet", "nnUNetTrainerSwinUMambaScratch",
+                  "nnUNetTrainerSwinUMambaDScratch")
+# one served network (30 K1 launches a volume); phase 12 serves U-Mamba Enc's
+# 3-D form
+MAMBA_SERVED = ("nnUNetTrainer_VMUNet",)
 MAMBA_VOLUME, MAMBA_VOLUMES = (1, 10, 320, 320), 2
-# bf16 against fp32 serving is held to TOL_SERVE_REL_L2, except for the
-# U-Mambas: at random weights bf16 moves the reference's own networks further
-# (JAX's U-Mamba Bot by 1.119e-01, Enc by 5.015e-01 rel L2 at full width on a
-# 160x160 6-stage cut of this plan on the CPU, tests/port_bf16_gap.py; the
-# port's by 1.094e-01 and 4.908e-01 there), so each is held to twice JAX's
-MAMBA_BF16_TOL = {"nnUNetTrainerUMambaBot": 2 * 1.119e-01,
-                  "nnUNetTrainerUMambaEnc": 2 * 5.015e-01}
-# U-Mamba Enc's first train batch against the network and scans in fp64.
+# the 2-D networks' tile for the card vs CPU check of phases 11 and 14, cut
+# for the CPU (the 7-stage plan takes multiples of 64; LKM-UNet's pixel layers
+# take their whole-map fallback there, their sub-grids only at multiples of
+# 320); the scans at 320x320 are held in (a)
+ZOO_CPU_TILE_2D = (128, 128)
+# The gradient gates of phases 11-14 (ROADMAP C2). The network-level gate
+# holds a batch's loss and gradients against the network and scans in fp64.
 # fp32 scans do not determine single gradients to TOL_TRAIN_GRAD x max: with
 # the kernels and with the plain twins they sat up to ~120x that from the
-# reference, and either run's distance against the other's varied with the
-# trained weights (up to 10x) on an H100 80GB HBM3 at 700 W. So the whole
-# gradient is held to MAMBA_GRAD_TWIN_FACTOR times the twins' rel L2, and
-# each gradient to MAMBA_GRAD_LEAF_TOL x its max or MAMBA_GRAD_TWIN_FACTOR
-# times the twins' distance, which a scan gradient wired to the wrong
-# operand or direction would exceed (hold_mamba_grads)
+# reference on an H100 80GB HBM3 at 700 W. So the whole gradient is held to
+# MAMBA_GRAD_TWIN_FACTOR times the twins' rel L2, and each gradient to
+# MAMBA_GRAD_LEAF_TOL x its max or MAMBA_GRAD_TWIN_FACTOR times the twins'
+# distance, which a scan gradient wired to the wrong operand or direction
+# would exceed (hold_mamba_grads). On trained weights either run's distance
+# varied with the weights (up to 10x), which differ from run to run, and the
+# network amplifies fp32 rounding there: the gate refused one run in twelve
+# with no kernel at fault. So it runs on the network's seeded initial
+# weights and a seeded batch (GATE_SEED), the same in every run, cuDNN
+# deterministic (seeded_grad_gate); and each scan call on the trained weights
+# is gated on its own (scan_calls_vs_fp64): K1's y and each K5 gradient
+# within max(SCAN_CALL_TWIN_FACTOR x the fp32 twin's distance to the fp64
+# twin, SCAN_CALL_FLOOR), both over max|fp64|. The highest seen before the
+# gate, on an H100 80GB HBM3 at 700 W: 14.19x (U-Mamba Enc SS3D's dA at n =
+# 1, 2.25e-06 against 1.58e-07; 6.11x for SegMamba's dD in another run) and
+# 1.77e-05 (U-Mamba Enc SS3D's dbias; MedNeXt Mambaskip's dbias 1.72e-05, its
+# fp32 twin 1.94e-05): fp32 rounding; the limits stand over twice those.
 MAMBA_GRAD_TWIN_FACTOR = 2.0
+GATE_SEED = 21
+SCAN_CALL_TWIN_FACTOR, SCAN_CALL_FLOOR = 32.0, 4e-5
+# the 2-D gates' batch: the fp64 reference and the plain twins at phase 11's
+# batch of 4 took 24 s for U-Mamba Enc alone
+GATE_BATCH_2D = 2
 # where keep_grad_fault keeps a refused gradient check's case for replay
 GRAD_FAULT_DIR = Path(__file__).resolve().parent / "chip_smoke_out" / "grad_fault"
 MAMBA_GRAD_LEAF_TOL = 0.25
@@ -502,7 +544,7 @@ MAMBA_GRAD_BATCH = MAMBA_BATCH           # the forward and backward that record 
 MAMBA_KERNELS = ("selective_scan_fwd", "selective_scan_bwd")
 MAMBA_DATASET, MAMBA_ID = "Dataset990_ChipSmokeMamba", "990"
 MAMBA_RECIPE = "nnUNetTrainerUMambaEnc_chip_smoke"
-MAMBA_STEPS, MAMBA_VAL_STEPS, MAMBA_CACHED_STEPS = 10, 2, 5
+MAMBA_STEPS, MAMBA_VAL_STEPS, MAMBA_CACHED_STEPS = 5, 2, 3
 MAMBA_PLANS = copy.deepcopy(PREDICT_PLANS)
 MAMBA_PLANS["configurations"]["2d"].update(
     patch_size=list(MAMBA_PATCH), batch_size=MAMBA_BATCH,
@@ -521,8 +563,8 @@ SS3D_NETWORKS = ("nnUNetTrainerUMambaBot_SS3D", "nnUNetTrainerUMambaEnc_SS3D",
 MSVM_TRAINER = "nnUNetTrainer_MSVM_UNet"
 SS3D_3D = tuple(n for n in SS3D_NETWORKS if n != MSVM_TRAINER)
 SS3D_BATCH, SS3D_CLASSES = 2, 3
-SS3D_SERVED = ("nnUNetTrainerUMambaEnc_SS3D", "nnUNetTrainer_VMUNet3D")
-SS3D_VOLUMES = 1                         # of UNET3D_VOLUME, and of MAMBA_VOLUME for MSVM
+SS3D_SERVED = ("nnUNetTrainerUMambaEnc_SS3D",)   # 88 K1 launches a volume
+SS3D_VOLUMES = 1                         # of UNET3D_VOLUME
 # the largest scan: U-Mamba Enc SS3D's stage 0 at the training batch
 SS3D_LARGEST = (SS3D_BATCH, 12, 2 * UNET3D_FEATURES[0], UNET3D_TILE[0] * UNET3D_TILE[1]
                 * UNET3D_TILE[2], 1)
@@ -531,37 +573,50 @@ SS3D_RECIPE = "nnUNetTrainerUMambaEnc_SS3D_chip_smoke"
 # 64x128x128 their CPU forwards took 144 s): U-Mambas 16x64x64, VM-UNet-3D
 # 8x32x32 (its stage 3 then 1x1x1)
 SS3D_CPU_TILE, VMUNET3D_CPU_TILE = (16, 64, 64), (8, 32, 32)
-SS3D_STEPS, SS3D_VAL_STEPS, SS3D_CACHED_STEPS = 5, 2, 3
+SS3D_STEPS, SS3D_VAL_STEPS, SS3D_CACHED_STEPS = 3, 2, 2
 SS3D_GRAD_BATCH = 1                      # the gradient check: the first training batch's first
 # bf16 against fp32 serving is held to TOL_SERVE_REL_L2: bf16 moves JAX's own
-# served networks of the phase less than that (U-Mamba Enc SS3D 2.773e-02,
-# VM-UNet-3D 1.099e-02 at full width on 16x64x64, MSVM-UNet 1.415e-02 on
-# 160x160, on the CPU: tests/port_bf16_gap.py)
+# served network of the phase less than that (U-Mamba Enc SS3D 2.773e-02 at
+# full width on 16x64x64, on the CPU: tests/port_bf16_gap.py)
 # phase 13: the networks of models/mamba_variants.py at full width, seeded:
 # SegMamba and nnMamba on phase 10's 3-D plan (nnMamba's strides from its
 # pools[1:5]), LightM-UNet and UltraLight VM-UNet on phase 11's 2d plan
 VARIANT_NETWORKS = ("nnUNetTrainer_SegMamba", "nnUNetTrainer_nnMamba",
                     "nnUNetTrainer_LightMUNet", "nnUNetTrainer_UltraLightVMUNet")
 VARIANT_3D = ("nnUNetTrainer_SegMamba", "nnUNetTrainer_nnMamba")
-VARIANT_SERVED = ("nnUNetTrainer_SegMamba", "nnUNetTrainer_LightMUNet",
-                  "nnUNetTrainer_UltraLightVMUNet")
 VARIANT_TRAINER = "nnUNetTrainer_SegMamba"
 VARIANT_RECIPE = "nnUNetTrainer_SegMamba_chip_smoke"
 VARIANT_VOLUMES = 1
 # the 2-D networks' tile for the card vs CPU check, cut for the CPU (LightM-UNet's
 # 21 Mamba layers at L = 102,400 made its 320x320 CPU forward the phase's
 # slowest step); the scans at 320x320 are held in (a)
-VARIANT_CPU_TILE_2D = (160, 160)
+VARIANT_CPU_TILE_2D = (128, 128)
 # SegMamba's stage 0 at the training batch: 2 x 64 x 64 x 64 tokens, d_inner 96
 SEGMAMBA_LARGEST = (SS3D_BATCH, 1, 96, UNET3D_TILE[0] * UNET3D_TILE[1] * UNET3D_TILE[2] // 4, 16)
-# bf16 against fp32 serving: within twice the distance bf16 moves JAX's own
-# network (full width, on the CPU: SegMamba 6.196e-02 on 16x64x64,
-# LightM-UNet 1.353e-01 and UltraLight 8.861e-03 on 160x160;
+# SegMamba's bf16 against fp32 serving: within twice the distance bf16 moves
+# JAX's own network (full width, on the CPU: 6.196e-02 on 16x64x64;
 # tests/port_bf16_gap.py)
-VARIANT_BF16_TOL = {"nnUNetTrainer_SegMamba": 2 * 6.196e-02,
-                    "nnUNetTrainer_LightMUNet": 2 * 1.353e-01,
-                    "nnUNetTrainer_UltraLightVMUNet": 2 * 8.861e-03}
-UNET3D_CASCADE_RECIPE, UNET3D_CASCADE_STEPS = "nnUNetTrainer_chip_smoke_cascade", 5
+SEGMAMBA_BF16_TOL = 2 * 6.196e-02
+# phase 14: LKM-UNet and MedNeXt B k3 with and without its Mamba skip at full
+# width, seeded, on phase 11's 2d plan (320x320, 4 classes), and LKM-UNet in
+# 3-D on phase 10's plan at batch 1 of UNET3D_GRAD_PATCH (its pixel layers
+# take the whole-volume fallback there). LKM-UNet's pixel layer at stage 0
+# scans 40 x 40 sub-grids of 8 x 8 tokens a patch (d_inner 64), at stage 6 one
+# token; the Mamba skip scans its five scales at once
+LKM_TRAINER, MEDNEXT_SKIP_TRAINER = "nnUNetTrainer_LKM_UNet", "nnUNetTrainer_MedNeXt_Mambaskip"
+LKM_NETWORKS = (LKM_TRAINER, "nnUNetTrainer_MedNeXt", MEDNEXT_SKIP_TRAINER)
+LKM_SCANNED = (LKM_TRAINER, MEDNEXT_SKIP_TRAINER)   # the two that call K1 / K5
+LKM_RECIPE = "nnUNetTrainer_LKM_UNet_chip_smoke"
+LKM_STEPS, LKM_CACHED_STEPS = 5, 2
+MEDNEXT_SKIP_STEPS = 2                   # bf16 steps on the cached batch before its per-call gate
+LKM_PIXEL_STAGE0 = (MAMBA_BATCH * 40 * 40, 1, 2 * MAMBA_FEATURES[0], 64, 16)
+MSMM_L = sum((MAMBA_PATCH[0] >> i) * (MAMBA_PATCH[1] >> i) for i in range(5))   # 136,400
+# bf16 against fp32 serving: within twice the distance bf16 moves JAX's own
+# network (full width, on the CPU: LKM-UNet 5.463e-02 on a 160x160 6-stage cut
+# of the plan, MedNeXt B k3 with its Mamba skip 2.554e-02 on 160x160;
+# tests/port_bf16_gap.py)
+LKM_BF16_TOL = {LKM_TRAINER: 2 * 5.463e-02, MEDNEXT_SKIP_TRAINER: 2 * 2.554e-02}
+UNET3D_CASCADE_RECIPE, UNET3D_CASCADE_STEPS = "nnUNetTrainer_chip_smoke_cascade", 2
 UNET3D_LOWRES_SPACING = 2.0              # mm: 48x96x96 cases, the patch their size
 UNET3D_LOWRES_POOLS = ((1, 1, 1), (2, 2, 2), (2, 2, 2), (2, 2, 2), (1, 2, 2))
 
@@ -1731,7 +1786,8 @@ def phase_predict(torch, card: str) -> dict:
         log(f"  cases/s through predict_from_files: {cases_s:.4f} ({PREDICT_CASES} cases of "
             f"1x10x320x260, bf16, mirror (0, 1), read, preprocess, export .nii.gz; "
             f"latency-bound: the first read and the last export are in the window) | {card}")
-        # steady state: the rate at which the last 8 of 12 cases were written
+        # steady state: the rate at which the last cases were written, the first
+        # PREDICT_CASES left out
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pred.predict_from_files(str(steady), str(tmp / "steady"))
@@ -1997,26 +2053,15 @@ def phase_train_verb(torch, card: str, cached_step_ms=None) -> dict:
     writes, its resume and the predict verb on the folder it wrote; the
     kernels at the verb's own batch against their plain twins; the loader,
     step and epoch figures. Returns the verb run's launches."""
-    import tempfile
-
-    from mlagg_unet_torch import paths
-
     t_phase = time.perf_counter()
-    saved = (paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        tmp = Path(tmp)
-        paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = (
-            str(tmp / "raw"), str(tmp / "preprocessed"), str(tmp / "results"))
-        try:
-            write_train_dataset(tmp)
-            log(f"[train verb] {TRAIN_VERB_CASES} cases of 1x10x320x260 written and "
-                f"preprocessed in {time.perf_counter() - t_phase:.1f} s")
-            launches, first, step_ms = train_verb_run(torch, card, tmp)
-            train_verb_kernels(torch, card, first,
-                               _verb_folder(tmp) / "fold_0" / "checkpoint_final.ckpt")
-            train_verb_timing(torch, card, tmp, first, step_ms, cached_step_ms)
-        finally:
-            paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = saved
+    with verb_paths("chip_smoke_train_") as tmp:
+        write_train_dataset(tmp)
+        log(f"[train verb] {TRAIN_VERB_CASES} cases of 1x10x320x260 written and "
+            f"preprocessed in {time.perf_counter() - t_phase:.1f} s")
+        launches, first, step_ms = train_verb_run(torch, card, tmp)
+        train_verb_kernels(torch, card, first,
+                           _verb_folder(tmp) / "fold_0" / "checkpoint_final.ckpt")
+        train_verb_timing(torch, card, tmp, first, step_ms, cached_step_ms)
     log(f"[train verb] phase done in {time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -2429,8 +2474,6 @@ def phase_pipeline(torch, card: str) -> dict:
     recipes trained on fold 0, find_best_configuration, predict,
     ensemble, apply_postprocessing and evaluate_simple on the test cases,
     and the export/install zip round trip. Returns the phase's launches."""
-    import tempfile
-
     from mlagg_unet_torch import paths
     from mlagg_unet_torch.cli import entrypoints as cli
     from mlagg_unet_torch.inference.predictor import NNUNetPredictor
@@ -2441,229 +2484,222 @@ def phase_pipeline(torch, card: str) -> dict:
 
     t_phase = time.perf_counter()
     secs = {}
-    saved = (paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results)
     recipes = [name for name, _ in PIPELINE_RECIPES]
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_pipeline_") as tmp:
-        tmp = Path(tmp)
-        paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = (
-            str(tmp / "raw"), str(tmp / "preprocessed"), str(tmp / "results"))
+    with verb_paths("chip_smoke_pipeline_") as tmp:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _ext.reset_launch_counts()
+        t0 = time.perf_counter()
+        raw = write_pipeline_raw(tmp)
+        secs["write raw"] = time.perf_counter() - t0
+        log(f"[pipeline] {PIPELINE_CASES} training and {PIPELINE_TEST_CASES} test cases of "
+            f"1x10x320x260 written (in-plane spacing {PIPELINE_INPLANE[0]}-"
+            f"{PIPELINE_INPLANE[1]} mm, z {PIPELINE_Z_SPACING} mm) in "
+            f"{secs['write raw']:.1f} s")
+
+        # 1. plan and preprocess (native resampler), one case again with scipy
+        pre = tmp / "preprocessed" / PIPELINE_DATASET
+        runs = []
+        t0 = time.perf_counter()
+        with attribute_launches(_ext, DefaultPreprocessor, "run", {}, runs):
+            cli.plan_and_preprocess_entry(["-d", PIPELINE_ID, "-c", "2d",
+                                           "--verify_dataset_integrity"])
+        secs["plan_and_preprocess"] = time.perf_counter() - t0
+        native_s = runs[0][1] - runs[0][0]
+        plans = load_json(str(pre / "nnUNetPlans.json"))
+        cfg = plans["configurations"].get("2d")
+        if not (pre / "dataset_fingerprint.json").is_file() or cfg is None:
+            fail("plan_and_preprocess wrote no fingerprint or no 2d configuration")
+        npz = sorted((pre / cfg["data_identifier"]).glob("*.npz"))
+        if len(npz) != PIPELINE_CASES or not all(p.with_suffix(".pkl").is_file() for p in npz):
+            fail(f"plan_and_preprocess wrote {len(npz)} .npz/.pkl pairs "
+                 f"(want {PIPELINE_CASES})")
+        if len(list((pre / "gt_segmentations").glob("*.nii.gz"))) != PIPELINE_CASES:
+            fail("plan_and_preprocess copied no gt_segmentations")
+        patch, batch = cfg["patch_size"], cfg["batch_size"]
+        log(f"  plan_and_preprocess -c 2d --verify_dataset_integrity: "
+            f"{secs['plan_and_preprocess']:.1f} s, of it the preprocessing "
+            f"(8 spawned workers, native resampler) {native_s:.1f} s | {card}")
+        log(f"  the planner's 2d configuration: patch {patch}, batch {batch}, spacing "
+            f"{cfg['spacing']}, median shape {cfg['median_image_size_in_voxels']}, "
+            f"{len(cfg['pool_op_kernel_sizes'])} stages")
+        if any(p % 32 for p in patch):
+            fail(f"the planner's 2d patch {patch} is not divisible by 32")
+        shapes = sorted({np.load(p)["data"].shape[2:] for p in npz})
+        log(f"  preprocessed in-plane shapes: {shapes}")
+        if len(shapes) < 2:
+            fail("no case was resampled by the 2d preprocessing")
+        # the native resampler against scipy: the first case preprocessed
+        # again in this process with MLAGG_DISABLE_NATIVE=1 (read at each
+        # call), against the verb's native output
+        from mlagg_unet_torch.plans.plans_handler import PlansManager
+
+        case = npz[0].stem
+        os.environ["MLAGG_DISABLE_NATIVE"] = "1"
+        t0 = time.perf_counter()
         try:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            _ext.reset_launch_counts()
-            t0 = time.perf_counter()
-            raw = write_pipeline_raw(tmp)
-            secs["write raw"] = time.perf_counter() - t0
-            log(f"[pipeline] {PIPELINE_CASES} training and {PIPELINE_TEST_CASES} test cases of "
-                f"1x10x320x260 written (in-plane spacing {PIPELINE_INPLANE[0]}-"
-                f"{PIPELINE_INPLANE[1]} mm, z {PIPELINE_Z_SPACING} mm) in "
-                f"{secs['write raw']:.1f} s")
-
-            # 1. plan and preprocess (native resampler), one case again with scipy
-            pre = tmp / "preprocessed" / PIPELINE_DATASET
-            runs = []
-            t0 = time.perf_counter()
-            with attribute_launches(_ext, DefaultPreprocessor, "run", {}, runs):
-                cli.plan_and_preprocess_entry(["-d", PIPELINE_ID, "-c", "2d",
-                                               "--verify_dataset_integrity"])
-            secs["plan_and_preprocess"] = time.perf_counter() - t0
-            native_s = runs[0][1] - runs[0][0]
-            plans = load_json(str(pre / "nnUNetPlans.json"))
-            cfg = plans["configurations"].get("2d")
-            if not (pre / "dataset_fingerprint.json").is_file() or cfg is None:
-                fail("plan_and_preprocess wrote no fingerprint or no 2d configuration")
-            npz = sorted((pre / cfg["data_identifier"]).glob("*.npz"))
-            if len(npz) != PIPELINE_CASES or not all(p.with_suffix(".pkl").is_file() for p in npz):
-                fail(f"plan_and_preprocess wrote {len(npz)} .npz/.pkl pairs "
-                     f"(want {PIPELINE_CASES})")
-            if len(list((pre / "gt_segmentations").glob("*.nii.gz"))) != PIPELINE_CASES:
-                fail("plan_and_preprocess copied no gt_segmentations")
-            patch, batch = cfg["patch_size"], cfg["batch_size"]
-            log(f"  plan_and_preprocess -c 2d --verify_dataset_integrity: "
-                f"{secs['plan_and_preprocess']:.1f} s, of it the preprocessing "
-                f"(8 spawned workers, native resampler) {native_s:.1f} s | {card}")
-            log(f"  the planner's 2d configuration: patch {patch}, batch {batch}, spacing "
-                f"{cfg['spacing']}, median shape {cfg['median_image_size_in_voxels']}, "
-                f"{len(cfg['pool_op_kernel_sizes'])} stages")
-            if any(p % 32 for p in patch):
-                fail(f"the planner's 2d patch {patch} is not divisible by 32")
-            shapes = sorted({np.load(p)["data"].shape[2:] for p in npz})
-            log(f"  preprocessed in-plane shapes: {shapes}")
-            if len(shapes) < 2:
-                fail("no case was resampled by the 2d preprocessing")
-            # the native resampler against scipy: the first case preprocessed
-            # again in this process with MLAGG_DISABLE_NATIVE=1 (read at each
-            # call), against the verb's native output
-            from mlagg_unet_torch.plans.plans_handler import PlansManager
-
-            case = npz[0].stem
-            os.environ["MLAGG_DISABLE_NATIVE"] = "1"
-            t0 = time.perf_counter()
-            try:
-                pm = PlansManager(plans)
-                data, seg, _ = DefaultPreprocessor().run_case(
-                    [str(raw / "imagesTr" / f"{case}_0000.nii.gz")],
-                    str(raw / "labelsTr" / f"{case}.nii.gz"), pm, pm.get_configuration("2d"),
-                    load_json(str(pre / "dataset.json")))
-            finally:
-                os.environ.pop("MLAGG_DISABLE_NATIVE", None)
-            scipy_s = time.perf_counter() - t0
-            native = np.load(npz[0])
-            if not np.array_equal(native["seg"], seg):
-                fail(f"{case}: the native preprocessing's seg differs from scipy's")
-            worst = float(np.abs(native["data"].astype(np.float64) - data).max()
-                          / np.abs(data).max())
-            log(f"  the preprocess verb's native output against scipy's for {case} (in this "
-                f"process, {scipy_s:.1f} s): seg equal, data within {worst:.2e} x max|data| "
-                f"(tol {TOL_NATIVE_PREPROCESS:g}) | {card}")
-            if worst > TOL_NATIVE_PREPROCESS:
-                fail(f"{case}: native vs scipy preprocessed data differ by {worst:.3e} x "
-                     "max|data|")
-            resample_alone(npz[-1], card)
-            pipeline_worker_cost()
-
-            # 2. train both recipes on fold 0, with the planner's batch
-            register_pipeline_recipes()
-            train_c, val_c, final_c, first, steps = {}, {}, {}, {}, []
-            t0 = time.perf_counter()
-            for name in recipes:
-                for fold in PIPELINE_FOLDS:
-                    tf = time.perf_counter()
-                    rec = first if (name, fold) == (recipes[0], "0") else {}
-                    with recording_first_batches(rec), \
-                            attribute_launches(_ext, Trainer, "train_step", train_c, steps), \
-                            attribute_launches(_ext, Trainer, "val_step", val_c), \
-                            attribute_launches(_ext, NNUNetTrainer, "perform_actual_validation",
-                                               final_c):
-                        cli.train_entry([PIPELINE_ID, "2d", fold, "-tr", name, "--npz"])
-                    log(f"  train {name} fold {fold} --npz: {time.perf_counter() - tf:.1f} s")
-            secs["train (2 recipes x 2 folds)"] = time.perf_counter() - t0
-            verbs = {k.name: k.launches for k in _ext.ALL_KERNELS}   # before the comparison
-            want_steps = sum(e for _, e in PIPELINE_RECIPES) * len(PIPELINE_FOLDS) * PIPELINE_STEPS
-            log(f"  launches in the {len(steps)} training steps: {train_c}")
-            log(f"  in the validation steps: {val_c}")
-            log(f"  in the final validations: {final_c}")
-            if len(steps) != want_steps:
-                fail(f"the pipeline trained {len(steps)} steps (want {want_steps})")
-            check_launches(train_c, TRAIN_KERNELS,
-                           set(SERVE_KERNELS + FUSED_KERNELS) - set(TRAIN_KERNELS),
-                           "training steps")
-            for counts, where in ((val_c, "validation steps"), (final_c, "final validations")):
-                check_launches(counts, SERVE_KERNELS, ("selective_scan_bwd",) + FUSED_KERNELS,
-                               where)
-            results = tmp / "results" / PIPELINE_DATASET
-            t0 = time.perf_counter()
-            train_verb_kernels(torch, card, first,
-                               results / f"{recipes[0]}__nnUNetPlans__2d" / "fold_0"
-                               / "checkpoint_final.ckpt",
-                               recipes[0], patch, batch, tag="pipeline")
-            secs["kernels vs plain twins"] = time.perf_counter() - t0
-            _ext.reset_launch_counts()   # the comparison's launches are not the pipeline's
-
-            # 3. find the best configuration
-            t0 = time.perf_counter()
-            cli.find_best_configuration_entry([PIPELINE_ID, "-c", "2d", "-tr", *recipes,
-                                               "-f", *PIPELINE_FOLDS])
-            secs["find_best_configuration"] = time.perf_counter() - t0
-            info = load_json(str(results / "inference_information.json"))
-            best = info["best_model_or_ensemble"]
-            models = [f"{r}__nnUNetPlans__2d" for r in recipes]
-            ensemble = f"ensemble___{models[0]}___{models[1]}___{'_'.join(PIPELINE_FOLDS)}"
-            log(f"  find_best_configuration: {secs['find_best_configuration']:.1f} s; mean "
-                f"foreground Dice {({k: round(v['mean_fg_dice'], 4) for k, v in info['all_results'].items()})}"
-                f"; best {best['identifier']}")
-            if best["identifier"] not in models + [ensemble] or \
-                    set(info["all_results"]) != set(models + [ensemble]):
-                fail(f"inference_information.json: best {best['identifier']}, results "
-                     f"{sorted(info['all_results'])}")
-            pp_file = Path(best["postprocessing_file"])
-            if not pp_file.is_file():
-                fail(f"no {pp_file}")
-
-            # 4. predict the test cases with both recipes, ensemble, postprocess, evaluate
-            preds = {}
-            predict_c = {}
-            verb_preds = []
-            t0 = time.perf_counter()
-            for name, model in zip(recipes, models):
-                preds[model] = tmp / f"predicted_{name}"
-                before = {k.name: k.launches for k in _ext.ALL_KERNELS}
-                with recording_selves(NNUNetPredictor, "predict_from_files",
-                                      verb_preds if name == recipes[0] else []):
-                    cli.predict_entry(["-i", str(raw / "imagesTs"), "-o", str(preds[model]),
-                                       "-d", PIPELINE_DATASET, "-c", "2d", "-tr", name,
-                                       "-f", *PIPELINE_FOLDS, "--save_probabilities"])
-                for k in _ext.ALL_KERNELS:
-                    predict_c[k.name] = predict_c.get(k.name, 0) + k.launches - before[k.name]
-                # the ensembling verb reads plans.json and dataset.json in its
-                # input folders, as the JAX package's does
-                for f in ("plans.json", "dataset.json"):
-                    shutil.copyfile(results / model / f, preds[model] / f)
-            secs["predict (2 recipes)"] = time.perf_counter() - t0
-            check_launches(predict_c, SERVE_KERNELS, ("selective_scan_bwd",) + FUSED_KERNELS,
-                           "predict verbs")
-            t0 = time.perf_counter()
-            counted = {k.name: k.launches for k in _ext.ALL_KERNELS}
-            predict_vs_twins(torch, card, verb_preds, raw, pre / cfg["data_identifier"], pre)
-            for k in _ext.ALL_KERNELS:   # the comparison's launches are not the pipeline's
-                k.launches = counted[k.name]
-            secs["predict kernels vs plain twins"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            preds[ensemble] = tmp / "predicted_ensemble"
-            cli.ensemble_entry(["-i", *(str(preds[m]) for m in models),
-                                "-o", str(preds[ensemble])])
-            final = tmp / "predicted_final"
-            cli.apply_postprocessing_entry(["-i", str(preds[best["identifier"]]), "-o",
-                                            str(final), "-pp_pkl_file", str(pp_file)])
-            cli.evaluate_simple_entry([str(tmp / "labelsTs"), str(final), "-l", "1", "2", "3",
-                                       "-o", str(final / "summary.json")])
-            secs["ensemble, postprocess, evaluate"] = time.perf_counter() - t0
-            pp = load_json(str(pp_file.parent / "postprocessing.json"))
-            for folder in (preds[models[0]], preds[models[1]], preds[ensemble], final):
-                segs = read_segs(folder)
-                if len(segs) != PIPELINE_TEST_CASES:
-                    fail(f"{folder.name} holds {len(segs)} segmentations")
-                for n, seg in segs.items():
-                    if seg.shape != (1, 10, 320, 260) or not set(np.unique(seg)) <= {0, 1, 2, 3}:
-                        fail(f"{folder.name}/{n}: shape {seg.shape}, labels {np.unique(seg)}")
-            summary = load_json(str(final / "summary.json"))
-            dice = summary["foreground_mean"]["Dice"]
-            log(f"  test cases: predicted by both recipes (fold {' '.join(PIPELINE_FOLDS)}, "
-                "probabilities saved) in "
-                f"{secs['predict (2 recipes)']:.1f} s, ensembled, postprocessed with "
-                f"{pp['postprocessing_fns']} ({best['identifier']}) and evaluated in "
-                f"{secs['ensemble, postprocess, evaluate']:.1f} s: mean foreground Dice "
-                f"{dice:.4f}, per label "
-                f"{({k: round(v['Dice'], 4) for k, v in summary['mean'].items()})} | {card}")
-            if not math.isfinite(dice):
-                fail(f"the test cases' mean foreground Dice is {dice}")
-
-            # 5. export recipe A, install it into a fresh results root, predict again
-            t0 = time.perf_counter()
-            zip_file = tmp / "model_A.zip"
-            cli.export_model_entry(["-d", PIPELINE_DATASET, "-o", str(zip_file), "-c", "2d",
-                                    "-tr", recipes[0], "-f", *PIPELINE_FOLDS])
-            paths.nnUNet_results = str(tmp / "results_installed")
-            cli.install_model_entry([str(zip_file)])
-            again = tmp / "predicted_installed"
-            cli.predict_entry(["-i", str(raw / "imagesTs"), "-o", str(again), "-d",
-                               PIPELINE_DATASET, "-c", "2d", "-tr", recipes[0],
-                               "-f", *PIPELINE_FOLDS])
-            secs["export, install, predict"] = time.perf_counter() - t0
-            ref, got = read_segs(preds[models[0]]), read_segs(again)
-            agree = min(float((got[n] == ref[n]).mean()) for n in ref) if \
-                set(got) == set(ref) else 0.0
-            log(f"  export_model_to_zip ({zip_file.stat().st_size / 2 ** 20:.1f} MiB), "
-                f"install_pretrained_model_from_zip into a fresh results root and the predict "
-                f"verb there: {secs['export, install, predict']:.1f} s; segmentations "
-                f"{100 * agree:.3f} % equal to the first prediction's (tol "
-                f"{100 * TOL_PREDICT_AGREE:g} %)")
-            if agree < TOL_PREDICT_AGREE:
-                fail(f"the installed model's segmentations are {100 * agree:.3f} % equal")
-            launches = {k.name: verbs[k.name] + k.launches for k in _ext.ALL_KERNELS}
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            pm = PlansManager(plans)
+            data, seg, _ = DefaultPreprocessor().run_case(
+                [str(raw / "imagesTr" / f"{case}_0000.nii.gz")],
+                str(raw / "labelsTr" / f"{case}.nii.gz"), pm, pm.get_configuration("2d"),
+                load_json(str(pre / "dataset.json")))
         finally:
-            paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = saved
+            os.environ.pop("MLAGG_DISABLE_NATIVE", None)
+        scipy_s = time.perf_counter() - t0
+        native = np.load(npz[0])
+        if not np.array_equal(native["seg"], seg):
+            fail(f"{case}: the native preprocessing's seg differs from scipy's")
+        worst = float(np.abs(native["data"].astype(np.float64) - data).max()
+                      / np.abs(data).max())
+        log(f"  the preprocess verb's native output against scipy's for {case} (in this "
+            f"process, {scipy_s:.1f} s): seg equal, data within {worst:.2e} x max|data| "
+            f"(tol {TOL_NATIVE_PREPROCESS:g}) | {card}")
+        if worst > TOL_NATIVE_PREPROCESS:
+            fail(f"{case}: native vs scipy preprocessed data differ by {worst:.3e} x "
+                 "max|data|")
+        resample_alone(npz[-1], card)
+        pipeline_worker_cost()
+
+        # 2. train both recipes on fold 0, with the planner's batch
+        register_pipeline_recipes()
+        train_c, val_c, final_c, first, steps = {}, {}, {}, {}, []
+        t0 = time.perf_counter()
+        for name in recipes:
+            for fold in PIPELINE_FOLDS:
+                tf = time.perf_counter()
+                rec = first if (name, fold) == (recipes[0], "0") else {}
+                with recording_first_batches(rec), \
+                        attribute_launches(_ext, Trainer, "train_step", train_c, steps), \
+                        attribute_launches(_ext, Trainer, "val_step", val_c), \
+                        attribute_launches(_ext, NNUNetTrainer, "perform_actual_validation",
+                                           final_c):
+                    cli.train_entry([PIPELINE_ID, "2d", fold, "-tr", name, "--npz"])
+                log(f"  train {name} fold {fold} --npz: {time.perf_counter() - tf:.1f} s")
+        secs["train (2 recipes x 2 folds)"] = time.perf_counter() - t0
+        verbs = {k.name: k.launches for k in _ext.ALL_KERNELS}   # before the comparison
+        want_steps = sum(e for _, e in PIPELINE_RECIPES) * len(PIPELINE_FOLDS) * PIPELINE_STEPS
+        log(f"  launches in the {len(steps)} training steps: {train_c}")
+        log(f"  in the validation steps: {val_c}")
+        log(f"  in the final validations: {final_c}")
+        if len(steps) != want_steps:
+            fail(f"the pipeline trained {len(steps)} steps (want {want_steps})")
+        check_launches(train_c, TRAIN_KERNELS,
+                       set(SERVE_KERNELS + FUSED_KERNELS) - set(TRAIN_KERNELS),
+                       "training steps")
+        for counts, where in ((val_c, "validation steps"), (final_c, "final validations")):
+            check_launches(counts, SERVE_KERNELS, ("selective_scan_bwd",) + FUSED_KERNELS,
+                           where)
+        results = tmp / "results" / PIPELINE_DATASET
+        t0 = time.perf_counter()
+        train_verb_kernels(torch, card, first,
+                           results / f"{recipes[0]}__nnUNetPlans__2d" / "fold_0"
+                           / "checkpoint_final.ckpt",
+                           recipes[0], patch, batch, tag="pipeline")
+        secs["kernels vs plain twins"] = time.perf_counter() - t0
+        _ext.reset_launch_counts()   # the comparison's launches are not the pipeline's
+
+        # 3. find the best configuration
+        t0 = time.perf_counter()
+        cli.find_best_configuration_entry([PIPELINE_ID, "-c", "2d", "-tr", *recipes,
+                                           "-f", *PIPELINE_FOLDS])
+        secs["find_best_configuration"] = time.perf_counter() - t0
+        info = load_json(str(results / "inference_information.json"))
+        best = info["best_model_or_ensemble"]
+        models = [f"{r}__nnUNetPlans__2d" for r in recipes]
+        ensemble = f"ensemble___{models[0]}___{models[1]}___{'_'.join(PIPELINE_FOLDS)}"
+        log(f"  find_best_configuration: {secs['find_best_configuration']:.1f} s; mean "
+            f"foreground Dice {({k: round(v['mean_fg_dice'], 4) for k, v in info['all_results'].items()})}"
+            f"; best {best['identifier']}")
+        if best["identifier"] not in models + [ensemble] or \
+                set(info["all_results"]) != set(models + [ensemble]):
+            fail(f"inference_information.json: best {best['identifier']}, results "
+                 f"{sorted(info['all_results'])}")
+        pp_file = Path(best["postprocessing_file"])
+        if not pp_file.is_file():
+            fail(f"no {pp_file}")
+
+        # 4. predict the test cases with both recipes, ensemble, postprocess, evaluate
+        preds = {}
+        predict_c = {}
+        verb_preds = []
+        t0 = time.perf_counter()
+        for name, model in zip(recipes, models):
+            preds[model] = tmp / f"predicted_{name}"
+            before = {k.name: k.launches for k in _ext.ALL_KERNELS}
+            with recording_selves(NNUNetPredictor, "predict_from_files",
+                                  verb_preds if name == recipes[0] else []):
+                cli.predict_entry(["-i", str(raw / "imagesTs"), "-o", str(preds[model]),
+                                   "-d", PIPELINE_DATASET, "-c", "2d", "-tr", name,
+                                   "-f", *PIPELINE_FOLDS, "--save_probabilities"])
+            for k in _ext.ALL_KERNELS:
+                predict_c[k.name] = predict_c.get(k.name, 0) + k.launches - before[k.name]
+            # the ensembling verb reads plans.json and dataset.json in its
+            # input folders, as the JAX package's does
+            for f in ("plans.json", "dataset.json"):
+                shutil.copyfile(results / model / f, preds[model] / f)
+        secs["predict (2 recipes)"] = time.perf_counter() - t0
+        check_launches(predict_c, SERVE_KERNELS, ("selective_scan_bwd",) + FUSED_KERNELS,
+                       "predict verbs")
+        t0 = time.perf_counter()
+        counted = {k.name: k.launches for k in _ext.ALL_KERNELS}
+        predict_vs_twins(torch, card, verb_preds, raw, pre / cfg["data_identifier"], pre)
+        for k in _ext.ALL_KERNELS:   # the comparison's launches are not the pipeline's
+            k.launches = counted[k.name]
+        secs["predict kernels vs plain twins"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        preds[ensemble] = tmp / "predicted_ensemble"
+        cli.ensemble_entry(["-i", *(str(preds[m]) for m in models),
+                            "-o", str(preds[ensemble])])
+        final = tmp / "predicted_final"
+        cli.apply_postprocessing_entry(["-i", str(preds[best["identifier"]]), "-o",
+                                        str(final), "-pp_pkl_file", str(pp_file)])
+        cli.evaluate_simple_entry([str(tmp / "labelsTs"), str(final), "-l", "1", "2", "3",
+                                   "-o", str(final / "summary.json")])
+        secs["ensemble, postprocess, evaluate"] = time.perf_counter() - t0
+        pp = load_json(str(pp_file.parent / "postprocessing.json"))
+        for folder in (preds[models[0]], preds[models[1]], preds[ensemble], final):
+            segs = read_segs(folder)
+            if len(segs) != PIPELINE_TEST_CASES:
+                fail(f"{folder.name} holds {len(segs)} segmentations")
+            for n, seg in segs.items():
+                if seg.shape != (1, 10, 320, 260) or not set(np.unique(seg)) <= {0, 1, 2, 3}:
+                    fail(f"{folder.name}/{n}: shape {seg.shape}, labels {np.unique(seg)}")
+        summary = load_json(str(final / "summary.json"))
+        dice = summary["foreground_mean"]["Dice"]
+        log(f"  test cases: predicted by both recipes (fold {' '.join(PIPELINE_FOLDS)}, "
+            "probabilities saved) in "
+            f"{secs['predict (2 recipes)']:.1f} s, ensembled, postprocessed with "
+            f"{pp['postprocessing_fns']} ({best['identifier']}) and evaluated in "
+            f"{secs['ensemble, postprocess, evaluate']:.1f} s: mean foreground Dice "
+            f"{dice:.4f}, per label "
+            f"{({k: round(v['Dice'], 4) for k, v in summary['mean'].items()})} | {card}")
+        if not math.isfinite(dice):
+            fail(f"the test cases' mean foreground Dice is {dice}")
+
+        # 5. export recipe A, install it into a fresh results root, predict again
+        t0 = time.perf_counter()
+        zip_file = tmp / "model_A.zip"
+        cli.export_model_entry(["-d", PIPELINE_DATASET, "-o", str(zip_file), "-c", "2d",
+                                "-tr", recipes[0], "-f", *PIPELINE_FOLDS])
+        paths.nnUNet_results = str(tmp / "results_installed")
+        cli.install_model_entry([str(zip_file)])
+        again = tmp / "predicted_installed"
+        cli.predict_entry(["-i", str(raw / "imagesTs"), "-o", str(again), "-d",
+                           PIPELINE_DATASET, "-c", "2d", "-tr", recipes[0],
+                           "-f", *PIPELINE_FOLDS])
+        secs["export, install, predict"] = time.perf_counter() - t0
+        ref, got = read_segs(preds[models[0]]), read_segs(again)
+        agree = min(float((got[n] == ref[n]).mean()) for n in ref) if \
+            set(got) == set(ref) else 0.0
+        log(f"  export_model_to_zip ({zip_file.stat().st_size / 2 ** 20:.1f} MiB), "
+            f"install_pretrained_model_from_zip into a fresh results root and the predict "
+            f"verb there: {secs['export, install, predict']:.1f} s; segmentations "
+            f"{100 * agree:.3f} % equal to the first prediction's (tol "
+            f"{100 * TOL_PREDICT_AGREE:g} %)")
+        if agree < TOL_PREDICT_AGREE:
+            fail(f"the installed model's segmentations are {100 * agree:.3f} % equal")
+        launches = {k.name: verbs[k.name] + k.launches for k in _ext.ALL_KERNELS}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check_launches(launches, SERVE_KERNELS + ("selective_scan_bwd",), FUSED_KERNELS,
                    "run")
     total = time.perf_counter() - t_phase
@@ -2940,7 +2976,8 @@ def unet3d_train_verb(torch, card: str, tmp: Path, raw: Path) -> None:
         fail(f"the 3-D train verb ran {len(steps)} steps, losses {lg['train_losses']} "
              f"{lg['val_losses']}")
     summary = load_json(str(folder / "fold_0" / "validation" / "summary.json"))
-    gaps = [1e3 * (b[0] - a[0]) for a, b in zip(steps[UNET3D_STEPS:], steps[UNET3D_STEPS + 1:])]
+    last = steps[(UNET3D_EPOCHS - 1) * UNET3D_STEPS:]   # the last epoch's, without its first
+    gaps = [1e3 * (b[0] - a[0]) for a, b in zip(last[1:], last[2:])]
     step_ms = statistics.median(gaps)
     # the same step on one cached batch: the loader's first, on the card
     cm = PlansManager(plans).get_configuration("3d_fullres")
@@ -2957,7 +2994,7 @@ def unet3d_train_verb(torch, card: str, tmp: Path, raw: Path) -> None:
         f"{UNET3D_STEPS} steps + {UNET3D_VAL_STEPS} validation steps, unpacking, checkpoints "
         f"and the final validation of {len(summary['metric_per_case'])} cases); seconds per "
         f"epoch {', '.join(f'{t:.3f}' for t in epoch_s)}; ms per step with the loader "
-        f"(median of {len(gaps)} in epoch 2) {step_ms:.1f}, on one cached batch "
+        f"(median of {len(gaps)} in the last epoch) {step_ms:.1f}, on one cached batch "
         f"{cached_ms:.1f}; peak memory {peak:.2f} GiB | {card}")
     log(f"  losses: train {['%.5f' % v for v in lg['train_losses']]}, validation "
         f"{['%.5f' % v for v in lg['val_losses']]}; pseudo dice "
@@ -3051,9 +3088,6 @@ def phase_unet3d(torch, card: str, keep: Path = None) -> None:
     """Phase 10: the default nnU-Net recipe in 3-D on the card. None of
     K1-K8 may be launched. ``keep``: where the preprocessed 3d_fullres cases
     and the raw test cases are copied for phase 12."""
-    import tempfile
-
-    from mlagg_unet_torch import paths
     from mlagg_unet_torch.ops import _ext
 
     t_phase = time.perf_counter()
@@ -3065,29 +3099,22 @@ def phase_unet3d(torch, card: str, keep: Path = None) -> None:
     log(f"[unet3d] BatchNorm (nnUNetTrainerBN) | {card}")
     unet3d_batchnorm(torch, card)
     torch.cuda.empty_cache()
-    saved = (paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_unet3d_") as tmp:
-        tmp = Path(tmp)
-        paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = (
-            str(tmp / "raw"), str(tmp / "preprocessed"), str(tmp / "results"))
-        try:
-            t0 = time.perf_counter()
-            raw = write_unet3d_raw(tmp)
-            log(f"[unet3d] the train verb: {UNET3D_CASES} training and {UNET3D_TEST_CASES} "
-                f"test cases of {'x'.join(map(str, UNET3D_VOLUME))} at 1 mm written in "
-                f"{time.perf_counter() - t0:.1f} s")
-            # the verbs' predictors take the budget's tile batch: the serve
-            # step above times the autotune's candidates, which each new
-            # predictor would time again (~5 s a 3-D network)
-            with no_autotune():
-                unet3d_train_verb(torch, card, tmp, raw)
-                if keep is not None:
-                    shutil.copytree(tmp / "preprocessed" / UNET3D_DATASET, keep / "preprocessed")
-                    shutil.copytree(raw, keep / "raw")
-                log("[unet3d] the cascade: 3d_lowres -> 3d_cascade_fullres")
-                unet3d_cascade(torch, card, tmp, raw)
-        finally:
-            paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = saved
+    with verb_paths("chip_smoke_unet3d_") as tmp:
+        t0 = time.perf_counter()
+        raw = write_unet3d_raw(tmp)
+        log(f"[unet3d] the train verb: {UNET3D_CASES} training and {UNET3D_TEST_CASES} "
+            f"test cases of {'x'.join(map(str, UNET3D_VOLUME))} at 1 mm written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        # the verbs' predictors take the budget's tile batch: the serve
+        # step above times the autotune's candidates, which each new
+        # predictor would time again (~5 s a 3-D network)
+        with no_autotune():
+            unet3d_train_verb(torch, card, tmp, raw)
+            if keep is not None:
+                shutil.copytree(tmp / "preprocessed" / UNET3D_DATASET, keep / "preprocessed")
+                shutil.copytree(raw, keep / "raw")
+            log("[unet3d] the cascade: 3d_lowres -> 3d_cascade_fullres")
+            unet3d_cascade(torch, card, tmp, raw)
     launched = {k.name: k.launches for k in _ext.ALL_KERNELS if k.launches}
     if launched:
         fail(f"the 3-D U-Net phase launched port kernels: {launched}")
@@ -3554,13 +3581,15 @@ def hold_mamba_grads(torch, label: str, kernels, twins, reordered, ref, card: st
 
 
 def scan_calls_vs_fp64(torch, label: str, trainer, net, x, y) -> tuple:
-    """The kernels' fp32 pass of ``hold_mamba_grads`` again, keeping each K5
-    call's operands; at each call K1's y and K5's gradients against the
-    plain twin in fp64, beside the fp32 twin's distance to it (not gated:
-    it says whether a refused gradient comes from one call's K1 or K5, or
-    from the network's own amplification of fp32 rounding). Returns the
-    kept calls and the index of the one where K1 or K5 stands furthest out
-    by that ratio."""
+    """ROADMAP C2's per-call gate: the kernels' fp32 pass of the batch
+    again, keeping each K5 call's operands; at each call K1's y and K5's
+    gradients against the plain twin in fp64, beside the fp32 twin's
+    distance to it (distances over max|fp64|). A call is refused where K1 or
+    K5 lies beyond max(SCAN_CALL_TWIN_FACTOR x the fp32 twin's distance,
+    SCAN_CALL_FLOOR), or beyond phase 3's tolerances of the fp32 twin.
+    Returns the kept calls, the index of the one where K1 or K5 stands
+    furthest out against the fp32 twin, and the refused (call, output,
+    distance, twin's distance)."""
     from mlagg_unet_torch.ops.selective_scan import selective_scan_bwd_plain
     from mlagg_unet_torch.ops.selective_scan_cuda import (
         scan_fwd_plain, selective_scan_bwd, selective_scan_fwd_states)
@@ -3572,21 +3601,30 @@ def scan_calls_vs_fp64(torch, label: str, trainer, net, x, y) -> tuple:
     t0 = time.perf_counter()
     with keeping_scan_bwd_calls(kept):
         train_grads(trainer, net, x, y)
-    worst = (-1.0, 0)
+    worst, refused, top = (-1.0, 0), [], (0.0, 0.0)
     with torch.no_grad():
         for i, (args, kwargs) in enumerate(kept):
             ops, gy = args[:9], args[9] if len(args) > 9 else kwargs["gy"]
             y32, states = selective_scan_fwd_states(*ops)
+            y_plain = scan_fwd_plain(*ops)
             y64 = scan_fp64(*ops)
-            rows = {"y": (dist(y32, y64), dist(scan_fwd_plain(*ops), y64))}
-            del y32, y64
+            rows = {"y": (dist(y32, y64), dist(y_plain, y64))}
+            near = {"y": rel_err(y32, y_plain)[1] <= TOL_SCAN}
+            del y32, y64, y_plain
             got = selective_scan_bwd(*ops, gy, states)
             twin = selective_scan_bwd_plain(*ops, gy.float())
             ref = selective_scan_bwd_plain(*(t.double() if torch.is_tensor(t) else t
                                              for t in ops), gy.double())
-            rows.update({nm: (dist(a, r), dist(t, r)) for nm, a, t, r in zip(names, got, twin, ref)
-                         if a is not None})
+            tol = TOL_SCAN_GRAD if ops[0].dtype == torch.float32 else TOL_SCAN_GRAD_BF16
+            for nm, a, t, r in zip(names, got, twin, ref):
+                if a is not None:
+                    rows[nm] = (dist(a, r), dist(t, r))
+                    near[nm] = rel_err(a, t)[1] <= tol
             del got, twin, ref, states
+            for nm, (k, t) in rows.items():
+                top = max(top[0], k / max(t, 1e-12)), max(top[1], k)
+                if not (k <= max(SCAN_CALL_TWIN_FACTOR * t, SCAN_CALL_FLOOR) and near[nm]):
+                    refused.append((i, nm, k, t))
             ratio, nm = max((k / max(t, 1e-12), nm) for nm, (k, t) in rows.items())
             log(f"    call {i} {tuple(ops[0].shape)} n={ops[2].shape[-1]} reverse={ops[8]}: "
                 + ", ".join(f"{nm} {k:.2e} / {t:.2e}" for nm, (k, t) in rows.items())
@@ -3594,15 +3632,30 @@ def scan_calls_vs_fp64(torch, label: str, trainer, net, x, y) -> tuple:
             worst = max(worst, (ratio, i))
     log(f"  {label}: its {len(kept)} K5 calls on the network's operands against the plain twin "
         "in fp64 (distance / max|fp64|, K1 or K5 / the fp32 twin, above): furthest out at call "
-        f"{worst[1]}, {worst[0]:.2f}x the fp32 twin's distance; {time.perf_counter() - t0:.1f} s")
-    return kept, worst[1]
+        f"{worst[1]}, {worst[0]:.2f}x the fp32 twin's distance; the largest distance {top[1]:.2e}; "
+        f"each within max({SCAN_CALL_TWIN_FACTOR:g} x the twin's, {SCAN_CALL_FLOOR:g}) and phase "
+        f"3's tolerances of the fp32 twin: {len(refused)} refused "
+        f"{[(i, nm, f'{k:.2e}', f'{t:.2e}') for i, nm, k, t in refused[:4]]}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return kept, worst[1], refused
+
+
+def scan_calls_gate(torch, label: str, trainer, net, x, y) -> None:
+    """``scan_calls_vs_fp64`` on a network's trained weights and a batch;
+    a refused call keeps its case for replay (``keep_grad_fault``) and
+    fails."""
+    kept, worst, refused = scan_calls_vs_fp64(torch, label, trainer, net, x, y)
+    if refused:
+        keep_grad_fault(torch, label, net, x, y, kept, refused[0][0])
+        fail(f"{label}: K1/K5 calls on its trained weights beyond their limits: {refused}")
+    del kept
 
 
 def keep_grad_fault(torch, label: str, net, x, y, kept: list, worst: int) -> None:
-    """After ``hold_mamba_grads`` refused the kernels' gradients, the case
-    kept for replay: the network's weights in GRAD_FAULT_DIR/<label>_weights.pt;
-    the batch, and the operands and output gradient of the scan call that
-    ``scan_calls_vs_fp64`` found furthest out, in <label>_case.pt."""
+    """After a gradient gate refused the kernels, the case kept for replay:
+    the network's weights in GRAD_FAULT_DIR/<label>_weights.pt; the batch,
+    and the operands and output gradient of scan call ``worst`` (of
+    ``scan_calls_vs_fp64``'s kept calls), in <label>_case.pt."""
     def cpu(t):
         return t.detach().cpu() if torch.is_tensor(t) else t
 
@@ -3618,13 +3671,117 @@ def keep_grad_fault(torch, label: str, net, x, y, kept: list, worst: int) -> Non
     log(f"  {label}: the refused case kept in {GRAD_FAULT_DIR} for replay")
 
 
-def mamba_train_verb(torch, card: str, tmp: Path) -> None:
-    """nnUNetTrainerUMambaEnc through the train verb on the train verb's 10
-    cases with the family's plan, cut to 1 epoch of MAMBA_STEPS steps and
-    MAMBA_VAL_STEPS validation steps on fold 0: launches, the first batch's
-    loss and gradients with the kernels against every wrapper on its plain
-    twin (fp64 around the scans), ms per step with the loader against one
-    cached batch, then the predict verb on its folder."""
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """While active, cuDNN takes deterministic algorithms only (a conv's
+    weight gradient may otherwise sum its parts in an order that differs
+    from run to run)."""
+    cudnn = torch.backends.cudnn
+    old = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = old
+
+
+def seeded_blobs(torch, batch: int, patch, seed: int):
+    """A seeded (batch, *patch, 1) image of smooth blobs, unit std, and its
+    label on the card: in 2-D four classes (TRAIN_VERB_THRESHOLDS), in 3-D
+    three (``blobs_3d``)."""
+    if len(patch) == 3:
+        x, y = blobs_3d(torch, (batch, *patch), seed)
+        return x.cuda(), y.cuda()
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(batch, 1, *patch, generator=g)
+    for _ in range(3):  # smooth: blobs a few pixels wide
+        x = torch.nn.functional.avg_pool2d(x, 9, stride=1, padding=4, count_include_pad=False)
+    x = ((x - x.mean()) / x.std()).permute(0, 2, 3, 1).contiguous()
+    return x.cuda(), torch.bucketize(x[..., 0], torch.tensor(TRAIN_VERB_THRESHOLDS)).cuda()
+
+
+def drop_path_off(net) -> None:
+    """Every stochastic-depth layer of ``net`` at rate 0 (the identity)."""
+    from mlagg_unet_torch.models.layers import DropPath
+
+    for m in net.modules():
+        if isinstance(m, DropPath):
+            m.rate = 0.0
+
+
+def seeded_grad_gate(torch, card: str, label: str, trainer: str, cm, classes: int,
+                     batch_dice: bool = False, fp64_around: bool = False) -> None:
+    """ROADMAP C2's network-level gate, on the same weights and batch in every
+    run: the trainer's network as it builds it from ``cm`` (seed 0; drop
+    path off), a seeded batch of blobs at the configuration's patch and
+    batch (GATE_SEED), cuDNN deterministic. The reference is the network in
+    fp64 with the plain scans in fp64; the loss and gradients of the fp32
+    network with the kernels, with the plain twins and with the twins in
+    half-size chunks are held to it (``hold_mamba_grads``). With
+    ``fp64_around`` the same first with the network in fp64 around the fp32
+    scans, and K1 / K5 on that pass's own operands against their twins. A
+    refused gate keeps its case (``keep_grad_fault``) and fails."""
+    from mlagg_unet_torch.ops import _ext
+    from mlagg_unet_torch.training.trainer import Trainer
+
+    t0 = time.perf_counter()
+    tr = Trainer(trainer, batch_size=cm.batch_size, num_input_channels=1, num_classes=classes,
+                 batch_dice=batch_dice, seed=0, device="cuda", compute_dtype=torch.float32,
+                 configuration_manager=cm)
+    drop_path_off(tr.network)
+    x, y = seeded_blobs(torch, cm.batch_size, cm.patch_size, GATE_SEED)
+    held = []
+    with deterministic_cudnn(torch):
+        net = tr.network.to(torch.float64)
+        with plain_twins(_ext), fp64_plain_scans():
+            ref = train_grads(tr, net, x.double(), y)
+        for dtype in ((torch.float64,) if fp64_around else ()) + (torch.float32,):
+            net, k5_calls = tr.network.to(dtype), []
+            _ext.reset_launch_counts()
+            with keeping_scan_bwd_calls(k5_calls if dtype == torch.float64 else []):
+                kernels = train_grads(tr, net, x.to(dtype), y)
+            if k5_calls:   # K1 / K5 on this pass's own operands, then let go
+                scan_calls_vs_twins(torch, k5_calls)
+                k5_calls.clear()
+            ran = {k.name: k.launches for k in _ext.ALL_KERNELS}
+            _ext.reset_launch_counts()
+            with plain_twins(_ext):
+                twins = train_grads(tr, net, x.to(dtype), y)
+                with plain_scan_half_chunks():
+                    reordered = train_grads(tr, net, x.to(dtype), y)
+            if any(k.launches for k in _ext.ALL_KERNELS) or any(ran[k] <= 0 for k in MAMBA_KERNELS):
+                fail(f"{label}'s gated batch ran {ran} with the kernels, or the plain run "
+                     "launched one")
+            where = "fp64 around the scans" if dtype == torch.float64 else "fp32"
+            held.append(hold_mamba_grads(torch, f"{label}, seeded weights, {where}", kernels,
+                                         twins, reordered, ref, card))
+        log(f"  {label}: the gate's seeded batch {tuple(x.shape)} at the network's seeded "
+            f"initial weights ({ran['selective_scan_fwd']} K1, {ran['selective_scan_bwd']} K5 "
+            f"launches with the kernels), {time.perf_counter() - t0:.1f} s with the reference "
+            f"in fp64: {'held' if all(held) else 'REFUSED'}")
+        if not all(held):
+            net = tr.network.to(torch.float32)
+            kept, worst, _ = scan_calls_vs_fp64(torch, label, tr, net, x, y)
+            keep_grad_fault(torch, label, net, x, y, kept, worst)
+            fail(f"{label}'s loss or gradients with the kernels beyond their limits (above)")
+    tr.network.zero_grad(set_to_none=True)
+    del tr, net, ref, kernels, twins, reordered
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_verb_2d(torch, card: str, tmp: Path, trainer: str, recipe: str, label: str,
+                  steps: int, cached_steps: int, test_cases: int, profiled: bool = False,
+                  fp64_around: bool = False, gate_batch: int = MAMBA_BATCH) -> None:
+    """``trainer`` through the train verb on the train verb's 10 cases with
+    phase 11's 2d plan, cut to 1 epoch of ``steps`` steps and MAMBA_VAL_STEPS
+    validation steps on fold 0: launches; the network-level gradient gate on
+    the network's seeded weights (``seeded_grad_gate``) and the per-call gate
+    on the verb's final weights and first training batch
+    (``scan_calls_gate``); ms per step with the loader and on one cached
+    batch (with ``profiled``, a profile of one step); then the predict verb
+    on its folder for ``test_cases`` cases. The gates run at ``gate_batch``
+    (the seeded batch's size; the first of the verb's batch)."""
     from dataclasses import replace
 
     from mlagg_unet_torch.cli.entrypoints import predict_from_modelfolder_entry, train_entry
@@ -3641,20 +3798,20 @@ def mamba_train_verb(torch, card: str, tmp: Path) -> None:
     log(f"  {TRAIN_VERB_CASES} cases of 1x10x320x260 written and preprocessed in "
         f"{time.perf_counter() - t0:.1f} s")
     registry.register_trainer(replace(
-        registry.get_trainer_config("nnUNetTrainerUMambaEnc"), name=MAMBA_RECIPE, num_epochs=1,
-        num_iterations_per_epoch=MAMBA_STEPS, num_val_iterations_per_epoch=MAMBA_VAL_STEPS))
-    base = tmp / "results" / MAMBA_DATASET / f"{MAMBA_RECIPE}__nnUNetPlans__2d"
-    first, steps = {}, []
+        registry.get_trainer_config(trainer), name=recipe, num_epochs=1,
+        num_iterations_per_epoch=steps, num_val_iterations_per_epoch=MAMBA_VAL_STEPS))
+    base = tmp / "results" / MAMBA_DATASET / f"{recipe}__nnUNetPlans__2d"
+    first, times = {}, []
     train_c, val_c, final_c = {}, {}, {}
     with recording_first_batches(first), \
-            attribute_launches(_ext, Trainer, "train_step", train_c, steps), \
+            attribute_launches(_ext, Trainer, "train_step", train_c, times), \
             attribute_launches(_ext, Trainer, "val_step", val_c), \
             attribute_launches(_ext, NNUNetTrainer, "perform_actual_validation", final_c):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _ext.reset_launch_counts()
         t0 = time.perf_counter()
-        train_entry([MAMBA_ID, "2d", "0", "-tr", MAMBA_RECIPE, "-device", "cuda"])
+        train_entry([MAMBA_ID, "2d", "0", "-tr", recipe, "-device", "cuda"])
         verb_s = time.perf_counter() - t0
         launches = {k.name: k.launches for k in _ext.ALL_KERNELS}
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3662,121 +3819,94 @@ def mamba_train_verb(torch, card: str, tmp: Path) -> None:
     torch.cuda.empty_cache()
     ck = load_checkpoint(str(base / "fold_0" / "checkpoint_final.ckpt"))
     lg = ck["logging"]
-    gaps = [1e3 * (b[0] - a[0]) for a, b in zip(steps[1:], steps[2:])]
+    gaps = [1e3 * (b[0] - a[0]) for a, b in zip(times[1:], times[2:])]
     step_ms = statistics.median(gaps)
     summary = load_json(str(base / "fold_0" / "validation" / "summary.json"))
-    log(f"  verb train {MAMBA_ID} 2d 0 -tr {MAMBA_RECIPE}: {verb_s:.1f} s (1 epoch of "
-        f"{MAMBA_STEPS} steps at batch {MAMBA_BATCH} of {MAMBA_PATCH} + {MAMBA_VAL_STEPS} "
+    log(f"  verb train {MAMBA_ID} 2d 0 -tr {recipe}: {verb_s:.1f} s (1 epoch of "
+        f"{steps} steps at batch {MAMBA_BATCH} of {MAMBA_PATCH} + {MAMBA_VAL_STEPS} "
         f"validation steps, the final validation of {len(summary['metric_per_case'])} cases), "
         f"peak memory {peak:.2f} GiB; loss train {lg['train_losses']}, validation "
         f"{lg['val_losses']}, pseudo dice {lg['mean_fg_dice']}; foreground Dice "
         f"{summary['foreground_mean']['Dice']:.4f} | {card}")
     log(f"  launches in the training steps {train_c}, the validation steps {val_c}, the final "
         f"validation {final_c}")
-    if len(steps) != MAMBA_STEPS or not all(math.isfinite(v) for v in
-                                            lg["train_losses"] + lg["val_losses"]):
-        fail(f"the U-Mamba verb ran {len(steps)} steps, losses {lg['train_losses']} "
+    if len(times) != steps or not all(math.isfinite(v) for v in
+                                      lg["train_losses"] + lg["val_losses"]):
+        fail(f"the {label} verb ran {len(times)} steps, losses {lg['train_losses']} "
              f"{lg['val_losses']}")
     for counts, where, want in ((train_c, "training steps", MAMBA_KERNELS),
                                 (val_c, "validation steps", ("selective_scan_fwd",)),
                                 (final_c, "final validation", ("selective_scan_fwd",))):
         bad = {k: v for k, v in counts.items() if v and k not in want}
         if bad or any(counts.get(k, 0) <= 0 for k in want):
-            fail(f"the U-Mamba verb's {where} launched {counts} (want {want} only)")
+            fail(f"the {label} verb's {where} launched {counts} (want {want} only)")
     if any(v for k, v in launches.items() if k not in MAMBA_KERNELS):
-        fail(f"the U-Mamba verb run launched {launches}")
+        fail(f"the {label} verb run launched {launches}")
 
-    # the first training batch from the verb's final weights. The reference:
-    # the network in fp64 with the plain scans in fp64 (the exact scan of the
-    # fp32 operands the MambaBlock hands the scan). With the network in fp64
-    # around the fp32 scans, then in fp32, the loss with the kernels is held
-    # to the plain twins' and every gradient to the reference (see
-    # hold_mamba_grads); K1 / K5 on the batch's own operands to their twins
-    tr = Trainer(MAMBA_RECIPE, batch_size=MAMBA_BATCH, num_input_channels=1,
+    # the gradient gates (ROADMAP C2): the network's on its seeded weights,
+    # each scan call's on the verb's final weights and first training batch
+    gate_cm = mamba_configuration(gate_batch)
+    seeded_grad_gate(torch, card, label, recipe, gate_cm, MAMBA_CLASSES, batch_dice=True,
+                     fp64_around=fp64_around)
+    tr = Trainer(recipe, batch_size=gate_batch, num_input_channels=1,
                  num_classes=MAMBA_CLASSES, batch_dice=True, seed=0, device="cuda",
-                 compute_dtype=torch.float32, configuration_manager=mamba_configuration())
+                 compute_dtype=torch.float32, configuration_manager=gate_cm)
     tr.network.load_state_dict(jax_tree_to_state_dict(ck["network_weights"]), strict=True)
-    x, y = DeviceFeeder(torch.device("cuda")).batch(first["train"])
-    log(f"  device memory before the batch: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
-        "allocated")
-    net = tr.network.to(torch.float64)
-    with plain_twins(_ext), fp64_plain_scans():
-        ref = train_grads(tr, net, x.double(), y)
-    res, k5_calls = {}, []
-    for dtype in (torch.float64, torch.float32):
-        net = tr.network.to(dtype)
-        _ext.reset_launch_counts()
-        with keeping_scan_bwd_calls(k5_calls if dtype == torch.float64 else []):
-            res[dtype, "kernels"] = train_grads(tr, net, x.to(dtype), y)
-        if dtype == torch.float64:   # K1 / K5 on this batch's own operands, then let go
-            scan_calls_vs_twins(torch, k5_calls)
-            k5_calls.clear()
-        ran = {k.name: k.launches for k in _ext.ALL_KERNELS}
-        _ext.reset_launch_counts()
-        with plain_twins(_ext):
-            res[dtype, "twins"] = train_grads(tr, net, x.to(dtype), y)
-            with plain_scan_half_chunks():
-                res[dtype, "twins 128"] = train_grads(tr, net, x.to(dtype), y)
-        if any(k.launches for k in _ext.ALL_KERNELS) or any(ran[k] <= 0 for k in MAMBA_KERNELS):
-            fail(f"the U-Mamba batch ran {ran} with the kernels, or the plain run launched one")
-    log(f"  the verb's first training batch {tuple(x.shape)} from its final weights: kernels "
-        f"({ran['selective_scan_fwd']} K1, {ran['selective_scan_bwd']} K5 launches) vs plain "
-        "twins on the card; K1 / K5 on that batch's own operands above")
-    held = [hold_mamba_grads(torch, label, *(res[dtype, t] for t in ("kernels", "twins",
-                                                                      "twins 128")), ref, card)
-            for dtype, label in ((torch.float64, "fp64 around the scans"), (torch.float32, "fp32"))]
-    if not all(held):
-        net = tr.network.to(torch.float32)
-        keep_grad_fault(torch, "U-Mamba Enc", net, x, y,
-                        *scan_calls_vs_fp64(torch, "U-Mamba Enc", tr, net, x, y))
-        fail("U-Mamba Enc's loss or gradients with the kernels beyond their limits (above)")
+    drop_path_off(tr.network)
+    x, y = (t[:gate_batch] for t in DeviceFeeder(torch.device("cuda")).batch(first["train"]))
+    scan_calls_gate(torch, f"{label} (the verb's final weights)", tr, tr.network, x, y)
     tr.network.zero_grad(set_to_none=True)
-    del tr, net, res
+    del tr, x, y
     gc.collect()
     torch.cuda.empty_cache()
 
     # ms per step: the verb's with the loader, and one cached batch
     plans, dataset = (load_json(str(tmp / "preprocessed" / MAMBA_DATASET / f))
                       for f in ("nnUNetPlans.json", "dataset.json"))
-    vt = NNUNetTrainer(plans, "2d", 0, dataset, trainer_name=MAMBA_RECIPE, device="cuda")
+    vt = NNUNetTrainer(plans, "2d", 0, dataset, trainer_name=recipe, device="cuda")
     vt.initialize()
     xb, yb = vt.feed.batch(first["train"])
     vt.step.run_steps([(xb, yb)] * 2)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    vt.step.run_steps([(xb, yb)] * MAMBA_CACHED_STEPS)
-    cached = (time.perf_counter() - t0) / MAMBA_CACHED_STEPS * 1e3
+    vt.step.run_steps([(xb, yb)] * cached_steps)
+    cached = (time.perf_counter() - t0) / cached_steps * 1e3
+    step_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     stats = {}
-    profile(torch, "one cached U-Mamba Enc step",
-            lambda: vt.step.run_steps([(xb, yb)]), stats)
+    if profiled:
+        profile(torch, f"one cached {label} step", lambda: vt.step.run_steps([(xb, yb)]), stats)
     log(f"  ms per step (bf16, batch {MAMBA_BATCH} of {MAMBA_PATCH}): {step_ms:.2f} with the "
-        f"loader (median of the verb's steps 2-{MAMBA_STEPS}), {cached:.2f} on its first batch "
-        f"cached on the card (device busy "
-        + (f"{stats['busy_ms']:.1f} ms of one profiled step" if stats else "not measured")
-        + f"); {MAMBA_BATCH * 1e3 / step_ms:.3f} images/s; "
+        f"loader (median of the verb's steps 2-{steps}), {cached:.2f} on its first batch "
+        f"cached on the card, peak memory of the cached steps {step_peak:.2f} GiB"
+        + (f" (device busy {stats['busy_ms']:.1f} ms of one profiled step)" if stats else "")
+        + f"; {MAMBA_BATCH * 1e3 / step_ms:.3f} images/s; "
         f"{len(multiprocessing.active_children())} child processes alive | {card}")
-    del vt
+    del vt, xb, yb
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    cases = tmp / "mamba_imagesTs"
+    cases = tmp / "verb_imagesTs"
     cases.mkdir()
-    for i in range(2):
+    for i in range(test_cases):
         shutil.copyfile(tmp / "raw" / MAMBA_DATASET / "imagesTr" / f"case_{i:03d}_0000.nii.gz",
                         cases / f"case_{i:03d}_0000.nii.gz")
-    out = tmp / "mamba_predicted"
+    out = tmp / "verb_predicted"
     t0 = time.perf_counter()
     _ext.reset_launch_counts()
     predict_from_modelfolder_entry(["-i", str(cases), "-o", str(out), "-m", str(base), "-f", "0",
                                     "-device", "cuda"])
     ran = {k.name: k.launches for k in _ext.ALL_KERNELS if k.launches}
-    for i in range(2):
+    for i in range(test_cases):
         seg, _ = NiftiIO().read_seg(str(out / f"case_{i:03d}.nii.gz"))
         labels = np.unique(seg)
         if seg.shape != (1, 10, 320, 260) or not set(labels) <= set(range(MAMBA_CLASSES)):
-            fail(f"predict verb on the U-Mamba folder, case {i}: {seg.shape}, labels {labels}")
+            fail(f"predict verb on the {label} folder, case {i}: {seg.shape}, labels {labels}")
     if set(ran) != {"selective_scan_fwd"}:
-        fail(f"the predict verb on the U-Mamba folder launched {ran}")
-    log(f"  predict verb on the U-Mamba folder: 2 cases in {time.perf_counter() - t0:.1f} s, "
-        f"shape (1, 10, 320, 260), labels {labels.tolist()}, launches {ran} | {card}")
+        fail(f"the predict verb on the {label} folder launched {ran}")
+    log(f"  predict verb on the {label} folder: {test_cases} case(s) in "
+        f"{time.perf_counter() - t0:.1f} s, shape (1, 10, 320, 260), labels {labels.tolist()}, "
+        f"launches {ran} | {card}")
 
 
 def zoo_phase(torch, card: str, tag: str, steps, held: set = None, *args) -> None:
@@ -3816,31 +3946,45 @@ def phase_mamba(torch, card: str, held: set = None) -> None:
 
 def mamba_phase_steps(torch, card: str, held: set) -> None:
     """Phase 11's steps (a), (b) and (c)."""
-    import tempfile
-
-    from mlagg_unet_torch import paths
-
     log(f"[mamba] the six networks at full width on the {MAMBA_PATCH} plan")
     nets = mamba_networks(torch)
     log("[mamba] (a) K1 and K5 at every shape one forward and backward of each network emits")
     mamba_scan_checks(torch, card, mamba_scan_shapes(torch, nets), held)
     torch.cuda.empty_cache()
-    log("[mamba] (b) one tile, fp32, card vs CPU")
-    mamba_tile_agreement(torch, card, nets)
+    log(f"[mamba] (b) one tile, fp32, card vs CPU (the U-Mambas on {MAMBA_PATCH}: their "
+        f"channel-token stages norm over the plan's tokens; the others on {ZOO_CPU_TILE_2D}: "
+        "cut for the CPU)")
+    umambas = [k for k in nets if "UMamba" in k and "Swin" not in k]
+    mamba_tile_agreement(torch, card, {k: nets[k] for k in umambas})
+    mamba_tile_agreement(torch, card, {k: v for k, v in nets.items() if k not in umambas},
+                         ZOO_CPU_TILE_2D)
     log(f"[mamba] (b) serve | {card}")
     for name in MAMBA_SERVED:
-        mamba_serve(torch, card, name, nets[name],
-                    bf16_tol=MAMBA_BF16_TOL.get(name, TOL_SERVE_REL_L2))
+        mamba_serve(torch, card, name, nets[name])
     del nets
     torch.cuda.empty_cache()
     log(f"[mamba] (c) the train verb: nnUNetTrainerUMambaEnc | {card}")
+    with verb_paths("chip_smoke_mamba_") as tmp:
+        train_verb_2d(torch, card, tmp, "nnUNetTrainerUMambaEnc", MAMBA_RECIPE, "U-Mamba Enc",
+                      MAMBA_STEPS, MAMBA_CACHED_STEPS, 1, profiled=True, fp64_around=True,
+                      gate_batch=GATE_BATCH_2D)
+
+
+@contextlib.contextmanager
+def verb_paths(prefix: str):
+    """While active, the verbs' raw, preprocessed and results folders lie in
+    a fresh temporary directory, which it yields."""
+    import tempfile
+
+    from mlagg_unet_torch import paths
+
     saved = (paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_mamba_") as tmp:
+    with tempfile.TemporaryDirectory(prefix=prefix) as tmp:
         tmp = Path(tmp)
         paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = (
             str(tmp / "raw"), str(tmp / "preprocessed"), str(tmp / "results"))
         try:
-            mamba_train_verb(torch, card, tmp)
+            yield tmp
         finally:
             paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = saved
 
@@ -3886,15 +4030,19 @@ def zoo_networks(torch, names, three_d) -> dict:
 
 
 def zoo_scan_shapes(torch, nets: dict, three_d, g, calls: dict, per_model: dict,
-                    train_mode: bool = False) -> None:
+                    train_mode: bool = False, batch_3d: int = SS3D_BATCH,
+                    tile_3d=UNET3D_TILE) -> None:
     """Adds to ``calls`` every (b, g, d, L, n, dtype, reverse) at which one
-    fp32 forward and backward of each network (3-D at batch SS3D_BATCH,
-    2-D at MAMBA_BATCH; in training mode with ``train_mode``) calls K1 and
-    K5, and to ``per_model`` each network's shapes under a label with its
-    seconds and peak memory. Inputs from the generator ``g``."""
+    fp32 forward and backward of each network (3-D at ``batch_3d`` of
+    ``tile_3d``, 2-D at MAMBA_BATCH of MAMBA_PATCH; in training mode, its
+    stochastic depth drawing from a seeded generator, with ``train_mode``)
+    calls K1 and K5, and to ``per_model`` each network's shapes under a
+    label with its seconds and peak memory. Inputs from the generator
+    ``g``."""
+    drops = torch.Generator(device="cuda").manual_seed(0)
     for name, net in nets.items():
-        x = torch.randn(SS3D_BATCH if name in three_d else MAMBA_BATCH,
-                        *(UNET3D_TILE if name in three_d else MAMBA_PATCH), 1,
+        x = torch.randn(batch_3d if name in three_d else MAMBA_BATCH,
+                        *(tile_3d if name in three_d else MAMBA_PATCH), 1,
                         generator=g).cuda()
         seen = {}
         torch.cuda.synchronize()
@@ -3902,7 +4050,7 @@ def zoo_scan_shapes(torch, nets: dict, three_d, g, calls: dict, per_model: dict,
         t0 = time.perf_counter()
         net.train(train_mode)
         with recording_scan_calls(seen):
-            outs = net(x)
+            outs = net(x, drops)
             outs = outs if isinstance(outs, (list, tuple)) else [outs]
             sum(o.float().square().mean() for o in outs).backward()
             del outs
@@ -3968,12 +4116,11 @@ def train_verb_3d(torch, card: str, tmp: Path, shared: Path, trainer: str, recip
     cases (``shared``: phase 10's preprocessed folder and raw test cases;
     else written and preprocessed here), trained on phase 10's 3-D plan at
     batch SS3D_BATCH, cut to 1 epoch of SS3D_STEPS steps and SS3D_VAL_STEPS
-    validation steps on fold 0: launches; the first training batch's first
-    case (SS3D_GRAD_BATCH) from the final weights, cut to UNET3D_GRAD_PATCH,
-    its fp32 loss and gradients with the kernels held to every wrapper on
-    its plain twin and to the network and scans in fp64
-    (``hold_mamba_grads``), each scan call's K1 and K5 against the fp64 twin
-    (``scan_calls_vs_fp64``; a refused case kept by ``keep_grad_fault``); ms per step with the loader and on one cached
+    validation steps on fold 0: launches; the gradient gates at batch
+    SS3D_GRAD_BATCH of UNET3D_GRAD_PATCH, the network's on its seeded weights
+    (``seeded_grad_gate``) and each scan call's on the verb's final weights
+    and the centre of the first training batch's first case
+    (``scan_calls_gate``); ms per step with the loader and on one cached
     batch; the predict verb on the test cases."""
     from dataclasses import replace
 
@@ -4008,7 +4155,7 @@ def train_verb_3d(torch, card: str, tmp: Path, shared: Path, trainer: str, recip
     registry.register_trainer(replace(
         registry.get_trainer_config(trainer), name=recipe,
         num_epochs=1, num_iterations_per_epoch=SS3D_STEPS,
-        num_val_iterations_per_epoch=SS3D_VAL_STEPS))
+        num_val_iterations_per_epoch=SS3D_VAL_STEPS, disable_mirroring=True))
     base = tmp / "results" / UNET3D_DATASET / f"{recipe}__nnUNetPlans__3d_fullres"
     first, steps = {}, []
     train_c, val_c, final_c = {}, {}, {}
@@ -4052,49 +4199,27 @@ def train_verb_3d(torch, card: str, tmp: Path, shared: Path, trainer: str, recip
     if any(v for k, v in launches.items() if k not in MAMBA_KERNELS):
         fail(f"the {label} verb run launched {launches}")
 
-    # the first training batch's first case from the final weights, its
-    # centre cut to UNET3D_GRAD_PATCH (the reference's fp64 network does not
-    # fit the card at the batch of 2, and takes minutes at the full patch):
-    # the loss and gradients as phase 11 holds them
+    # the gradient gates (ROADMAP C2) at batch 1 of UNET3D_GRAD_PATCH (the
+    # reference's fp64 network does not fit the card at the batch of 2, and
+    # takes minutes at the full patch): the network's on its seeded weights;
+    # each scan call's on the verb's final weights and the centre of the
+    # first training batch's first case
+    grad_cm = unet3d_configuration(UNET3D_GRAD_PATCH, SS3D_GRAD_BATCH)
+    seeded_grad_gate(torch, card, label, recipe, grad_cm, SS3D_CLASSES)
     tr = Trainer(recipe, batch_size=SS3D_GRAD_BATCH, num_input_channels=1,
                  num_classes=SS3D_CLASSES, batch_dice=False, seed=0, device="cuda",
-                 compute_dtype=torch.float32,
-                 configuration_manager=unet3d_configuration(UNET3D_GRAD_PATCH, SS3D_GRAD_BATCH))
+                 compute_dtype=torch.float32, configuration_manager=grad_cm)
     tr.network.load_state_dict(jax_tree_to_state_dict(ck["network_weights"]), strict=True)
+    drop_path_off(tr.network)
     cut = tuple(slice((t - c) // 2, (t - c) // 2 + c) for t, c in zip(UNET3D_TILE,
                                                                      UNET3D_GRAD_PATCH))
     x = torch.from_numpy(np.ascontiguousarray(
         first["train"]["data"][(slice(SS3D_GRAD_BATCH), *cut)])).cuda()
     y = torch.from_numpy(np.ascontiguousarray(
         first["train"]["target"][(slice(SS3D_GRAD_BATCH), *cut)])).cuda()
-    t0 = time.perf_counter()
-    net = tr.network.to(torch.float64)
-    with plain_twins(_ext), fp64_plain_scans():
-        ref = train_grads(tr, net, x.double(), y)
-    net = tr.network.to(torch.float32)
-    _ext.reset_launch_counts()
-    res = {"kernels": train_grads(tr, net, x, y)}
-    ran = {k.name: k.launches for k in _ext.ALL_KERNELS}
-    _ext.reset_launch_counts()
-    with plain_twins(_ext):
-        res["twins"] = train_grads(tr, net, x, y)
-        with plain_scan_half_chunks():
-            res["twins reordered"] = train_grads(tr, net, x, y)
-    if any(k.launches for k in _ext.ALL_KERNELS) or any(ran[k] <= 0 for k in MAMBA_KERNELS):
-        fail(f"the {label} batch ran {ran} with the kernels, or the plain run "
-             "launched one")
-    log(f"  the verb's first training batch's first case {tuple(x.shape)} from its final "
-        f"weights, fp32: kernels ({ran['selective_scan_fwd']} K1, {ran['selective_scan_bwd']} "
-        f"K5 launches) vs plain twins on the card, {time.perf_counter() - t0:.1f} s with the "
-        "reference in fp64")
-    held = hold_mamba_grads(torch, "fp32", res["kernels"], res["twins"],
-                            res["twins reordered"], ref, card)
-    calls = scan_calls_vs_fp64(torch, label, tr, net, x, y)
-    if not held:
-        keep_grad_fault(torch, label, net, x, y, *calls)
-        fail(f"{label}'s loss or gradients with the kernels beyond their limits (above)")
+    scan_calls_gate(torch, f"{label} (the verb's final weights)", tr, tr.network, x, y)
     tr.network.zero_grad(set_to_none=True)
-    del tr, net, res, ref, calls
+    del tr, x, y
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4130,9 +4255,9 @@ def train_verb_3d(torch, card: str, tmp: Path, shared: Path, trainer: str, recip
                f"the {label} predict verb")
     if set(ran) != {"selective_scan_fwd"}:
         fail(f"the predict verb on the {label} folder launched {ran}")
-    log(f"  predict verb (bf16, the budget's tile batch, mirror (0, 1, 2)) on the "
-        f"{UNET3D_TEST_CASES} test case(s): {time.perf_counter() - t0:.1f} s, launches {ran} "
-        f"| {card}")
+    log(f"  predict verb (bf16, the budget's tile batch, no mirroring: the recipe disables "
+        f"it) on the {UNET3D_TEST_CASES} test case(s): {time.perf_counter() - t0:.1f} s, "
+        f"launches {ran} | {card}")
 
 
 def phase_ss3d(torch, card: str, held: set = None, shared: Path = None) -> None:
@@ -4143,10 +4268,6 @@ def phase_ss3d(torch, card: str, held: set = None, shared: Path = None) -> None:
 
 def ss3d_phase_steps(torch, card: str, held: set, shared: Path = None) -> None:
     """Phase 12's steps (a)-(d)."""
-    import tempfile
-
-    from mlagg_unet_torch import paths
-
     def stamp(t0):
         return f"{time.perf_counter() - t0:.1f} s"
 
@@ -4175,25 +4296,14 @@ def ss3d_phase_steps(torch, card: str, held: set, shared: Path = None) -> None:
             mamba_serve(torch, card, name, nets[name], UNET3D_TILE, SS3D_CLASSES, (0, 1, 2),
                         UNET3D_VOLUME, SS3D_VOLUMES, profiled=False, fp32_own_batch=True,
                         warmup_volume=(1, *UNET3D_TILE))
-    mamba_serve(torch, card, MSVM_TRAINER, nets[MSVM_TRAINER], n_volumes=SS3D_VOLUMES,
-                profiled=False)
     log(f"  (c) done in {stamp(t0)}")
     del nets
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     log(f"[ss3d] (d) the train verb: nnUNetTrainerUMambaEnc_SS3D | {card}")
-    saved = (paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ss3d_") as tmp:
-        tmp = Path(tmp)
-        paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = (
-            str(tmp / "raw"), str(tmp / "preprocessed"), str(tmp / "results"))
-        try:
-            with no_autotune():
-                train_verb_3d(torch, card, tmp, shared, "nnUNetTrainerUMambaEnc_SS3D",
-                              SS3D_RECIPE, "U-Mamba Enc SS3D")
-        finally:
-            paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = saved
+    with verb_paths("chip_smoke_ss3d_") as tmp, no_autotune():
+        train_verb_3d(torch, card, tmp, shared, "nnUNetTrainerUMambaEnc_SS3D", SS3D_RECIPE, "U-Mamba Enc SS3D")
     log(f"  (d) done in {stamp(t0)}")
 
 
@@ -4222,10 +4332,6 @@ def phase_variants(torch, card: str, held: set = None, shared: Path = None) -> N
 
 def variant_phase_steps(torch, card: str, held: set, shared: Path = None) -> None:
     """Phase 13's steps (a)-(d)."""
-    import tempfile
-
-    from mlagg_unet_torch import paths
-
     def stamp(t0):
         return f"{time.perf_counter() - t0:.1f} s"
 
@@ -4254,36 +4360,159 @@ def variant_phase_steps(torch, card: str, held: set, shared: Path = None) -> Non
     with no_autotune():
         mamba_serve(torch, card, VARIANT_TRAINER, nets[VARIANT_TRAINER], UNET3D_TILE,
                     SS3D_CLASSES, (0, 1, 2), UNET3D_VOLUME, VARIANT_VOLUMES,
-                    bf16_tol=VARIANT_BF16_TOL[VARIANT_TRAINER], profiled=False,
+                    bf16_tol=SEGMAMBA_BF16_TOL, profiled=False,
                     fp32_own_batch=True, warmup_volume=(1, *UNET3D_TILE))
-        for name in VARIANT_SERVED[1:]:
-            mamba_serve(torch, card, name, nets[name], n_volumes=VARIANT_VOLUMES,
-                        bf16_tol=VARIANT_BF16_TOL[name], profiled=False)
     log(f"  (c) done in {stamp(t0)}")
     del nets
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     log(f"[variants] (d) the train verb: {VARIANT_TRAINER} | {card}")
-    saved = (paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_variants_") as tmp:
-        tmp = Path(tmp)
-        paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = (
-            str(tmp / "raw"), str(tmp / "preprocessed"), str(tmp / "results"))
-        try:
-            with no_autotune():
-                train_verb_3d(torch, card, tmp, shared, VARIANT_TRAINER, VARIANT_RECIPE,
-                              "SegMamba")
-        finally:
-            paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = saved
+    with verb_paths("chip_smoke_variants_") as tmp, no_autotune():
+        train_verb_3d(torch, card, tmp, shared, VARIANT_TRAINER, VARIANT_RECIPE, "SegMamba")
     log(f"  (d) done in {stamp(t0)}")
+
+
+def lkm_scan_checks(torch, card: str, calls: dict, held: set) -> None:
+    """K1 and K5 against their plain twins at every recorded shape an
+    earlier phase did not hold (phase 3's tolerances); the shapes must
+    include L = 1, LKM-UNet's stage-0 pixel shape (L = 64 at b =
+    LKM_PIXEL_STAGE0's) and the Mamba skip's L = MSMM_L at g = 2 in both
+    directions, and every shape must have run both kernels. Then both timed
+    at LKM-UNet's stage-0 pixel shape beside their plain twins (one run each)
+    and their bound."""
+    want = {"L = 1": lambda k: k[3] == 1,
+            f"L = 64 at b = {LKM_PIXEL_STAGE0[0]}": lambda k: k[:4] == LKM_PIXEL_STAGE0[:4],
+            f"L = {MSMM_L} at g = 2": lambda k: k[1] == 2 and k[3] == MSMM_L and not k[6],
+            f"L = {MSMM_L} at g = 2 reversed": lambda k: k[1] == 2 and k[3] == MSMM_L and k[6]}
+    missing = [w for w, f in want.items() if not any(f(k) for k in calls)]
+    both = [k for k, v in calls.items() if v != {"K1", "K5"}]
+    if missing or both:
+        fail(f"phase 14's scans miss {missing}, or ran K1 or K5 only at {both}: {calls}")
+    scan_shape_checks(torch, calls, held)
+    scan_timing(torch, card, LKM_PIXEL_STAGE0, "LKM-UNet stage-0 pixel layer, training batch",
+                plain_reps=1)
+
+
+def mednext_skip_gates(torch, card: str) -> None:
+    """MedNeXt_Mambaskip's gradient gates through ``Trainer`` on one cached
+    batch: the network-level gate on its seeded weights
+    (``seeded_grad_gate``); then MEDNEXT_SKIP_STEPS bf16 steps of its recipe on
+    a seeded batch (ms per step) and the per-call gate on the weights they
+    leave (``scan_calls_gate``), all at batch GATE_BATCH_2D."""
+    from mlagg_unet_torch.training.trainer import Trainer
+
+    cm = mamba_configuration(GATE_BATCH_2D)
+    seeded_grad_gate(torch, card, "MedNeXt Mambaskip", MEDNEXT_SKIP_TRAINER, cm, MAMBA_CLASSES,
+                     batch_dice=True)
+    tr = Trainer(MEDNEXT_SKIP_TRAINER, batch_size=cm.batch_size, num_input_channels=1,
+                 num_classes=MAMBA_CLASSES, batch_dice=True, seed=0, device="cuda",
+                 configuration_manager=cm)
+    x, y = seeded_blobs(torch, cm.batch_size, cm.patch_size, GATE_SEED + 1)
+    tr.run_steps([(x, y)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = tr.run_steps([(x, y)] * (MEDNEXT_SKIP_STEPS - 1))
+    step_ms = (time.perf_counter() - t0) / (MEDNEXT_SKIP_STEPS - 1) * 1e3
+    log(f"  MedNeXt Mambaskip: {MEDNEXT_SKIP_STEPS} bf16 steps of its recipe at batch "
+        f"{cm.batch_size} of {MAMBA_PATCH} on one cached batch: {step_ms:.2f} ms per step after "
+        f"the first, peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, losses "
+        f"{['%.5f' % v for v in losses]} | {card}")
+    drop_path_off(tr.network)
+    scan_calls_gate(torch, "MedNeXt Mambaskip (its trained weights)", tr, tr.network, x, y)
+    tr.network.zero_grad(set_to_none=True)
+    del tr, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_lkm(torch, card: str, held: set = None) -> None:
+    """Phase 14: LKM-UNet and MedNeXt, with and without its Mamba skip, on
+    the card."""
+    zoo_phase(torch, card, "lkm-mednext", lkm_phase_steps, held)
+
+
+def lkm_phase_steps(torch, card: str, held: set) -> None:
+    """Phase 14's steps (a)-(d)."""
+    from mlagg_unet_torch.training.registry import get_network_builder
+
+    def stamp(t0):
+        return f"{time.perf_counter() - t0:.1f} s"
+
+    t0 = time.perf_counter()
+    log(f"[lkm-mednext] the three networks at full width on the {MAMBA_PATCH} plan")
+    nets = zoo_networks(torch, LKM_NETWORKS, ())
+    log("[lkm-mednext] (a) K1 and K5 at every shape one forward and backward of LKM-UNet and "
+        f"MedNeXt Mambaskip emits, in training mode, and of LKM-UNet in 3-D at batch 1 of "
+        f"{UNET3D_GRAD_PATCH} on phase 10's plan")
+    calls, per_model = {}, {}
+    g = torch.Generator().manual_seed(3)
+    zoo_scan_shapes(torch, {k: nets[k] for k in LKM_SCANNED}, (), g, calls, per_model,
+                    train_mode=True)
+    lkm3d = get_network_builder("lkm_unet")(unet3d_configuration(UNET3D_GRAD_PATCH, 1), 1,
+                                            SS3D_CLASSES, True, seed=0, device="cuda")
+    zoo_scan_shapes(torch, {"LKM-UNet 3-D": lkm3d}, ("LKM-UNet 3-D",), g, calls, per_model,
+                    train_mode=True, batch_3d=1, tile_3d=UNET3D_GRAD_PATCH)
+    del lkm3d
+    log_scan_shapes(per_model)
+    lkm_scan_checks(torch, card, calls, held)
+    log(f"  (a) done in {stamp(t0)}")
+    t0 = time.perf_counter()
+    log(f"[lkm-mednext] (b) one tile, fp32, card vs CPU (on {ZOO_CPU_TILE_2D}: cut for the CPU)")
+    mamba_tile_agreement(torch, card, nets, ZOO_CPU_TILE_2D)
+    log(f"  (b) done in {stamp(t0)}")
+    t0 = time.perf_counter()
+    log(f"[lkm-mednext] (c) serve | {card}")
+    with no_autotune():
+        for name in LKM_SCANNED:   # the kernels vs twins on a one-slice warm-up volume
+            mamba_serve(torch, card, name, nets[name], n_volumes=1,
+                        bf16_tol=LKM_BF16_TOL[name], profiled=False, fp32_own_batch=True,
+                        warmup_volume=(1, 1, *MAMBA_PATCH))
+    log(f"  (c) done in {stamp(t0)}")
+    del nets
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"[lkm-mednext] (d) the train verb: {LKM_TRAINER}; MedNeXt Mambaskip's gates through "
+        f"Trainer | {card}")
+    with verb_paths("chip_smoke_lkm_") as tmp, no_autotune():
+        train_verb_2d(torch, card, tmp, LKM_TRAINER, LKM_RECIPE, "LKM-UNet", LKM_STEPS,
+                      LKM_CACHED_STEPS, 1, gate_batch=GATE_BATCH_2D)
+    mednext_skip_gates(torch, card)
+    log(f"  (d) done in {stamp(t0)}")
+
+
+def phase_grad_gates(torch, card: str) -> None:
+    """The network-level gradient gates of phases 11-14 alone, on their
+    seeded weights and batches (``seeded_grad_gate``): U-Mamba Enc in 2-D
+    (also with the network in fp64 around the scans), U-Mamba Enc SS3D and
+    SegMamba at batch 1 of UNET3D_GRAD_PATCH, LKM-UNet and MedNeXt
+    Mambaskip in 2-D. Run twice, each run gives the same verdicts and
+    figures."""
+    from mlagg_unet_torch.ops import _ext
+
+    t0 = time.perf_counter()
+    _ext.reset_launch_counts()
+    cm3 = unet3d_configuration(UNET3D_GRAD_PATCH, SS3D_GRAD_BATCH)
+    seeded_grad_gate(torch, card, "U-Mamba Enc", "nnUNetTrainerUMambaEnc",
+                     mamba_configuration(GATE_BATCH_2D), MAMBA_CLASSES, batch_dice=True,
+                     fp64_around=True)
+    for trainer, label in (("nnUNetTrainerUMambaEnc_SS3D", "U-Mamba Enc SS3D"),
+                           (VARIANT_TRAINER, "SegMamba")):
+        seeded_grad_gate(torch, card, label, trainer, cm3, SS3D_CLASSES)
+    for trainer, label in ((LKM_TRAINER, "LKM-UNet"), (MEDNEXT_SKIP_TRAINER, "MedNeXt Mambaskip")):
+        seeded_grad_gate(torch, card, label, trainer, mamba_configuration(GATE_BATCH_2D),
+                         MAMBA_CLASSES, batch_dice=True)
+    log(f"[grad-gates] the five gates held in {time.perf_counter() - t0:.1f} s | {card}")
 
 
 def main() -> None:
     global REPO
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     ap.add_argument("--only", choices=("predict", "serve-timing", "train-verb", "pipeline",
-                                       "unet3d", "mamba", "ss3d", "variants"),
+                                       "unet3d", "mamba", "ss3d", "variants", "lkm-mednext",
+                                       "grad-gates"),
                     help="run the device and build phases and this one alone, with no "
                          "kernels line and no final line")
     ap.add_argument("--root", type=Path, default=REPO,
@@ -4339,7 +4568,8 @@ def main() -> None:
         {"serve-timing": serve_timing, "predict": phase_predict,
          "train-verb": phase_train_verb, "pipeline": phase_pipeline,
          "unet3d": phase_unet3d, "mamba": phase_mamba,
-         "ss3d": phase_ss3d, "variants": phase_variants}[opts.only](torch, card)
+         "ss3d": phase_ss3d, "variants": phase_variants, "lkm-mednext": phase_lkm,
+         "grad-gates": phase_grad_gates}[opts.only](torch, card)
         done(opts.only)
         return
     report = Report(sfu_exp_per_s(torch))
@@ -4377,6 +4607,8 @@ def main() -> None:
         done("ss3d")
         phase_variants(torch, card, held, Path(shared3d))
         done("variants")
+        phase_lkm(torch, card, held)
+        done("lkm-mednext")
 
     launches = {**serve, "selective_scan_bwd": train["selective_scan_bwd"],
                 **{k: serve_f[k] for k in FUSED_KERNELS}}

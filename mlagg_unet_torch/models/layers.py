@@ -226,11 +226,12 @@ class Conv(nn.Module):
 
 
 class DepthwiseConv(Conv):
-    """Stride-1 SAME depthwise conv (``layers.py:98``); params ``weight``
-    (C, 1, k, k) and ``bias`` as flax's ``kernel``/``bias``."""
+    """Stride-1 SAME depthwise conv (``layers.py:98``), 2-D or with
+    ``spatial_dims=3`` 3-D; params ``weight`` (C, 1, *k) and ``bias`` as
+    flax's ``kernel``/``bias``."""
 
-    def __init__(self, channels: int, kernel_size: int = 3):
-        super().__init__(channels, channels, kernel_size, groups=channels)
+    def __init__(self, channels: int, kernel_size: int = 3, spatial_dims: int = 2):
+        super().__init__(channels, channels, (kernel_size,) * spatial_dims, groups=channels)
 
 
 class DWConv2d(nn.Module):
@@ -247,39 +248,52 @@ class DWConv2d(nn.Module):
 
 class ConvTransposeTorch(nn.Module):
     """Transposed conv with torch's output size ``(in - 1) s - 2p + k + op``
-    (``layers.py:239``), 2-D or 3-D as the kernel's length says;
-    ``output_padding`` ``op`` adds rows at the far end of each axis, as
-    monai's up blocks take it (``op = s + 2p - k``: exactly ``s`` times the
-    input). ``weight`` is torch's (in, out, *kernel); the JAX kernel
-    (*kernel, in, out) is the same array, and JAX flips it in its forward
-    because ``conv_transpose2d`` / ``conv_transpose3d`` do. Groups are not
-    supported."""
+    (``layers.py:239``), 2-D or 3-D as the kernel's length says; kernel,
+    stride and padding may differ per axis. ``output_padding`` ``op`` adds
+    rows at the far end of each axis, as monai's up blocks take it (``op = s
+    + 2p - k``: exactly ``s`` times the input). ``groups`` is flax's
+    ``feature_group_count`` (MedNeXt's up blocks are depthwise). ``weight``
+    is torch's (in, out / groups, *kernel); JAX's kernel is (*kernel, in /
+    groups, out), and JAX flips it in its forward because
+    ``conv_transpose2d`` / ``conv_transpose3d`` do."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: IntOrN, stride: IntOrN, padding: IntOrN = 0,
-                 output_padding: IntOrN = 0):
+                 output_padding: IntOrN = 0, groups: int = 1):
         super().__init__()
+        if in_channels % groups or out_channels % groups:
+            raise ValueError(f"ConvTransposeTorch: {in_channels} -> {out_channels} "
+                             f"channels in {groups} groups")
         k = _ntuple(kernel_size, 2)
         self.stride, self.padding = _ntuple(stride, len(k)), _ntuple(padding, len(k))
         self.output_padding = _ntuple(output_padding, len(k))
-        self.weight = _empty(in_channels, out_channels, *k)
+        self.groups = groups
+        self.weight = _empty(in_channels, out_channels // groups, *k)
         self.bias = _empty(out_channels)
 
     def init_parameters(self, gen):
-        lecun_normal_(self.weight, self.weight.shape[0] * self.weight[0, 0].numel(), gen)
+        # flax's fan-in of the (*kernel, in / groups, out) kernel
+        fan_in = self.weight.shape[0] // self.groups * self.weight[0, 0].numel()
+        lecun_normal_(self.weight, fan_in, gen)
         with torch.no_grad():
             self.bias.zero_()
 
     def forward(self, x):
         x, w, b = promote_dtype(x, self.weight, self.bias)
         y = _CONV_T[w.ndim - 2](_channels_first(x), w, b, self.stride, self.padding,
-                                self.output_padding)
+                                self.output_padding, self.groups)
         return _channels_last(y)
 
 
-def pad_top_left(x: torch.Tensor, amount: int = 1) -> torch.Tensor:
-    """Pad the leading side of H and W (``layers.py:298``)."""
-    return F.pad(x, (0, 0, amount, 0, amount, 0))
+def pad_top_left(x: torch.Tensor, amount: IntOrN = 1) -> torch.Tensor:
+    """Pad the leading side of every spatial axis of channels-last ``x``
+    (``layers.py:298``); ``amount`` may differ per axis (0 on the stride-1
+    axes of an anisotropic up block)."""
+    amounts = _ntuple(amount, x.ndim - 2)
+    pads = [0, 0]
+    for a in reversed(amounts):   # F.pad lists the last axis first
+        pads += [a, 0]
+    return F.pad(x, pads)
 
 
 # ---------------------------------------------------------------- norms

@@ -15,7 +15,8 @@ augmentation or the sampling, with the JAX entries' values. The model zoo's
 names are all registered with the JAX entries' values; the networks of
 U-Mamba Bot / Enc (also with SS3D), VM-UNet, Mamba-UNet, Swin-UMamba(-D),
 VM-UNet-3D (three forms), MSVM-UNet, SegMamba, LightM-UNet, UltraLight
-VM-UNet and nnMamba are built, the others' raise when a trainer checks them
+VM-UNet, nnMamba, LKM-UNet and MedNeXt (B, kernel 3 or 5, and B k3 with its
+Mamba skip) are built, the others' raise when a trainer checks them
 (ROADMAP queue A, A16).
 """
 from __future__ import annotations
@@ -238,6 +239,32 @@ def _build_nnmamba(configuration_manager, num_input_channels: int, num_output_ch
                            **{"strides": tuple(strides), **overrides})
 
 
+def _build_lkm_unet(configuration_manager, num_input_channels: int, num_output_channels: int,
+                    deep_supervision: bool, *, seed: int = 0, device: DeviceLike = "cuda"):
+    """LKM-UNet of the plans (``registry.py:413-437``), 2-D or 3-D."""
+    from mlagg_unet_torch.models.lkm_unet import build_lkm_unet
+
+    if not hasattr(configuration_manager, "pool_op_kernel_sizes"):
+        raise ValueError("LKM-UNet is built from the plans: pass the ConfigurationManager, "
+                         "not a patch size")
+    return build_lkm_unet(configuration_manager, num_input_channels, num_output_channels,
+                          deep_supervision, seed=seed, device=device)
+
+
+def _build_mednext(model_id: str, kernel_size: int, use_mamba_skip: bool = False):
+    def build(configuration_manager, num_input_channels: int, num_output_channels: int,
+              deep_supervision: bool, *, seed: int = 0, device: DeviceLike = "cuda"):
+        """MedNeXt's preset in the patch's dimension (``registry.py:141-165``);
+        the Mamba skip 2-D only."""
+        from mlagg_unet_torch.models.mednext_net import build_mednext
+
+        return build_mednext(configuration_manager, num_input_channels, num_output_channels,
+                             deep_supervision, model_id, kernel_size, use_mamba_skip,
+                             seed=seed, device=device)
+
+    return build
+
+
 NETWORK_BUILDERS: Dict[str, Callable] = {
     "mlla_uper": _build_mlla_uper,
     "plans_unet": _build_plans_unet,
@@ -258,6 +285,10 @@ NETWORK_BUILDERS: Dict[str, Callable] = {
     "lightm_unet": _build_lightm_unet,
     "ultralight_vmunet": _build_ultralight,
     "nnmamba": _build_nnmamba,
+    "lkm_unet": _build_lkm_unet,
+    "mednext_b3": _build_mednext("B", 3),
+    "mednext_b5": _build_mednext("B", 5),
+    "mednext_b3_mambaskip": _build_mednext("B", 3, use_mamba_skip=True),
 }
 
 

@@ -4,8 +4,8 @@ Copied from ``mlagg_unet_tpu/training/torch_import.py``: the reference's key
 rules of ``MLLA_Uper`` (``REFERENCE_FLAGSHIP_RULES``, the ConvTranspose
 keys), U-Mamba Bot / Enc (also SS3D, whose A_logs / Ds merge 12 scan
 paths), VM-UNet, Mamba-UNet, Swin-UMamba(-D), VM-UNet-3D, MSVM-UNet,
-SegMamba, LightM-UNet, UltraLight VM-UNet and nnMamba (``:109-258``,
-``:259-350``, ``:397-420``, ``:583-604``), the converter to the JAX
+SegMamba, LightM-UNet, UltraLight VM-UNet, nnMamba, MedNeXt and LKM-UNet
+(``:109-258``, ``:259-350``, ``:397-420``, ``:559-604``), the converter to the JAX
 package's flat layout and ``CONVERTERS_BY_NETWORK`` for those networks
 (``:661-688``). nnMamba's shared Mamba layer sits under both of its blocks
 in a reference state_dict (the same tensors); both keys map to its one
@@ -308,10 +308,59 @@ REFERENCE_NNMAMBA_RULES = [
 ]
 
 
+# MedNeXt (network_architecture/mednextv1/MedNextV1_new.py and
+# MedNextV1_new_Mambaskip.py)
+REFERENCE_MEDNEXT_RULES = [
+    # MSMM skip module (Mambaskip variant)
+    (r"^mambaskip\.blocks\.(\d+)\.", r"mambaskip.block\1."),
+    (r"\.conv2d\.(\d+)\.", r".conv2d_\1."),
+    (r"\.mlps\.(\d+)\.", r".mlp\1."),
+    (r"\.conv_branches\.(\d+)\.0\.", r".conv_branch\1."),
+    (r"\.conv_branches\.(\d+)\.1\.", r".conv_norm\1.GroupNorm_0."),
+    (r"\.dwconv\.dwconv\.", ".DWConv2d_0.Conv_0."),
+    (r"\.fc1\.", ".Dense_0."),
+    (r"\.fc2\.", ".Dense_1."),
+    # MedNeXt trunk
+    (r"^(enc_block|dec_block)_(\d+)\.(\d+)\.", r"\1_\2_\3."),
+    (r"^bottleneck\.(\d+)\.", r"bottleneck_\1."),
+    (r"\.norm\.", ".norm.GroupNorm_0."),
+    (r"^out_(\d)\.conv_out\.conv\.", r"out_\1.conv_out."),
+]
+
+# LKM-UNet (variants/mamba/nnUNetTrainer_LKM_UNet.py:122-730)
+REFERENCE_LKM_RULES = [
+    (r"^decoder\.encoder\.", None),        # duplicate module registration
+    (r"^encoder\.stem\.convs\.(\d+)\.norm\.",
+     r"stem.conv\1.norm.GroupNorm_0."),
+    (r"^encoder\.stem\.convs\.(\d+)\.", r"stem.conv\1."),
+    (r"^encoder\.stages\.(\d+)\.blocks\.(\d+)\.", r"stage\1.block\2."),
+    (r"^encoder\.mamba_layers\.(\d+)\.", r"pixel_mamba\1.bi."),
+    (r"^encoder\.w_mamba_layers\.(\d+)\.", r"window_mamba\1.bi."),
+    (r"^decoder\.transpconvs\.(\d+)\.", r"transpconv\1."),
+    (r"^decoder\.stages\.(\d+)\.blocks\.(\d+)\.", r"dec_stage\1.block\2."),
+    (r"^decoder\.seg_layers\.(\d+)\.", r"seg\1."),
+    (r"\.skip\.0\.", ".skip.conv."),
+    (r"\.skip\.1\.", ".skip.norm.GroupNorm_0."),
+    (r"\.(conv1|conv2)\.norm\.", r".\1.norm.GroupNorm_0."),
+    (r"\.dt_proj\.weight$", ".dt_proj_weight"),
+    (r"\.dt_proj\.bias$", ".dt_proj_bias"),
+]
+
+
 def convert_reference_flagship_state_dict(state_dict) -> Dict[str, np.ndarray]:
     """torch MLLA_Uper state_dict -> {'a/b/c': array} in flax layout."""
     return _convert_reference_state_dict(state_dict,
                                          REFERENCE_FLAGSHIP_RULES)
+
+
+def convert_reference_mednext_state_dict(state_dict) -> Dict[str, np.ndarray]:
+    """torch MedNeXt (MedNextV1_new) state_dict -> flax layout."""
+    return _convert_reference_state_dict(state_dict, REFERENCE_MEDNEXT_RULES)
+
+
+def convert_reference_lkm_state_dict(state_dict) -> Dict[str, np.ndarray]:
+    """torch LKMUNet state_dict -> flax layout."""
+    return _convert_reference_state_dict(state_dict, REFERENCE_LKM_RULES)
 
 
 def convert_reference_swin_umamba_state_dict(
@@ -400,6 +449,9 @@ CONVERTERS_BY_NETWORK = {
     "lightm_unet": convert_reference_lightm_state_dict,
     "ultralight_vmunet": convert_reference_ultralight_state_dict,
     "nnmamba": convert_reference_nnmamba_state_dict,
+    "lkm_unet": convert_reference_lkm_state_dict,
+    "mednext_b3": convert_reference_mednext_state_dict,
+    "mednext_b5": convert_reference_mednext_state_dict,
 }
 
 

@@ -7,7 +7,12 @@ The port's submodules are named after the flax scopes, so a flat JAX key
 - a Dense kernel (in, out) is transposed to (out, in);
 - a conv kernel (*k, in / g, out), 1-D, 2-D or 3-D, becomes (out, in / g, *k)
   (a depthwise conv1d's (k, 1, d) becomes (d, 1, k));
-- a transposed-conv kernel (*k, in, out) becomes torch's (in, out, *k);
+- a transposed-conv kernel (*k, in, out) becomes torch's (in, out, *k); a
+  depthwise one (*k, 1, C) (MedNeXt's up blocks, ``groups = C``) becomes
+  torch's (C, 1, *k), as a forward conv's kernel does: torch's
+  ``weight[g in/g + i, j]`` is JAX's ``[..., i, g out/g + j]``, which for one
+  input and one output channel a group is the forward conv's order. A
+  transposed kernel with one input channel a group is taken as depthwise;
 - ``scale`` becomes ``weight``;
 - raw params (``A_logs``, ``Ds``, ``x_proj_weight``, ``dt_projs_*``,
   MambaBlock's ``dt_proj*_weight``, ``dt_proj*_bias``, ``A*_log`` and
@@ -18,9 +23,9 @@ A parameterless norm (JAX's ``InstanceNorm(affine=False)``, the port's
 ``instance_norm``) has no key on either side; a module that several blocks call (nnMamba's shared Mamba layer) is
 one scope on both.
 
-Transposed convs are told apart by their scope names (the flagship's
-``up_*/conv1``, ``up_*/res_conv`` and ``transp_conv``, the U-Net's
-``decoder_transp*``).
+Transposed convs are told apart by their scope names (the flagship's and
+MedNeXt's ``up_*/conv1``, ``up_*/res_conv`` and ``transp_conv``, the U-Net's
+``decoder_transp*``, LKM-UNet's ``transpconv*``).
 
 BatchNorm's running statistics, flax's ``batch_stats`` collection
 (``.../norm/mean``, ``.../norm/var``), are the port's module buffers of the
@@ -37,7 +42,7 @@ import numpy as np
 import torch
 
 _TRANSPOSED = re.compile(
-    r"(^|/)(up_\d+/(conv1|res_conv)|transp_conv|decoder_transp\d+)/kernel$")
+    r"(^|/)(up_\d+/(conv1|res_conv)|transp_conv|decoder_transp\d+|transpconv\d+)/kernel$")
 
 
 def _torch_name(key: str) -> str:
@@ -47,13 +52,20 @@ def _torch_name(key: str) -> str:
     return ".".join(parts)
 
 
-def _kernel_perm(key: str, ndim: int):
+def _transposed(key: str, arr: np.ndarray, channel_axis: int) -> bool:
+    """Whether ``arr`` takes the transposed-conv layout: a transposed conv's
+    kernel whose ``channel_axis`` (JAX's in / groups, torch's out / groups)
+    is not 1. A depthwise one is laid out as a forward conv's."""
+    return arr.ndim > 2 and arr.shape[channel_axis] != 1 and bool(_TRANSPOSED.search(key))
+
+
+def _kernel_perm(key: str, ndim: int, transposed: bool):
     """Axis order taking a JAX kernel to the port's layout."""
     if ndim == 2:
         return (1, 0)
     if ndim in (3, 4, 5):
         spatial = tuple(range(ndim - 2))
-        io = (ndim - 2, ndim - 1) if _TRANSPOSED.search(key) else (ndim - 1, ndim - 2)
+        io = (ndim - 2, ndim - 1) if transposed else (ndim - 1, ndim - 2)
         return io + spatial
     raise ValueError(f"{key}: kernel of rank {ndim}")
 
@@ -66,7 +78,7 @@ def jax_params_to_state_dict(flat: Mapping[str, np.ndarray]
     for key, arr in flat.items():
         arr = np.asarray(arr)
         if key.rsplit("/", 1)[-1] == "kernel":
-            arr = arr.transpose(_kernel_perm(key, arr.ndim))
+            arr = arr.transpose(_kernel_perm(key, arr.ndim, _transposed(key, arr, -2)))
         out[_torch_name(key)] = torch.from_numpy(np.array(arr, order="C"))
     return out
 
@@ -78,7 +90,8 @@ def state_dict_to_jax_params(state_dict: Mapping[str, torch.Tensor],
     for key in jax_keys:
         arr = state_dict[_torch_name(key)].detach().cpu().numpy()
         if key.rsplit("/", 1)[-1] == "kernel":
-            arr = arr.transpose(np.argsort(_kernel_perm(key, arr.ndim)))
+            arr = arr.transpose(np.argsort(_kernel_perm(key, arr.ndim,
+                                                        _transposed(key, arr, 1))))
         out[key] = np.ascontiguousarray(arr)
     return out
 

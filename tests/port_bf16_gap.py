@@ -9,7 +9,8 @@ at their published widths on 160x160; the SS3D U-Mambas on the 3-D bench
 topology, 6 stages, 32-320 features, and VM-UNet-3D at its published
 widths, on 16x64x64; SegMamba and nnMamba (its strides from the 3-D plan)
 at their published widths on 16x64x64, LightM-UNet and UltraLight VM-UNet
-on 160x160), from one seeded JAX param tree (BatchNorm's running
+on 160x160; LKM-UNet on the U-Mambas' 2d cut, MedNeXt B k3 with and
+without its Mamba skip on 160x160), from one seeded JAX param tree (BatchNorm's running
 statistics at flax's init) loaded into the port, on a seeded batch (2 in
 2-D, 1 in 3-D). For each network it prints the rel L2 of bf16 against fp32
 in each package and of the port's bf16 against JAX's.
@@ -18,7 +19,8 @@ in each package and of the port's bf16 against JAX's.
 
 Networks: umamba_bot, umamba_enc, vmunet, umamba_bot_ss3d, umamba_enc_ss3d,
 vmunet3d, vmunet3d_new, vmunet3d_swint, msvm_unet, segmamba, nnmamba,
-lightm_unet, ultralight_vmunet (all by default). Takes a
+lightm_unet, ultralight_vmunet, lkm_unet, mednext_b3, mednext_b3_mambaskip
+(all by default). Takes a
 few minutes and a few GiB on the CPU.
 """
 import os
@@ -36,12 +38,16 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from mlagg_unet_tpu.models import lkm_unet as JLK  # noqa: E402
 from mlagg_unet_tpu.models import mamba_variants as JMV  # noqa: E402
+from mlagg_unet_tpu.models import mednext_net as JMN  # noqa: E402
 from mlagg_unet_tpu.models import msvm_unet as JMS  # noqa: E402
 from mlagg_unet_tpu.models import umamba as JUM  # noqa: E402
 from mlagg_unet_tpu.models import vmamba as JVM  # noqa: E402
 from mlagg_unet_tpu.models import vmunet3d as JV3  # noqa: E402
+from mlagg_unet_torch.models import lkm_unet as TLK  # noqa: E402
 from mlagg_unet_torch.models import mamba_variants as TMV  # noqa: E402
+from mlagg_unet_torch.models import mednext_net as TMN  # noqa: E402
 from mlagg_unet_torch.models import msvm_unet as TMS  # noqa: E402
 from mlagg_unet_torch.models import umamba as TUM  # noqa: E402
 from mlagg_unet_torch.models import vmamba as TVM  # noqa: E402
@@ -75,7 +81,15 @@ def networks():
     def vmunet3d(**kw):
         return JV3.VMUNet3D(num_classes=CLASSES_3D, **kw), TV3.VMUNet3D(1, CLASSES_3D, **kw)
 
+    def mednext(skip):
+        return (JMN.create_mednext_v1(1, CLASSES, "B", 3, use_mamba_skip=skip),
+                TMN.create_mednext_v1(1, CLASSES, "B", 3, use_mamba_skip=skip))
+
     x2, x3 = (2, *PATCH, 1), (1, *PATCH_3D, 1)
+    lkm = dict(n_stages=len(CM.conv_kernel_sizes), features_per_stage=(32, 64, 128, 256, 512, 512),
+               kernel_sizes=CM.conv_kernel_sizes, strides=CM.pool_op_kernel_sizes,
+               n_conv_per_stage=CM.n_conv_per_stage_encoder,
+               n_conv_per_stage_decoder=CM.n_conv_per_stage_decoder, deep_supervision=False)
     new = dict(no_z=True, use_encoder5=False)
     return {
         "umamba_bot": lambda: (*umamba(CM, CLASSES, "bot"), x2),
@@ -95,6 +109,10 @@ def networks():
                                 TMV.LightMUNet(1, CLASSES), x2),
         "ultralight_vmunet": lambda: (JMV.UltraLightVMUNet(num_classes=CLASSES),
                                       TMV.UltraLightVMUNet(1, CLASSES), x2),
+        "lkm_unet": lambda: (JLK.LKMUNet(num_classes=CLASSES, **lkm),
+                             TLK.LKMUNet(1, CLASSES, **lkm), x2),
+        "mednext_b3": lambda: (*mednext(False), x2),
+        "mednext_b3_mambaskip": lambda: (*mednext(True), x2),
     }
 
 

@@ -22,14 +22,18 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from mlagg_unet_tpu.models import lkm_unet as JLK
 from mlagg_unet_tpu.models import mamba_variants as JMV
+from mlagg_unet_tpu.models import mednext_net as JMN
 from mlagg_unet_tpu.models import msvm_unet as JMS
 from mlagg_unet_tpu.models import swin_umamba as JSU
 from mlagg_unet_tpu.models import umamba as JUM
 from mlagg_unet_tpu.models import vmamba as JVM
 from mlagg_unet_tpu.models import vmunet3d as JV3
 from mlagg_unet_tpu.training import torch_import as jti
+from mlagg_unet_torch.models import lkm_unet as TLK
 from mlagg_unet_torch.models import mamba_variants as TMV
+from mlagg_unet_torch.models import mednext_net as TMN
 from mlagg_unet_torch.models import msvm_unet as TMS
 from mlagg_unet_torch.models import swin_umamba as TSU
 from mlagg_unet_torch.models import umamba as TUM
@@ -84,6 +88,30 @@ SEGMAMBA = dict(depths=(1, 1, 1, 1), feat_size=(8, 16, 16, 32), hidden_size=32)
 LIGHTM = dict(init_filters=16)
 LIGHTM_3D = dict(init_filters=16, blocks_down=(1, 1, 1, 1))
 NNMAMBA = dict(channels=16, strides=((1, 1, 1), (2, 2, 2), (2, 2, 2), (2, 2, 2)))
+# LKM-UNet: 3 stages at 40x40 take the p-strided sub-grids at every stage
+# (periods 10, 5, 5; windows pooled by 2, 1, 1), 2 stages at 20x28x24 the
+# 3-D ones (periods (5, 7, 6) at both stages); the JAX package's own sizes
+# (16x16, 8x8x8, test_variant_zoo.py) take the whole-map fallback
+LKM_2D = dict(n_stages=3, features_per_stage=(8, 16, 32), kernel_sizes=((3, 3),) * 3,
+              strides=((1, 1), (2, 2), (2, 2)), n_conv_per_stage=(1, 1, 1),
+              n_conv_per_stage_decoder=(1, 1))
+LKM_3D = dict(n_stages=2, features_per_stage=(8, 16), kernel_sizes=((3, 3, 3),) * 2,
+              strides=((1, 1, 1), (2, 2, 2)), n_conv_per_stage=(1, 1),
+              n_conv_per_stage_decoder=(1,), deep_supervision=False)
+LKM_2D_SMALL = dict(LKM_2D, features_per_stage=(4, 8, 16), deep_supervision=False)
+LKM_3D_SMALL = dict(LKM_3D, features_per_stage=(4, 8))
+# MedNeXt S (create_mednext_v1): 2-D with deep supervision, 2-D with the
+# five-scale Mamba skip, 3-D at kernel 5 with deep supervision
+# (preset, kernel, deep supervision, spatial dims, Mamba skip)
+MEDNEXT = {"mednext_s_2d": ("S", 3, True, 2, False),
+           "mednext_s_2d_mambaskip": ("S", 3, False, 2, True),
+           "mednext_s_3d": ("S", 5, True, 3, False)}
+
+
+def _mednext(name):
+    model_id, k, ds, d, skip = MEDNEXT[name]
+    return (JMN.create_mednext_v1(1, 3, model_id, k, ds, d, skip),
+            TMN.create_mednext_v1(1, 3, model_id, k, ds, d, skip))
 
 
 def x_of(shape, seed=0):
@@ -141,6 +169,20 @@ FACTORIES = {
                                   "ultralight_vmunet"),
     "nnmamba": lambda: (JMV.NNMamba(num_classes=3, **NNMAMBA), TMV.NNMamba(1, 3, **NNMAMBA),
                         x_of((2, 8, 16, 16, 1)), "nnmamba"),
+    "lkm_unet_2d": lambda: (JLK.LKMUNet(num_classes=3, **LKM_2D), TLK.LKMUNet(1, 3, **LKM_2D),
+                            x_of((1, 40, 40, 1)), "lkm_unet"),
+    "lkm_unet_3d": lambda: (JLK.LKMUNet(num_classes=3, **LKM_3D), TLK.LKMUNet(1, 3, **LKM_3D),
+                            x_of((1, 20, 28, 24, 1)), "lkm_unet"),
+    "lkm_unet_2d_small": lambda: (JLK.LKMUNet(num_classes=2, **LKM_2D_SMALL),
+                                  TLK.LKMUNet(1, 2, **LKM_2D_SMALL), x_of((1, 16, 16, 1)),
+                                  "lkm_unet"),
+    "lkm_unet_3d_small": lambda: (JLK.LKMUNet(num_classes=2, **LKM_3D_SMALL),
+                                  TLK.LKMUNet(1, 2, **LKM_3D_SMALL), x_of((1, 8, 8, 8, 1)),
+                                  "lkm_unet"),
+    "mednext_s_2d": lambda: (*_mednext("mednext_s_2d"), x_of((1, 32, 32, 1)), "mednext_b3"),
+    "mednext_s_2d_mambaskip": lambda: (*_mednext("mednext_s_2d_mambaskip"),
+                                       x_of((1, 32, 32, 1)), None),
+    "mednext_s_3d": lambda: (*_mednext("mednext_s_3d"), x_of((1, 16, 32, 32, 1)), "mednext_b5"),
 }
 ORDER = list(FACTORIES)
 
@@ -378,10 +420,42 @@ TO_REFERENCE.update({
         (r"\.conv_b\.", ".conv.3."),
         (r"\.bn_b\.", ".conv.4."),
     ],
+    "lkm_unet": [
+        (r"^stem\.conv(\d+)\.norm\.GroupNorm_0\.", r"encoder.stem.convs.\1.norm."),
+        (r"^stem\.conv(\d+)\.", r"encoder.stem.convs.\1."),
+        (r"^stage(\d+)\.block(\d+)\.", r"encoder.stages.\1.blocks.\2."),
+        (r"^pixel_mamba(\d+)\.bi\.", r"encoder.mamba_layers.\1."),
+        (r"^window_mamba(\d+)\.bi\.", r"encoder.w_mamba_layers.\1."),
+        (r"^transpconv(\d+)\.", r"decoder.transpconvs.\1."),
+        (r"^dec_stage(\d+)\.block(\d+)\.", r"decoder.stages.\1.blocks.\2."),
+        (r"^seg(\d+)\.", r"decoder.seg_layers.\1."),
+        (r"\.skip\.conv\.", ".skip.0."),
+        (r"\.skip\.norm\.GroupNorm_0\.", ".skip.1."),
+        (r"\.(conv1|conv2)\.norm\.GroupNorm_0\.", r".\1.norm."),
+    ],
+    "mednext_b3": [
+        (r"^mambaskip\.block(\d+)\.", r"mambaskip.blocks.\1."),
+        (r"\.conv2d_(\d+)\.", r".conv2d.\1."),
+        (r"\.mlp(\d+)\.", r".mlps.\1."),
+        (r"\.conv_branch(\d+)\.", r".conv_branches.\1.0."),
+        (r"\.conv_norm(\d+)\.GroupNorm_0\.", r".conv_branches.\1.1."),
+        (r"\.DWConv2d_0\.Conv_0\.", ".dwconv.dwconv."),
+        (r"\.Dense_0\.", ".fc1."),
+        (r"\.Dense_1\.", ".fc2."),
+        (r"^(enc_block|dec_block)_(\d+)_(\d+)\.", r"\1_\2.\3."),
+        (r"^bottleneck_(\d+)\.", r"bottleneck.\1."),
+        (r"\.norm\.GroupNorm_0\.", ".norm."),
+    ],
 })
+TO_REFERENCE["mednext_b5"] = TO_REFERENCE["mednext_b3"]
 TO_REFERENCE["umamba_enc_ss3d"] = TO_REFERENCE["umamba_bot_ss3d"]
 TO_REFERENCE["vmunet3d_new"] = TO_REFERENCE["vmunet3d_swint"] = _VMUNET3D
-_REF_TRANSPOSED = re.compile(r"transp_conv(\.conv)?\.weight$")
+# the reference's ConvTranspose layout (in, out / groups, *k): the zoo's
+# transposed convs, LKM-UNet's, MedNeXt's up blocks and its heads (a
+# ConvTranspose of kernel 1 in the reference). A depthwise one (one input
+# channel a group, JAX (*k, 1, C)) is (C, 1, *k), the forward conv's order
+_REF_TRANSPOSED = re.compile(
+    r"(transp_conv(\.conv)?|transpconvs\.\d+|up_\d+\.(conv1|res_conv)|out_\d+\.conv_out)\.weight$")
 
 
 def reference_state_dict(flat, key, stats=None):
@@ -398,7 +472,8 @@ def reference_state_dict(flat, key, stats=None):
         if leaf == "kernel":
             leaf = "weight"
             if arr.ndim >= 3:
-                transposed = _REF_TRANSPOSED.search(prefix + leaf) and arr.shape[-1] != 1
+                transposed = (_REF_TRANSPOSED.search(prefix + leaf) and arr.shape[-1] != 1
+                              and arr.shape[-2] != 1)
                 arr = np.moveaxis(arr, (-2, -1), (0, 1)) if transposed else \
                     np.moveaxis(arr, (-1, -2), (0, 1))
             else:
@@ -450,3 +525,41 @@ def check_pth(n):
         got = outputs(tm(T(np.array(n["x"]))))
     for g, r in zip(got, outputs(n["ref"])):
         assert_close(g, np.asarray(r))
+
+
+# conv biases that a norm follows: their gradient is zero in exact arithmetic,
+# and both packages' values are rounding noise, held to their conv kernel's
+LKM_NORM_FED = r"/conv/bias$"
+MEDNEXT_NORM_FED = r"(^(enc_block|dec_block|bottleneck|down|up)_[\d_]+/conv1|/conv_branch\d+)/bias$"
+
+
+def check_grads(n, norm_fed: str, seed: int = 7, rel: float = 2e-4):
+    """The gradients of sum(output * cotangent) over every output, in the
+    input and in every parameter, against ``jax.grad``: each within ``rel``
+    x its max|ref| + 1e-6 (the scan gradients' fp32 tolerance, PARITY.md),
+    a bias matching ``norm_fed`` (a norm follows its conv: its gradient is
+    zero but for rounding) within ``rel`` x max|its kernel's gradient|."""
+    rs = np.random.RandomState(seed)
+    cots = [rs.randn(*np.shape(r)).astype(np.float32) for r in outputs(n["ref"])]
+    variables = n["variables"]
+
+    def loss(p, xx):
+        outs = outputs(n["jm"].apply({**variables, "params": p}, xx))
+        return sum(jnp.sum(o * c) for o, c in zip(outs, cots))
+
+    gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(n["params"], n["x"])
+    tm = copy.deepcopy(n["tm"])
+    tx = T(np.array(n["x"])).requires_grad_(True)
+    sum((o * T(c)).sum() for o, c in zip(outputs(tm(tx)), cots)).backward()
+    assert_close(tx.grad, np.asarray(gx), rel=rel, atol=1e-6)
+    ref = {k: np.asarray(v) for k, v in flat_params(gp).items()}
+    got = state_dict_to_jax_params({k: p.grad for k, p in tm.named_parameters()}, ref)
+    fed = [k for k in ref if re.search(norm_fed, k)]
+    assert fed, f"no bias matches {norm_fed}"
+    for k in ref:
+        if k in fed:
+            bound = rel * np.abs(ref[k[:-len("bias")] + "kernel"]).max() + 1e-6
+            err = np.abs(got[k] - ref[k]).max()
+            assert err <= bound, f"{k}: max |diff| {err:.3e} > {bound:.3e}"
+        else:
+            assert_close(got[k], ref[k], rel=rel, atol=1e-6)

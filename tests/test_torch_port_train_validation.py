@@ -161,7 +161,7 @@ def test_verb_needs_the_card_unless_told(trained, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         entrypoints.main(["train", "995", "2d", "0", "-tr", TR])
     monkeypatch.setitem(treg.TRAINER_REGISTRY, TR + "_zoo", replace(
-        treg.TRAINER_REGISTRY[TR], name=TR + "_zoo", network="lkm_unet"))
+        treg.TRAINER_REGISTRY[TR], name=TR + "_zoo", network="transunet"))
     with pytest.raises(NotImplementedError, match="A16"):
         entrypoints.main(["train", "995", "2d", "0", "-tr", TR + "_zoo", "-device", "cpu"])
     monkeypatch.setenv("MLAGG_DEVICE_AUG", "ord3")

@@ -75,7 +75,7 @@ def test_pretrained_pth_transfer_and_raises(nets, tmp_path):
     for k, v in n["tm"].state_dict().items():
         assert torch.equal(fresh.state_dict()[k], v), k
     with pytest.raises(NotImplementedError, match="A16"):
-        tti.load_pretrained_torch_weights(fresh, path, network_key="lkm_unet")
+        tti.load_pretrained_torch_weights(fresh, path, network_key="transunet")
     with pytest.raises(NotImplementedError, match="A16"):
         tti.load_pretrained_torch_weights(nets["mamba_unet"]["tm"], path,
                                           network_key="umamba_bot")
