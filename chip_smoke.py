@@ -6,11 +6,21 @@ CUDA card, ``nvcc`` (``CUDA_HOME``, ``PATH`` or ``/usr/local/cuda``) and
 ``nvidia-smi``; it imports neither JAX nor the JAX package. Phases, any
 failure exits non-zero:
 
-1. device: the card's name and power limit (``nvidia-smi``); TF32 off;
+1. device: the card's name and power limit (``nvidia-smi``), the host's
+   CPU model and logical cores; TF32 off;
 2. build: nvcc builds every kernel of the serving and training paths from
    ``csrc/`` into ``mlagg_unet_torch/_build/``, one nvcc per source, in
    parallel, and g++ the native resampler (``csrc/resample.cpp``) beside
-   them;
+   them. Then a side process that cannot see the card (``HostPrep``) starts
+   the host-bound work of the later phases beside the card's, in the order
+   they need it, on 2 spawned workers of 2 threads: phase 8's dataset,
+   phase 9's raw dataset with its ``plan_and_preprocess`` and the native vs
+   scipy comparison, phase 10's raw dataset with ``plan_and_preprocess -c
+   3d_fullres`` and the cascade's 3d_lowres preprocessing, phase 11's
+   dataset (phases 14 and 15 copy it), and the CPU sides of the
+   card-vs-CPU checks of phases 7 and 10-15 (the same seeded networks and
+   inputs built on the CPU). Each phase copies its folder or takes its
+   result and prints the side process's lines, their seconds its own;
 3. kernels: each kernel against its plain PyTorch twin at the flagship's
    shapes (serving: model batch 16, tile 256x224; the scan backward: the
    training batch 10), fp32 and bf16 I/O, with the tolerances stated below,
@@ -95,7 +105,7 @@ failure exits non-zero:
    default network on the card: K1, K4, K5, K7 and K8 must each be
    launched in it, K2, K3 and K6 never (no timed steps);
 8. train verb: the port's ``train_entry`` on the card, default
-   configuration, fold 0 of a dataset the phase writes (10 cases of
+   configuration, fold 0 of a dataset the side process writes (10 cases of
    1x10x320x260 ``.nii.gz`` from ``RandomState(0)``, smooth blobs labelled
    by 3 thresholds of the image, preprocessed by the port's
    ``run_case_save``; the predict phase's 2d plan at 256x224, batch 10, 4
@@ -154,9 +164,11 @@ failure exits non-zero:
    ``apply_postprocessing_entry`` with the chosen pkl on the chosen
    prediction and ``evaluate_simple_entry`` against the test labels:
    shapes, labels in {0..3}, a finite Dice. ``export_model_entry`` of the
-   first recipe, ``install_model_entry`` into a fresh results root and the
-   predict verb there: segmentations at least 99.9 % equal to the first
-   prediction's. Each stage's seconds and the peak memory;
+   first recipe (in a thread beside the predict verbs, once the best
+   configuration is found), ``install_model_entry`` into a fresh results
+   root and the predict verb there: segmentations at least 99.9 % equal to
+   the first prediction's. Each stage's seconds and the peak memory; what a
+   spawned worker pays to start is measured in a thread beside the phase;
 10. unet3d: the default nnU-Net recipe in 3-D, on the plans' ``PlainConvUNet``
     at ``tools/bench_3d_unet.py``'s topology (6 stages, features 32 to 320,
     3x3x3 kernels, strides [1,1,1], [2,2,2] x 4, [1,2,2]). fp32 with TF32
@@ -288,16 +300,33 @@ failure exits non-zero:
     predict verb on its folder for 1 case; MedNeXt Mambaskip's gates through
     ``Trainer``: the seeded gate, then 2 bf16 steps on one cached batch and
     the per-call gate on the weights they leave. Only K1 and K5 run;
-15. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
+15. transformers: the zoo's transformer baselines at full width, seeded, on
+    phase 11's 2d plan: SwinUNETR, Swin-TUNet, TransUNet (R50-ViT-B/16) and
+    MLLA-UNet, each parameter count against JAX's. (a) Each on one 320x320
+    tile, fp32, card vs CPU (1e-3 x max; TransUNet's position embedding is
+    the patch's, so the whole tile). (b) TransUNet and MLLA-UNet served on
+    1 volume of 1x10x320x320 at the budget's tile batch, mirror (0, 1),
+    bf16: volumes/s, peak memory, bf16 against fp32 within twice JAX's own
+    gap (``TRANSFORMER_BF16_TOL``). (c) ``nnUNetTrainer_MLLA_UNet`` through
+    ``train_entry`` on phase 8's cases with that plan, 1 epoch of 5 steps and
+    2 validation steps, ms per step, the predict verb on its folder for 1
+    case; its loss and every gradient at batch 1 of 128x128 (the tile cut for
+    the CPU), seeded, drop path off, card vs CPU in fp64 (loss 1e-5, each
+    gradient 1e-3 x max + 1e-6). None of K1-K8 may run in the phase;
+16. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 
-Every line of the run's output is led by the seconds since the start.
+Every line of the run's output is led by the seconds since the start. In
+phases 11-15 each network's tile runs on the card right after the network
+is built, on its seeded weights, as its CPU side does.
 ``--only predict`` runs phases 1, 2 and 6 alone, ``--only train-verb``
 phases 1, 2 and 8, ``--only pipeline`` phases 1, 2 and 9, ``--only unet3d``
 phases 1, 2 and 10, ``--only mamba`` phases 1, 2 and 11, ``--only ss3d``
 phases 1, 2 and 12, ``--only variants`` phases 1, 2 and 13, ``--only lkm-mednext``
-phases 1, 2 and 14; ``--only grad-gates`` runs phases 1 and 2 and then the
-network-level gradient gates of phases 11-14 alone (run it twice in one call:
+phases 1, 2 and 14, ``--only transformers`` phases 1, 2 and 15 (each makes
+what it needs of the side process's work in this process); ``--only
+grad-gates`` runs phases 1 and 2 and then the network-level gradient gates
+of phases 11-14 alone (run it twice in one call:
 both runs give the same verdicts and figures); ``--only serve-timing``
 runs phases 1 and 2 and then phase 5's default timing alone, in two
 windows, from the package under ``--root`` (default: this script's
@@ -540,6 +569,15 @@ GATE_BATCH_2D = 2
 # where keep_grad_fault keeps a refused gradient check's case for replay
 GRAD_FAULT_DIR = Path(__file__).resolve().parent / "chip_smoke_out" / "grad_fault"
 MAMBA_GRAD_LEAF_TOL = 0.25
+# a conv bias that a norm follows (ROADMAP C3): its gradient is zero in exact
+# arithmetic, so the fp64 reference holds only rounding and the leaf bound
+# above is a few fp32 ulps. Such a leaf, by its trainer's name pattern, is
+# held to NORM_FED_TOL x max|its kernel's fp64 gradient| + 1e-6 (the CPU
+# tests' check_grads), provided its own fp64 gradient is rounding there: within
+# NORM_FED_FP64 x that max, else the gate fails (a real gradient)
+NORM_FED_BIASES = {"nnUNetTrainer_MedNeXt_Mambaskip": (
+    r"(^(enc_block|dec_block|bottleneck|down|up)_[\d_]+\.conv1|\.conv_branch\d+)\.bias$")}
+NORM_FED_TOL, NORM_FED_FP64 = 2e-4, 1e-9
 MAMBA_GRAD_BATCH = MAMBA_BATCH           # the forward and backward that record the scan shapes
 MAMBA_KERNELS = ("selective_scan_fwd", "selective_scan_bwd")
 MAMBA_DATASET, MAMBA_ID = "Dataset990_ChipSmokeMamba", "990"
@@ -616,6 +654,37 @@ MSMM_L = sum((MAMBA_PATCH[0] >> i) * (MAMBA_PATCH[1] >> i) for i in range(5))   
 # of the plan, MedNeXt B k3 with its Mamba skip 2.554e-02 on 160x160;
 # tests/port_bf16_gap.py)
 LKM_BF16_TOL = {LKM_TRAINER: 2 * 5.463e-02, MEDNEXT_SKIP_TRAINER: 2 * 2.554e-02}
+# phase 15: the zoo's transformer baselines at full width, seeded, on phase
+# 11's 2d plan (320x320, 4 classes): SwinUNETR (feature size 96), Swin-TUNet
+# (embed 48), TransUNet (R50-ViT-B/16; its position embedding is the 320x320
+# patch's, so its tile is the whole patch, on the CPU too) and MLLA-UNet
+# (embed 64). Their attention is plain PyTorch, as in JAX: none reaches a port
+# kernel
+TRANSFORMER_NETWORKS = ("nnUNetTrainerSwinUNETR_2d", "nnUNetTrainer_SwinTUNet",
+                        "nnUNetTrainerTransUNet", "nnUNetTrainer_MLLA_UNet")
+# JAX's parameter counts at this plan (tests/test_torch_port_zoo_<network>.py)
+TRANSFORMER_JAX_PARAMS = {"nnUNetTrainerSwinUNETR_2d": 100_485_358,
+                          "nnUNetTrainer_SwinTUNet": 6_106_915,
+                          "nnUNetTrainerTransUNet": 105_426_756,
+                          "nnUNetTrainer_MLLA_UNet": 28_504_416}
+TRANSFORMER_SERVED = ("nnUNetTrainerTransUNet", "nnUNetTrainer_MLLA_UNet")
+TRANSFORMER_TRAINER = "nnUNetTrainer_MLLA_UNet"
+TRANSFORMER_RECIPE = "nnUNetTrainer_MLLA_UNet_chip_smoke"
+TRANSFORMER_STEPS = 5
+TRANSFORMER_GRAD_TILE = (128, 128)       # the fp64 loss and gradients: the tile cut for the CPU
+# bf16 against fp32 serving: within twice the distance bf16 moves JAX's own
+# network (full width on 160x160, on the CPU: TransUNet 1.531e-02, MLLA-UNet
+# 2.537e-02; tests/port_bf16_gap.py)
+TRANSFORMER_BF16_TOL = {"nnUNetTrainerTransUNet": 2 * 1.531e-02,
+                        "nnUNetTrainer_MLLA_UNet": 2 * 2.537e-02}
+# the host-bound preparation (HostPrep): the parts in the order the phases
+# need them, made by a side process on PREP_WORKERS spawned workers of
+# PREP_THREADS threads (writers, the native resampler) beside phases 3-8
+PREP_PARTS = ("train", "flagship_grads", "pipeline", "unet3d", "unet3d_refs", "mamba",
+              "tiles_mamba", "tiles_ss3d", "tiles_variants", "tiles_lkm-mednext",
+              "tiles_transformers", "mlla_unet_grads")
+PREP_WORKERS, PREP_THREADS = 2, 2
+HOST_PREP = None                         # main's HostPrep
 UNET3D_CASCADE_RECIPE, UNET3D_CASCADE_STEPS = "nnUNetTrainer_chip_smoke_cascade", 2
 UNET3D_LOWRES_SPACING = 2.0              # mm: 48x96x96 cases, the patch their size
 UNET3D_LOWRES_POOLS = ((1, 1, 1), (2, 2, 2), (2, 2, 2), (2, 2, 2), (1, 2, 2))
@@ -627,11 +696,15 @@ def fail(msg: str) -> None:
 
 
 T_START = time.perf_counter()
+LOG_SINK = None   # a list that takes the lines instead of stdout (the side process, HostPrep)
 
 
 def log(msg: str) -> None:
     """A line of the run's output, led by the seconds since the script
     started (where each step's time goes)."""
+    if LOG_SINK is not None:
+        LOG_SINK.append(msg)
+        return
     print(f"[{time.perf_counter() - T_START:7.1f} s] {msg}", flush=True)
 
 
@@ -1597,6 +1670,20 @@ def compare_grads(torch, label, l_got, g_got, l_ref, g_ref) -> None:
         f"closest to its bound: {worst[1]} at {worst[0]:.3f} of it")
 
 
+def flagship_cpu_grads(torch):
+    """Phase 7's CPU side: the default configuration's fp32 batch (the
+    seeded flagship, drop path off; ``synthetic_batch`` seed 1) on the CPU:
+    (loss, gradients) and the seconds."""
+    from mlagg_unet_torch import Trainer
+
+    t0 = time.perf_counter()
+    tr = Trainer("nnUNetTrainer_MLAgg_2D_dt_MS", TILE, 1, 1, 4, seed=0, device="cpu",
+                 compute_dtype=torch.float32,
+                 network_overrides=dict(drop_path_rate=0.0, skip_drop_path=0.0, **DEFAULT))
+    x, y = synthetic_batch(torch, 1, seed=1)
+    return train_grads(tr, tr.network, x, y), time.perf_counter() - t0
+
+
 def phase_train(torch, fused_in: bool = False):
     """The default configuration (fp32 batch held against the CPU), then
     the timed bf16 steps; or with ``fused_instance_norm`` the fp32 batch
@@ -1625,11 +1712,9 @@ def phase_train(torch, fused_in: bool = False):
                       network_overrides=dict(no_drop, **DEFAULT))
         l_ref, g_ref = train_grads(ref, ref.network, x.cuda(), y.cuda())
         del ref
-    else:
-        cpu_net = copy.deepcopy(tr.network).cpu()
-        l_ref, g_ref = train_grads(tr, cpu_net, x, y)
-        log(f"  CPU forward + backward: {time.perf_counter() - t0:.1f} s")
-        del cpu_net
+    else:   # the same seeded network and batch on the CPU, made by HostPrep
+        (l_ref, g_ref), cpu_s = HOST_PREP.folder("flagship_grads")[1]
+        log(f"  CPU forward + backward: {cpu_s:.1f} s (the network built on the CPU)")
     compare_grads(torch, "card vs " + ("default" if fused_in else "CPU"), l_got, g_got, l_ref, g_ref)
     del tr, g_got, g_ref
     if fused_in:
@@ -1884,10 +1969,12 @@ def phase_predict(torch, card: str) -> dict:
     return launches
 
 
-def write_train_dataset(root: Path, name: str = TRAIN_VERB_DATASET, plans: dict = None) -> None:
+def write_train_dataset(root: Path, name: str = TRAIN_VERB_DATASET, plans: dict = None,
+                        threads: int = 8) -> None:
     """The train verb's raw dataset (imagesTr, labelsTr), its ground truth and
-    its preprocessed 2d cases (the port's ``run_case_save``), written on 8
-    threads, under ``name`` with ``plans`` (default: the predict phase's)."""
+    its preprocessed 2d cases (the port's ``run_case_save``), written on
+    ``threads`` threads, under ``name`` with ``plans`` (default: the predict
+    phase's)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from scipy.ndimage import gaussian_filter
@@ -1926,7 +2013,7 @@ def write_train_dataset(root: Path, name: str = TRAIN_VERB_DATASET, plans: dict 
             str(pre / "nnUNetPlans_2d" / name), [str(raw / "imagesTr" / f"{name}_0000.nii.gz")],
             str(raw / "labelsTr" / f"{name}.nii.gz"), pm, cm, dataset)
 
-    with ThreadPoolExecutor(8) as pool:
+    with ThreadPoolExecutor(threads) as pool:
         list(pool.map(write, range(TRAIN_VERB_CASES)))
 
 
@@ -2054,10 +2141,7 @@ def phase_train_verb(torch, card: str, cached_step_ms=None) -> dict:
     kernels at the verb's own batch against their plain twins; the loader,
     step and epoch figures. Returns the verb run's launches."""
     t_phase = time.perf_counter()
-    with verb_paths("chip_smoke_train_") as tmp:
-        write_train_dataset(tmp)
-        log(f"[train verb] {TRAIN_VERB_CASES} cases of 1x10x320x260 written and "
-            f"preprocessed in {time.perf_counter() - t_phase:.1f} s")
+    with verb_paths("chip_smoke_train_", HOST_PREP.folder("train")[0]) as tmp:
         launches, first, step_ms = train_verb_run(torch, card, tmp)
         train_verb_kernels(torch, card, first,
                            _verb_folder(tmp) / "fold_0" / "checkpoint_final.ckpt")
@@ -2308,9 +2392,10 @@ def train_verb_timing(torch, card: str, tmp: Path, first: dict, step_ms: float,
     del tr
 
 
-def write_pipeline_raw(root: Path) -> Path:
+def write_pipeline_raw(root: Path, threads: int = 8) -> Path:
     """The pipeline's raw dataset under ``root/raw`` and its test labels in
-    ``root/labelsTs``, written on 8 threads; returns the dataset's folder."""
+    ``root/labelsTs``, written on ``threads`` threads; returns the dataset's
+    folder."""
     from concurrent.futures import ThreadPoolExecutor
 
     from scipy.ndimage import gaussian_filter
@@ -2341,7 +2426,7 @@ def write_pipeline_raw(root: Path) -> Path:
         write_nifti(str((root / "labelsTs" if test else raw / "labelsTr") / f"{name}.nii.gz"),
                     lab.transpose(2, 1, 0), spacing)
 
-    with ThreadPoolExecutor(8) as pool:
+    with ThreadPoolExecutor(threads) as pool:
         list(pool.map(write, range(n)))
     return raw
 
@@ -2411,7 +2496,8 @@ def resample_alone(npz: Path, card: str) -> None:
             os.environ.pop("MLAGG_DISABLE_NATIVE", None)
     log(f"  one case {data.shape} -> {out.shape} (order 3 in-plane, separate z) in this "
         f"process: native {best['native'] * 1e3:.1f} ms, scipy {best['scipy'] * 1e3:.1f} ms "
-        f"(best of 2 each, {os.cpu_count()} host cores) | {card}")
+        f"(best of 2 each, {os.cpu_count()} host cores, OpenMP threads "
+        f"{os.environ.get('OMP_NUM_THREADS', 'all')}) | {card}")
 
 
 def check_launches(counts: dict, want, never, where: str) -> None:
@@ -2467,43 +2553,33 @@ def predict_vs_twins(torch, card: str, verb_preds: list, raw: Path, cases: Path,
                         f"final validation's tile batch 4", final, data, 4 * 2 ** len(mirror))
 
 
-def phase_pipeline(torch, card: str) -> dict:
-    """The nnU-Net pipeline through the port's verbs in this process, from
-    raw files to an evaluated, postprocessed test prediction: plan and
-    preprocess (native resampler; one case again with scipy), two cut
-    recipes trained on fold 0, find_best_configuration, predict,
-    ensemble, apply_postprocessing and evaluate_simple on the test cases,
-    and the export/install zip round trip. Returns the phase's launches."""
-    from mlagg_unet_torch import paths
+def prepare_pipeline(root: Path, card: str, workers: int, threads: int) -> dict:
+    """Phase 9's raw dataset under ``root`` (``threads`` writer threads),
+    ``plan_and_preprocess_entry -c 2d --verify_dataset_integrity`` on
+    ``workers`` spawned workers (native resampler) with its checks, the first
+    case preprocessed again with scipy against the verb's native output, and
+    one case resampled both ways. Returns the stages' seconds."""
     from mlagg_unet_torch.cli import entrypoints as cli
-    from mlagg_unet_torch.inference.predictor import NNUNetPredictor
     from mlagg_unet_torch.ops import _ext
+    from mlagg_unet_torch.plans.plans_handler import PlansManager
     from mlagg_unet_torch.preprocessing.preprocessor import DefaultPreprocessor
-    from mlagg_unet_torch.training.trainer import NNUNetTrainer, Trainer
     from mlagg_unet_torch.utils.helpers import load_json
 
-    t_phase = time.perf_counter()
     secs = {}
-    recipes = [name for name, _ in PIPELINE_RECIPES]
-    with verb_paths("chip_smoke_pipeline_") as tmp:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _ext.reset_launch_counts()
+    with paths_at(root):
         t0 = time.perf_counter()
-        raw = write_pipeline_raw(tmp)
+        raw = write_pipeline_raw(root, threads)
         secs["write raw"] = time.perf_counter() - t0
         log(f"[pipeline] {PIPELINE_CASES} training and {PIPELINE_TEST_CASES} test cases of "
             f"1x10x320x260 written (in-plane spacing {PIPELINE_INPLANE[0]}-"
             f"{PIPELINE_INPLANE[1]} mm, z {PIPELINE_Z_SPACING} mm) in "
             f"{secs['write raw']:.1f} s")
-
-        # 1. plan and preprocess (native resampler), one case again with scipy
-        pre = tmp / "preprocessed" / PIPELINE_DATASET
+        pre = root / "preprocessed" / PIPELINE_DATASET
         runs = []
         t0 = time.perf_counter()
         with attribute_launches(_ext, DefaultPreprocessor, "run", {}, runs):
             cli.plan_and_preprocess_entry(["-d", PIPELINE_ID, "-c", "2d",
-                                           "--verify_dataset_integrity"])
+                                           "--verify_dataset_integrity", "-np", str(workers)])
         secs["plan_and_preprocess"] = time.perf_counter() - t0
         native_s = runs[0][1] - runs[0][0]
         plans = load_json(str(pre / "nnUNetPlans.json"))
@@ -2519,7 +2595,7 @@ def phase_pipeline(torch, card: str) -> dict:
         patch, batch = cfg["patch_size"], cfg["batch_size"]
         log(f"  plan_and_preprocess -c 2d --verify_dataset_integrity: "
             f"{secs['plan_and_preprocess']:.1f} s, of it the preprocessing "
-            f"(8 spawned workers, native resampler) {native_s:.1f} s | {card}")
+            f"({workers} spawned workers, native resampler) {native_s:.1f} s")
         log(f"  the planner's 2d configuration: patch {patch}, batch {batch}, spacing "
             f"{cfg['spacing']}, median shape {cfg['median_image_size_in_voxels']}, "
             f"{len(cfg['pool_op_kernel_sizes'])} stages")
@@ -2532,8 +2608,6 @@ def phase_pipeline(torch, card: str) -> dict:
         # the native resampler against scipy: the first case preprocessed
         # again in this process with MLAGG_DISABLE_NATIVE=1 (read at each
         # call), against the verb's native output
-        from mlagg_unet_torch.plans.plans_handler import PlansManager
-
         case = npz[0].stem
         os.environ["MLAGG_DISABLE_NATIVE"] = "1"
         t0 = time.perf_counter()
@@ -2553,12 +2627,48 @@ def phase_pipeline(torch, card: str) -> dict:
                       / np.abs(data).max())
         log(f"  the preprocess verb's native output against scipy's for {case} (in this "
             f"process, {scipy_s:.1f} s): seg equal, data within {worst:.2e} x max|data| "
-            f"(tol {TOL_NATIVE_PREPROCESS:g}) | {card}")
+            f"(tol {TOL_NATIVE_PREPROCESS:g})")
         if worst > TOL_NATIVE_PREPROCESS:
             fail(f"{case}: native vs scipy preprocessed data differ by {worst:.3e} x "
                  "max|data|")
         resample_alone(npz[-1], card)
-        pipeline_worker_cost()
+    return {"secs": secs}
+
+
+def phase_pipeline(torch, card: str) -> dict:
+    """The nnU-Net pipeline through the port's verbs in this process, from
+    raw files to an evaluated, postprocessed test prediction: plan and
+    preprocess (native resampler; one case again with scipy), two cut
+    recipes trained on fold 0, find_best_configuration, predict,
+    ensemble, apply_postprocessing and evaluate_simple on the test cases,
+    and the export/install zip round trip. Returns the phase's launches."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mlagg_unet_torch import paths
+    from mlagg_unet_torch.cli import entrypoints as cli
+    from mlagg_unet_torch.inference.predictor import NNUNetPredictor
+    from mlagg_unet_torch.ops import _ext
+    from mlagg_unet_torch.training.trainer import NNUNetTrainer, Trainer
+    from mlagg_unet_torch.utils.helpers import load_json
+
+    t_phase = time.perf_counter()
+    recipes = [name for name, _ in PIPELINE_RECIPES]
+    # a spawned worker's start-up, measured in a thread beside the phase (it
+    # waits on the worker's imports)
+    probe = ThreadPoolExecutor(1)
+    worker_cost = probe.submit(pipeline_worker_cost)
+    probe.shutdown(wait=False)
+    prepared, prep = HOST_PREP.folder("pipeline")
+    secs = dict(prep["secs"])
+    with verb_paths("chip_smoke_pipeline_", prepared) as tmp:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _ext.reset_launch_counts()
+        raw = tmp / "raw" / PIPELINE_DATASET
+        pre = tmp / "preprocessed" / PIPELINE_DATASET
+        plans = load_json(str(pre / "nnUNetPlans.json"))
+        cfg = plans["configurations"]["2d"]
+        patch, batch = cfg["patch_size"], cfg["batch_size"]
 
         # 2. train both recipes on fold 0, with the planner's batch
         register_pipeline_recipes()
@@ -2617,6 +2727,21 @@ def phase_pipeline(torch, card: str) -> dict:
         pp_file = Path(best["postprocessing_file"])
         if not pp_file.is_file():
             fail(f"no {pp_file}")
+        # the export of recipe A (deflating its checkpoints on the host; zlib
+        # lets go of the GIL) in a thread beside the predict verbs below,
+        # which read its folder and write elsewhere; install and predict once
+        # it is done
+        zip_file = tmp / "model_A.zip"
+        exporter = ThreadPoolExecutor(1)
+
+        def export():
+            t_export = time.perf_counter()
+            cli.export_model_entry(["-d", PIPELINE_DATASET, "-o", str(zip_file), "-c", "2d",
+                                    "-tr", recipes[0], "-f", *PIPELINE_FOLDS])
+            return time.perf_counter() - t_export
+
+        exported = exporter.submit(export)
+        exporter.shutdown(wait=False)
 
         # 4. predict the test cases with both recipes, ensemble, postprocess, evaluate
         preds = {}
@@ -2676,30 +2801,32 @@ def phase_pipeline(torch, card: str) -> dict:
         if not math.isfinite(dice):
             fail(f"the test cases' mean foreground Dice is {dice}")
 
-        # 5. export recipe A, install it into a fresh results root, predict again
+        # 5. recipe A's export (begun in step 3), installed into a fresh results
+        # root, predicted again
         t0 = time.perf_counter()
-        zip_file = tmp / "model_A.zip"
-        cli.export_model_entry(["-d", PIPELINE_DATASET, "-o", str(zip_file), "-c", "2d",
-                                "-tr", recipes[0], "-f", *PIPELINE_FOLDS])
+        secs["export (beside step 4)"] = exported.result()
+        waited = time.perf_counter() - t0
         paths.nnUNet_results = str(tmp / "results_installed")
         cli.install_model_entry([str(zip_file)])
         again = tmp / "predicted_installed"
         cli.predict_entry(["-i", str(raw / "imagesTs"), "-o", str(again), "-d",
                            PIPELINE_DATASET, "-c", "2d", "-tr", recipes[0],
                            "-f", *PIPELINE_FOLDS])
-        secs["export, install, predict"] = time.perf_counter() - t0
+        secs["install, predict"] = time.perf_counter() - t0 - waited
         ref, got = read_segs(preds[models[0]]), read_segs(again)
         agree = min(float((got[n] == ref[n]).mean()) for n in ref) if \
             set(got) == set(ref) else 0.0
-        log(f"  export_model_to_zip ({zip_file.stat().st_size / 2 ** 20:.1f} MiB), "
-            f"install_pretrained_model_from_zip into a fresh results root and the predict "
-            f"verb there: {secs['export, install, predict']:.1f} s; segmentations "
+        log(f"  export_model_to_zip ({zip_file.stat().st_size / 2 ** 20:.1f} MiB) "
+            f"{secs['export (beside step 4)']:.1f} s in a thread beside step 4 ({waited:.1f} s "
+            f"waited for it after), install_pretrained_model_from_zip into a fresh results "
+            f"root and the predict verb there {secs['install, predict']:.1f} s; segmentations "
             f"{100 * agree:.3f} % equal to the first prediction's (tol "
             f"{100 * TOL_PREDICT_AGREE:g} %)")
         if agree < TOL_PREDICT_AGREE:
             fail(f"the installed model's segmentations are {100 * agree:.3f} % equal")
         launches = {k.name: verbs[k.name] + k.launches for k in _ext.ALL_KERNELS}
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    worker_cost.result()
     check_launches(launches, SERVE_KERNELS + ("selective_scan_bwd",), FUSED_KERNELS,
                    "run")
     total = time.perf_counter() - t_phase
@@ -2737,13 +2864,42 @@ def blobs_3d(torch, shape, seed: int):
     return x, torch.bucketize(x[..., 0], torch.tensor(UNET3D_THRESHOLDS))
 
 
+def unet3d_grads(torch, dev: str, dtype):
+    """nnUNetTrainer's loss and every gradient at batch 1 of UNET3D_GRAD_PATCH
+    (seeded network and blobs) on ``dev`` in ``dtype``."""
+    from mlagg_unet_torch.training.trainer import Trainer
+
+    xb, yb = blobs_3d(torch, (1, *UNET3D_GRAD_PATCH), seed=1)
+    tr = Trainer("nnUNetTrainer", batch_size=1, num_input_channels=1, num_classes=3, seed=0,
+                 device=dev, compute_dtype=torch.float32,
+                 configuration_manager=unet3d_configuration(UNET3D_GRAD_PATCH, batch=1))
+    net = tr.network.to(dtype)
+    return train_grads(tr, net, xb.to(tr.device, dtype), yb.to(tr.device))
+
+
+def unet3d_cpu_refs(torch) -> dict:
+    """Phase 10's CPU side: the bench topology's fp32 forward on the seeded
+    tile (with its seconds), and ``unet3d_grads`` on the CPU in fp64 and
+    fp32."""
+    from mlagg_unet_torch.training.registry import get_network_builder
+
+    net = get_network_builder("plans_unet")(unet3d_configuration(UNET3D_TILE), 1, 3, False,
+                                            seed=0, device="cpu")
+    x = torch.from_numpy(np.random.RandomState(0).randn(1, *UNET3D_TILE, 1).astype(np.float32))
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        tile = (net(x), time.perf_counter() - t0)
+    return {"tile": tile, "fp64": unet3d_grads(torch, "cpu", torch.float64),
+            "fp32": unet3d_grads(torch, "cpu", torch.float32)}
+
+
 def unet3d_agreement(torch, card: str) -> None:
     """The bench topology's forward on one tile, fp32 with TF32 off, card
     against CPU; the default recipe's loss and every gradient at batch 1 of
     UNET3D_GRAD_PATCH, card against CPU in fp64, and in fp32 the loss, with
-    each side's gradient error against fp64 printed."""
+    each side's gradient error against fp64 printed; the CPU's made by
+    HostPrep (``unet3d_cpu_refs``)."""
     from mlagg_unet_torch.training.registry import get_network_builder
-    from mlagg_unet_torch.training.trainer import Trainer
 
     net = get_network_builder("plans_unet")(unet3d_configuration(UNET3D_TILE), 1, 3, False,
                                             seed=0, device="cuda")
@@ -2759,9 +2915,8 @@ def unet3d_agreement(torch, card: str) -> None:
         gpu = net(x.cuda())
         for h in hooks:
             h.remove()
-        t0 = time.perf_counter()
-        cpu = copy.deepcopy(net).cpu()(x)
-        cpu_s = time.perf_counter() - t0
+    refs = HOST_PREP.folder("unet3d_refs")[1]   # the same seeded network on the CPU
+    cpu, cpu_s = refs["tile"]
     if gpu.shape != (1, *UNET3D_TILE, 3) or not torch.isfinite(gpu).all():
         fail(f"3-D U-Net output {tuple(gpu.shape)}, finite={bool(torch.isfinite(gpu).all())}")
     log(f"  fp32 forward of one {UNET3D_TILE} tile, card vs CPU ({cpu_s:.1f} s on the CPU); "
@@ -2774,15 +2929,9 @@ def unet3d_agreement(torch, card: str) -> None:
     # compute the same numbers; in fp32 neither reaches 1e-3 x max against
     # fp64 on this network (PERF.md, PR 15), so the fp32 pair is held to the
     # loss tolerance and its gradients' errors against fp64 are printed
-    cm = unet3d_configuration(UNET3D_GRAD_PATCH, batch=1)
-    xb, yb = blobs_3d(torch, (1, *UNET3D_GRAD_PATCH), seed=1)
-    res = {}
-    for dev, dtype in (("cuda", torch.float64), ("cpu", torch.float64),
-                       ("cuda", torch.float32), ("cpu", torch.float32)):
-        tr = Trainer("nnUNetTrainer", batch_size=1, num_input_channels=1, num_classes=3,
-                     seed=0, device=dev, compute_dtype=torch.float32, configuration_manager=cm)
-        net = tr.network.to(dtype)
-        res[dev, dtype] = train_grads(tr, net, xb.to(tr.device, dtype), yb.to(tr.device))
+    res = {("cuda", dtype): unet3d_grads(torch, "cuda", dtype)
+           for dtype in (torch.float64, torch.float32)}
+    res["cpu", torch.float64], res["cpu", torch.float32] = refs["fp64"], refs["fp32"]
     log(f"  nnUNetTrainer's loss (DC+CE, deep supervision at the plans' scales) and every "
         f"gradient at batch 1 of {UNET3D_GRAD_PATCH} (the patch cut for the CPU)")
     compare_grads(torch, "3-D U-Net, fp64, card vs CPU", *res["cuda", torch.float64],
@@ -2877,10 +3026,10 @@ def unet3d_batchnorm(torch, card: str) -> None:
           gpu.cpu(), cpu, TOL_MODEL)
 
 
-def write_unet3d_raw(root: Path) -> Path:
+def write_unet3d_raw(root: Path, threads: int = 8) -> Path:
     """The 3-D dataset: UNET3D_CASES training and UNET3D_TEST_CASES test cases
     of UNET3D_VOLUME at 1 mm isotropic (seeded smooth blobs, 3 labels),
-    written on 8 threads."""
+    written on ``threads`` threads."""
     from concurrent.futures import ThreadPoolExecutor
 
     from scipy.ndimage import gaussian_filter
@@ -2909,7 +3058,7 @@ def write_unet3d_raw(root: Path) -> Path:
             write_nifti(str(raw / "labelsTr" / f"{name}.nii.gz"), lab.transpose(2, 1, 0),
                         (1.0, 1.0, 1.0))
 
-    with ThreadPoolExecutor(8) as pool:
+    with ThreadPoolExecutor(threads) as pool:
         list(pool.map(write, range(n)))
     return raw
 
@@ -2935,10 +3084,48 @@ def check_segs(folder: Path, names, where: str) -> None:
             fail(f"{where}, {n}: shape {seg.shape}, labels {np.unique(seg)}")
 
 
+def prepare_unet3d(root: Path, workers: int, threads: int) -> dict:
+    """Phase 10's 3-D dataset under ``root`` (``threads`` writer threads),
+    ``plan_and_preprocess_entry -c 3d_fullres`` on ``workers`` spawned
+    workers, and the cascade's 3d_lowres preprocessed from the plans with
+    ``cascade_plans`` added, the plans file then put back as the planner
+    wrote it (``unet3d_cascade`` adds them again)."""
+    from mlagg_unet_torch.cli import entrypoints as cli
+    from mlagg_unet_torch.utils.helpers import load_json, save_json
+
+    with paths_at(root):
+        t0 = time.perf_counter()
+        write_unet3d_raw(root, threads)
+        log(f"[unet3d] the train verb: {UNET3D_CASES} training and {UNET3D_TEST_CASES} "
+            f"test cases of {'x'.join(map(str, UNET3D_VOLUME))} at 1 mm written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cli.plan_and_preprocess_entry(["-d", UNET3D_ID, "-c", "3d_fullres", "-np", str(workers)])
+        plans_file = root / "preprocessed" / UNET3D_DATASET / "nnUNetPlans.json"
+        planned = plans_file.read_text()
+        plans = load_json(str(plans_file))
+        cfg = plans["configurations"]["3d_fullres"]
+        log(f"  plan_and_preprocess -c 3d_fullres ({workers} spawned workers): "
+            f"{time.perf_counter() - t0:.1f} s; the plan's "
+            f"3d_fullres: patch {cfg['patch_size']}, batch {cfg['batch_size']}, spacing "
+            f"{cfg['spacing']}, {len(cfg['pool_op_kernel_sizes'])} stages, pools "
+            f"{cfg['pool_op_kernel_sizes']}, kernels {cfg['conv_kernel_sizes']}, features "
+            f"{cfg['UNet_base_num_features']}-{cfg['unet_max_num_features']}")
+        save_json(cascade_plans(plans), str(plans_file), sort_keys=False)
+        t0 = time.perf_counter()
+        cli.preprocess_entry(["-d", UNET3D_ID, "-c", "3d_lowres", "-np", str(workers)])
+        plans_file.write_text(planned)
+        log(f"  3d_lowres at {UNET3D_LOWRES_SPACING} mm (patch {cascade_shape()}, "
+            f"{len(UNET3D_LOWRES_POOLS)} stages) preprocessed in "
+            f"{time.perf_counter() - t0:.1f} s ({workers} spawned workers)")
+    return {}
+
+
 def unet3d_train_verb(torch, card: str, tmp: Path, raw: Path) -> None:
-    """plan_and_preprocess -c 3d_fullres, the train verb (nnUNetTrainer cut
-    to UNET3D_EPOCHS epochs of UNET3D_STEPS steps) on fold 0, the predict
-    verb on the test cases; the step on one cached batch."""
+    """The train verb (nnUNetTrainer cut to UNET3D_EPOCHS epochs of
+    UNET3D_STEPS steps) on fold 0 of the cases ``prepare_unet3d``
+    preprocessed, the predict verb on the test cases; the step on one cached
+    batch."""
     from mlagg_unet_torch.cli import entrypoints as cli
     from mlagg_unet_torch.ops import _ext
     from mlagg_unet_torch.plans.plans_handler import PlansManager
@@ -2946,16 +3133,8 @@ def unet3d_train_verb(torch, card: str, tmp: Path, raw: Path) -> None:
     from mlagg_unet_torch.training.trainer import Trainer
     from mlagg_unet_torch.utils.helpers import load_json
 
-    t0 = time.perf_counter()
-    cli.plan_and_preprocess_entry(["-d", UNET3D_ID, "-c", "3d_fullres"])
     pre = tmp / "preprocessed" / UNET3D_DATASET
     plans = load_json(str(pre / "nnUNetPlans.json"))
-    cfg = plans["configurations"]["3d_fullres"]
-    log(f"  plan_and_preprocess -c 3d_fullres: {time.perf_counter() - t0:.1f} s; the plan's "
-        f"3d_fullres: patch {cfg['patch_size']}, batch {cfg['batch_size']}, spacing "
-        f"{cfg['spacing']}, {len(cfg['pool_op_kernel_sizes'])} stages, pools "
-        f"{cfg['pool_op_kernel_sizes']}, kernels {cfg['conv_kernel_sizes']}, features "
-        f"{cfg['UNet_base_num_features']}-{cfg['unet_max_num_features']}")
     register_unet3d_recipe(UNET3D_RECIPE, UNET3D_EPOCHS, UNET3D_STEPS, UNET3D_VAL_STEPS)
     first, steps = {}, []
     verb = [UNET3D_ID, "3d_fullres", "0", "-tr", UNET3D_RECIPE]
@@ -3012,21 +3191,17 @@ def unet3d_train_verb(torch, card: str, tmp: Path, raw: Path) -> None:
         f"{UNET3D_TEST_CASES} test case(s): {time.perf_counter() - t0:.1f} s | {card}")
 
 
-def unet3d_cascade(torch, card: str, tmp: Path, raw: Path) -> None:
-    """A hand-written 3d_lowres (at UNET3D_LOWRES_SPACING) and
-    3d_cascade_fullres pair: the lowres stage trains one short epoch on all
-    cases (fold 'all') and its final validation writes predicted_next_stage
-    for every case; the cascade stage trains one short epoch on fold 0 from
-    them; then the predict verbs: lowres, then the cascade with
-    -prev_stage_predictions."""
-    from mlagg_unet_torch.cli import entrypoints as cli
-    from mlagg_unet_torch.training.checkpoint import load_checkpoint
-    from mlagg_unet_torch.utils.helpers import load_json, save_json
+def cascade_shape() -> list:
+    """The 3d_lowres cases' shape at UNET3D_LOWRES_SPACING: the patch."""
+    return [int(round(s / UNET3D_LOWRES_SPACING)) for s in UNET3D_VOLUME[1:]]
 
-    pre = tmp / "preprocessed" / UNET3D_DATASET
-    plans = load_json(str(pre / "nnUNetPlans.json"))
+
+def cascade_plans(plans: dict) -> dict:
+    """``plans`` with a hand-written 3d_lowres (at UNET3D_LOWRES_SPACING,
+    the patch the cases' size) and 3d_cascade_fullres after it."""
+    plans = copy.deepcopy(plans)
     full = plans["configurations"]["3d_fullres"]
-    shape = [int(round(s / UNET3D_LOWRES_SPACING)) for s in UNET3D_VOLUME[1:]]
+    shape = cascade_shape()
     plans["configurations"]["3d_lowres"] = {
         **full, "data_identifier": "nnUNetPlans_3d_lowres", "batch_size": 2,
         "spacing": [UNET3D_LOWRES_SPACING] * 3, "median_image_size_in_voxels": shape,
@@ -3037,12 +3212,24 @@ def unet3d_cascade(torch, card: str, tmp: Path, raw: Path) -> None:
         "batch_dice": False, "next_stage": "3d_cascade_fullres"}
     plans["configurations"]["3d_cascade_fullres"] = {"inherits_from": "3d_fullres",
                                                      "previous_stage": "3d_lowres"}
-    save_json(plans, str(pre / "nnUNetPlans.json"), sort_keys=False)
-    t0 = time.perf_counter()
-    cli.preprocess_entry(["-d", UNET3D_ID, "-c", "3d_lowres"])
-    log(f"  3d_lowres at {UNET3D_LOWRES_SPACING} mm (patch {shape}, "
-        f"{len(UNET3D_LOWRES_POOLS)} stages) and 3d_cascade_fullres after it written into the "
-        f"plans; 3d_lowres preprocessed in {time.perf_counter() - t0:.1f} s")
+    return plans
+
+
+def unet3d_cascade(torch, card: str, tmp: Path, raw: Path) -> None:
+    """The 3d_lowres and 3d_cascade_fullres pair of ``cascade_plans`` (the
+    lowres cases preprocessed by ``prepare_unet3d``): the lowres stage trains
+    one short epoch on all cases (fold 'all') and its final validation
+    writes predicted_next_stage for every case; the cascade stage trains one
+    short epoch on fold 0 from them; then the predict verbs: lowres, then the
+    cascade with -prev_stage_predictions."""
+    from mlagg_unet_torch.cli import entrypoints as cli
+    from mlagg_unet_torch.training.checkpoint import load_checkpoint
+    from mlagg_unet_torch.utils.helpers import load_json, save_json
+
+    pre = tmp / "preprocessed" / UNET3D_DATASET
+    save_json(cascade_plans(load_json(str(pre / "nnUNetPlans.json"))),
+              str(pre / "nnUNetPlans.json"), sort_keys=False)
+    log("  3d_lowres and 3d_cascade_fullres after it written into the plans")
     register_unet3d_recipe(UNET3D_CASCADE_RECIPE, 1, UNET3D_CASCADE_STEPS, 1)
     secs = {}
     t0 = time.perf_counter()
@@ -3099,19 +3286,16 @@ def phase_unet3d(torch, card: str, keep: Path = None) -> None:
     log(f"[unet3d] BatchNorm (nnUNetTrainerBN) | {card}")
     unet3d_batchnorm(torch, card)
     torch.cuda.empty_cache()
-    with verb_paths("chip_smoke_unet3d_") as tmp:
-        t0 = time.perf_counter()
-        raw = write_unet3d_raw(tmp)
-        log(f"[unet3d] the train verb: {UNET3D_CASES} training and {UNET3D_TEST_CASES} "
-            f"test cases of {'x'.join(map(str, UNET3D_VOLUME))} at 1 mm written in "
-            f"{time.perf_counter() - t0:.1f} s")
+    with verb_paths("chip_smoke_unet3d_", HOST_PREP.folder("unet3d")[0]) as tmp:
+        raw = tmp / "raw" / UNET3D_DATASET
         # the verbs' predictors take the budget's tile batch: the serve
         # step above times the autotune's candidates, which each new
         # predictor would time again (~5 s a 3-D network)
         with no_autotune():
             unet3d_train_verb(torch, card, tmp, raw)
-            if keep is not None:
-                shutil.copytree(tmp / "preprocessed" / UNET3D_DATASET, keep / "preprocessed")
+            if keep is not None:   # the 3d_fullres cases, not the lowres ones
+                shutil.copytree(tmp / "preprocessed" / UNET3D_DATASET, keep / "preprocessed",
+                                ignore=shutil.ignore_patterns("nnUNetPlans_3d_lowres"))
                 shutil.copytree(raw, keep / "raw")
             log("[unet3d] the cascade: 3d_lowres -> 3d_cascade_fullres")
             unet3d_cascade(torch, card, tmp, raw)
@@ -3127,22 +3311,6 @@ def mamba_configuration(batch: int = MAMBA_BATCH):
     from mlagg_unet_torch.plans.plans_handler import ConfigurationManager
 
     return ConfigurationManager(dict(MAMBA_PLANS["configurations"]["2d"], batch_size=batch))
-
-
-def mamba_networks(torch) -> dict:
-    """The six trainers' networks at full width, seeded, fp32, on the card,
-    as their trainers build them for the family's plan."""
-    from mlagg_unet_torch.training.registry import get_network_builder, get_trainer_config
-
-    cm, nets = mamba_configuration(), {}
-    for name in MAMBA_TRAINERS:
-        cfg = get_trainer_config(name)
-        net = get_network_builder(cfg.network)(cm, 1, MAMBA_CLASSES, cfg.enable_deep_supervision,
-                                               seed=0, device="cuda")
-        nets[name] = net
-        log(f"  {name} ({cfg.network}): {sum(p.numel() for p in net.parameters())} params, "
-            f"{type(net).__name__}")
-    return nets
 
 
 @contextlib.contextmanager
@@ -3431,25 +3599,79 @@ def scan_timing(torch, card: str, shape, label: str, plain_reps: int = 3) -> Non
     torch.cuda.empty_cache()
 
 
-def mamba_tile_agreement(torch, card: str, nets: dict, patch=MAMBA_PATCH,
-                         classes: int = MAMBA_CLASSES) -> None:
-    """Each network on one tile, fp32 with TF32 off, card (the kernels)
-    against the CPU (the plain twins): the first output within 1e-3 x max."""
-    x = torch.from_numpy(np.random.RandomState(5).randn(1, *patch, 1).astype(np.float32))
-    for name, net in nets.items():
-        with torch.inference_mode():
-            gpu = net(x.cuda())
-            gpu = (gpu[0] if isinstance(gpu, (list, tuple)) else gpu).cpu()
+def tile_groups(tag: str) -> list:
+    """The card-vs-CPU tiles of zoo phase ``tag``: (trainer names, those of
+    them on phase 10's 3-D plan, tile, classes) groups. The 3-D networks and
+    the 2-D ones but the U-Mambas and MSVM-UNet take tiles cut for the CPU;
+    TransUNet's position embedding is the plan's patch, and the transformers
+    take it whole."""
+    umambas = [k for k in MAMBA_TRAINERS if "UMamba" in k and "Swin" not in k]
+    ss3d_umambas = [k for k in SS3D_3D if "UMamba" in k]
+    return {
+        "mamba": [(umambas, (), MAMBA_PATCH, MAMBA_CLASSES),
+                  ([k for k in MAMBA_TRAINERS if k not in umambas], (), ZOO_CPU_TILE_2D,
+                   MAMBA_CLASSES)],
+        "ss3d": [(ss3d_umambas, SS3D_3D, SS3D_CPU_TILE, SS3D_CLASSES),
+                 ([k for k in SS3D_3D if k not in ss3d_umambas], SS3D_3D, VMUNET3D_CPU_TILE,
+                  SS3D_CLASSES),
+                 ((MSVM_TRAINER,), (), MAMBA_PATCH, MAMBA_CLASSES)],
+        "variants": [(VARIANT_3D, VARIANT_3D, SS3D_CPU_TILE, SS3D_CLASSES),
+                     ([k for k in VARIANT_NETWORKS if k not in VARIANT_3D], (),
+                      VARIANT_CPU_TILE_2D, MAMBA_CLASSES)],
+        "lkm-mednext": [(LKM_NETWORKS, (), ZOO_CPU_TILE_2D, MAMBA_CLASSES)],
+        "transformers": [(TRANSFORMER_NETWORKS, (), MAMBA_PATCH, MAMBA_CLASSES)],
+    }[tag]
+
+
+def seeded_tile(torch, patch):
+    return torch.from_numpy(np.random.RandomState(5).randn(1, *patch, 1).astype(np.float32))
+
+
+def first_output(o):
+    return o[0] if isinstance(o, (list, tuple)) else o
+
+
+def cpu_tiles(torch, tag: str) -> dict:
+    """The CPU side of ``tile_agreement``: each network of ``tile_groups(tag)``
+    built as its trainer builds it (seed 0), on the CPU, and its first
+    output on the seeded tile, with the seconds it took."""
+    out = {}
+    for names, three_d, patch, _ in tile_groups(tag):
+        x = seeded_tile(torch, patch)
+        for name in names:
+            net = zoo_network(name, three_d, "cpu")
             t0 = time.perf_counter()
-            cpu = copy.deepcopy(net).cpu()(x)
-            cpu = cpu[0] if isinstance(cpu, (list, tuple)) else cpu
-            cpu_s = time.perf_counter() - t0
-        if gpu.shape != (1, *patch, classes) or not torch.isfinite(gpu).all():
-            fail(f"{name}: output {tuple(gpu.shape)}, finite={bool(torch.isfinite(gpu).all())}")
-        check(f"{name} one {patch} tile fp32, card vs CPU ({cpu_s:.1f} s on the CPU)",
-              gpu, cpu, TOL_MODEL)
-        del gpu, cpu
-        torch.cuda.empty_cache()
+            with torch.inference_mode():
+                out[name] = (first_output(net(x)), time.perf_counter() - t0)
+            del net
+    return out
+
+
+def tile_agreement(torch, tag: str, nets: dict):
+    """Each network of zoo phase ``tag`` on one seeded tile, fp32 with TF32
+    off, card (the kernels) against the CPU (the plain twins), on the
+    seeded weights: the card's outputs now, the CPU's made by HostPrep
+    (``cpu_tiles``, the side process in a whole run). Returns ``finish()``,
+    which holds each network's first output within 1e-3 x max."""
+    card = {}
+    for names, _, patch, classes in tile_groups(tag):
+        x = seeded_tile(torch, patch).cuda()
+        for name in names:
+            with torch.inference_mode():
+                card[name] = (first_output(nets[name](x)).cpu(), patch, classes)
+    torch.cuda.empty_cache()
+
+    def finish():
+        cpu = HOST_PREP.folder("tiles_" + tag)[1]
+        for name, (gpu, patch, classes) in card.items():
+            ref, cpu_s = cpu[name]
+            if gpu.shape != (1, *patch, classes) or not torch.isfinite(gpu).all():
+                fail(f"{name}: output {tuple(gpu.shape)}, "
+                     f"finite={bool(torch.isfinite(gpu).all())}")
+            check(f"{name} one {patch} tile fp32, card vs CPU ({cpu_s:.1f} s on the CPU)",
+                  gpu, ref, TOL_MODEL)
+
+    return finish
 
 
 def mamba_serve(torch, card: str, name: str, net, patch=MAMBA_PATCH,
@@ -3535,13 +3757,16 @@ def mamba_serve(torch, card: str, name: str, net, patch=MAMBA_PATCH,
     del pred, outs
 
 
-def hold_mamba_grads(torch, label: str, kernels, twins, reordered, ref, card: str) -> bool:
+def hold_mamba_grads(torch, label: str, kernels, twins, reordered, ref, card: str,
+                     norm_fed: str = None) -> bool:
     """The loss with the kernels against the plain twins' (TOL_TRAIN_LOSS);
     the whole gradient with the kernels against the reference (the network
     and the scans in fp64): its rel L2 within TOL_TRAIN_GRAD, or
     MAMBA_GRAD_TWIN_FACTOR times the twins'; each gradient within
     MAMBA_GRAD_LEAF_TOL x max|ref| + 1e-6 of it, or MAMBA_GRAD_TWIN_FACTOR
-    times the twins' distance. Reported beside them: how
+    times the twins' distance; a bias matching ``norm_fed`` (a conv's that
+    a norm follows) within NORM_FED_TOL x max|its kernel's reference| + 1e-6,
+    if its reference is rounding (NORM_FED_FP64). Reported beside them: how
     many gradients lie within TOL_TRAIN_GRAD x max + 1e-6 of the reference,
     and the largest distance with the kernels, and with ``reordered`` (the
     twins' scans summed in chunks of half their size), against twice the
@@ -3550,20 +3775,34 @@ def hold_mamba_grads(torch, label: str, kernels, twins, reordered, ref, card: st
     (l_k, g_k), (l_t, g_t), (_, g_o), (_, g_r) = kernels, twins, reordered, ref
     d = abs(l_k - l_t) / abs(l_t)
     f = MAMBA_GRAD_TWIN_FACTOR
-    rows, moved, sq = [], [], np.zeros(3)
+    rows, moved, sq, fed = [], [], np.zeros(3), []
     for k, r in g_r.items():
         if not torch.isfinite(g_k[k]).all():
             fail(f"gradient {k} not finite ({label})")
         top = r.abs().max().item()
         bound = TOL_TRAIN_GRAD * top + 1e-6
         e_k, e_t, e_o = ((g[k] - r).abs().max().item() for g in (g_k, g_t, g_o))
-        rows.append((e_k / max(MAMBA_GRAD_LEAF_TOL * top + 1e-6, f * e_t), k, e_k / bound,
-                     e_t / bound, e_k / max(bound, f * e_t)))
+        leaf = max(MAMBA_GRAD_LEAF_TOL * top + 1e-6, f * e_t)
+        if norm_fed and re.search(norm_fed, k):
+            k_top = g_r[k[:-len("bias")] + "weight"].abs().max().item()
+            leaf = NORM_FED_TOL * k_top + 1e-6
+            fed.append((top / k_top, e_k / k_top, e_t / k_top, k))
+            if top > NORM_FED_FP64 * k_top:   # a real gradient: held as any other leaf
+                leaf = max(MAMBA_GRAD_LEAF_TOL * top + 1e-6, f * e_t)
+        rows.append((e_k / leaf, k, e_k / bound, e_t / bound, e_k / max(bound, f * e_t)))
         moved.append(e_o / max(bound, f * e_t))
         sq += [(g[k].double() - r.double()).pow(2).sum().item() for g in (g_k, g_t)] + [
             r.double().pow(2).sum().item()]
     r_k, r_t = (math.sqrt(v / sq[2]) for v in sq[:2])
     rows.sort(reverse=True)
+    if fed:
+        real = [k for q, _, _, k in fed if q > NORM_FED_FP64]
+        log(f"  {label}: {len(fed)} conv biases a norm follows: max|gradient| / max|its kernel's "
+            f"gradient| in fp64 up to {max(q for q, *_ in fed):.3e} (rounding at most "
+            f"{NORM_FED_FP64:g}; above it: {real or 'none'}); max|diff| to fp64 / that max: "
+            f"kernels up to {max(e for _, e, _, _ in fed):.3e}, twins up to "
+            f"{max(t for _, _, t, _ in fed):.3e} (tol {NORM_FED_TOL:g}); "
+            f"{max(fed)[3]}: fp64 {max(fed)[0]:.3e}")
     log(f"  {label}: loss kernels vs twins {l_k:.9f} vs {l_t:.9f}: rel {d:.3e} (tol "
         f"{TOL_TRAIN_LOSS:g}); the whole gradient's rel L2 to the fp64 reference: kernels "
         f"{r_k:.3e}, twins {r_t:.3e} (limit {max(TOL_TRAIN_GRAD, f * r_t):.3e}); each gradient "
@@ -3685,19 +3924,20 @@ def deterministic_cudnn(torch):
         cudnn.deterministic, cudnn.benchmark = old
 
 
-def seeded_blobs(torch, batch: int, patch, seed: int):
+def seeded_blobs(torch, batch: int, patch, seed: int, device: str = "cuda"):
     """A seeded (batch, *patch, 1) image of smooth blobs, unit std, and its
-    label on the card: in 2-D four classes (TRAIN_VERB_THRESHOLDS), in 3-D
+    label on ``device``: in 2-D four classes (TRAIN_VERB_THRESHOLDS), in 3-D
     three (``blobs_3d``)."""
     if len(patch) == 3:
         x, y = blobs_3d(torch, (batch, *patch), seed)
-        return x.cuda(), y.cuda()
+        return x.to(device), y.to(device)
     g = torch.Generator().manual_seed(seed)
     x = torch.randn(batch, 1, *patch, generator=g)
     for _ in range(3):  # smooth: blobs a few pixels wide
         x = torch.nn.functional.avg_pool2d(x, 9, stride=1, padding=4, count_include_pad=False)
     x = ((x - x.mean()) / x.std()).permute(0, 2, 3, 1).contiguous()
-    return x.cuda(), torch.bucketize(x[..., 0], torch.tensor(TRAIN_VERB_THRESHOLDS)).cuda()
+    y = torch.bucketize(x[..., 0], torch.tensor(TRAIN_VERB_THRESHOLDS))
+    return x.to(device), y.to(device)
 
 
 def drop_path_off(net) -> None:
@@ -3719,8 +3959,10 @@ def seeded_grad_gate(torch, card: str, label: str, trainer: str, cm, classes: in
     network with the kernels, with the plain twins and with the twins in
     half-size chunks are held to it (``hold_mamba_grads``). With
     ``fp64_around`` the same first with the network in fp64 around the fp32
-    scans, and K1 / K5 on that pass's own operands against their twins. A
-    refused gate keeps its case (``keep_grad_fault``) and fails."""
+    scans, and K1 / K5 on that pass's own operands against their twins. The
+    trainer's conv biases that a norm follows (NORM_FED_BIASES) are held to
+    their kernel's gradient scale. A refused gate keeps its case
+    (``keep_grad_fault``) and fails."""
     from mlagg_unet_torch.ops import _ext
     from mlagg_unet_torch.training.trainer import Trainer
 
@@ -3754,7 +3996,8 @@ def seeded_grad_gate(torch, card: str, label: str, trainer: str, cm, classes: in
                      "launched one")
             where = "fp64 around the scans" if dtype == torch.float64 else "fp32"
             held.append(hold_mamba_grads(torch, f"{label}, seeded weights, {where}", kernels,
-                                         twins, reordered, ref, card))
+                                         twins, reordered, ref, card,
+                                         NORM_FED_BIASES.get(trainer)))
         log(f"  {label}: the gate's seeded batch {tuple(x.shape)} at the network's seeded "
             f"initial weights ({ran['selective_scan_fwd']} K1, {ran['selective_scan_bwd']} K5 "
             f"launches with the kernels), {time.perf_counter() - t0:.1f} s with the reference "
@@ -3774,7 +4017,8 @@ def train_verb_2d(torch, card: str, tmp: Path, trainer: str, recipe: str, label:
                   steps: int, cached_steps: int, test_cases: int, profiled: bool = False,
                   fp64_around: bool = False, gate_batch: int = MAMBA_BATCH) -> None:
     """``trainer`` through the train verb on the train verb's 10 cases with
-    phase 11's 2d plan, cut to 1 epoch of ``steps`` steps and MAMBA_VAL_STEPS
+    phase 11's 2d plan (``tmp``: a copy of HOST_PREP's "mamba" folder), cut
+    to 1 epoch of ``steps`` steps and MAMBA_VAL_STEPS
     validation steps on fold 0: launches; the network-level gradient gate on
     the network's seeded weights (``seeded_grad_gate``) and the per-call gate
     on the verb's final weights and first training batch
@@ -3793,10 +4037,6 @@ def train_verb_2d(torch, card: str, tmp: Path, trainer: str, recipe: str, label:
     from mlagg_unet_torch.utils.helpers import load_json
     from mlagg_unet_torch.weights import jax_tree_to_state_dict
 
-    t0 = time.perf_counter()
-    write_train_dataset(tmp, MAMBA_DATASET, MAMBA_PLANS)
-    log(f"  {TRAIN_VERB_CASES} cases of 1x10x320x260 written and preprocessed in "
-        f"{time.perf_counter() - t0:.1f} s")
     registry.register_trainer(replace(
         registry.get_trainer_config(trainer), name=recipe, num_epochs=1,
         num_iterations_per_epoch=steps, num_val_iterations_per_epoch=MAMBA_VAL_STEPS))
@@ -3909,11 +4149,13 @@ def train_verb_2d(torch, card: str, tmp: Path, trainer: str, recipe: str, label:
         f"launches {ran} | {card}")
 
 
-def zoo_phase(torch, card: str, tag: str, steps, held: set = None, *args) -> None:
-    """``steps(torch, card, held, *args)``, one phase of the Mamba zoo
+def zoo_phase(torch, card: str, tag: str, steps, held: set = None, *args,
+              kernels=MAMBA_KERNELS) -> None:
+    """``steps(torch, card, held, *args)``, one phase of the model zoo
     (``held``: the scan shapes earlier phases of this run held, to which it
     adds its own), with the port kernels' launches summed over the resets
-    its checks make: only K1 and K5 may be launched, and each must be."""
+    its checks make: only ``kernels`` (K1 and K5) may be launched, and each
+    must be."""
     from mlagg_unet_torch.ops import _ext
 
     t_phase = time.perf_counter()
@@ -3933,8 +4175,8 @@ def zoo_phase(torch, card: str, tag: str, steps, held: set = None, *args) -> Non
         _ext.reset_launch_counts = reset
     reset_keeping_total()
     launched = {k: v for k, v in total.items() if v}
-    if set(launched) != set(MAMBA_KERNELS):
-        fail(f"the {tag} phase launched {launched} (want K1 and K5 only, each)")
+    if set(launched) != set(kernels):
+        fail(f"the {tag} phase launched {launched} (want {list(kernels) or 'none'})")
     log(f"  launches of the port's kernels in the phase: {launched} | {card}")
     log(f"[{tag}] phase done in {time.perf_counter() - t_phase:.1f} s")
 
@@ -3947,46 +4189,202 @@ def phase_mamba(torch, card: str, held: set = None) -> None:
 def mamba_phase_steps(torch, card: str, held: set) -> None:
     """Phase 11's steps (a), (b) and (c)."""
     log(f"[mamba] the six networks at full width on the {MAMBA_PATCH} plan")
-    nets = mamba_networks(torch)
+    nets = zoo_networks(torch, MAMBA_TRAINERS, ())
+    tiles = tile_agreement(torch, "mamba", nets)
     log("[mamba] (a) K1 and K5 at every shape one forward and backward of each network emits")
     mamba_scan_checks(torch, card, mamba_scan_shapes(torch, nets), held)
     torch.cuda.empty_cache()
     log(f"[mamba] (b) one tile, fp32, card vs CPU (the U-Mambas on {MAMBA_PATCH}: their "
         f"channel-token stages norm over the plan's tokens; the others on {ZOO_CPU_TILE_2D}: "
         "cut for the CPU)")
-    umambas = [k for k in nets if "UMamba" in k and "Swin" not in k]
-    mamba_tile_agreement(torch, card, {k: nets[k] for k in umambas})
-    mamba_tile_agreement(torch, card, {k: v for k, v in nets.items() if k not in umambas},
-                         ZOO_CPU_TILE_2D)
+    tiles()
     log(f"[mamba] (b) serve | {card}")
     for name in MAMBA_SERVED:
         mamba_serve(torch, card, name, nets[name])
     del nets
     torch.cuda.empty_cache()
     log(f"[mamba] (c) the train verb: nnUNetTrainerUMambaEnc | {card}")
-    with verb_paths("chip_smoke_mamba_") as tmp:
+    with verb_paths("chip_smoke_mamba_", HOST_PREP.folder("mamba")[0]) as tmp:
         train_verb_2d(torch, card, tmp, "nnUNetTrainerUMambaEnc", MAMBA_RECIPE, "U-Mamba Enc",
                       MAMBA_STEPS, MAMBA_CACHED_STEPS, 1, profiled=True, fp64_around=True,
                       gate_batch=GATE_BATCH_2D)
 
 
 @contextlib.contextmanager
-def verb_paths(prefix: str):
-    """While active, the verbs' raw, preprocessed and results folders lie in
-    a fresh temporary directory, which it yields."""
-    import tempfile
-
+def paths_at(root: Path):
+    """While active, the verbs' raw, preprocessed and results folders lie
+    under ``root``."""
     from mlagg_unet_torch import paths
 
     saved = (paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results)
+    paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = (
+        str(root / "raw"), str(root / "preprocessed"), str(root / "results"))
+    try:
+        yield root
+    finally:
+        paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = saved
+
+
+@contextlib.contextmanager
+def verb_paths(prefix: str, prepared: Path = None):
+    """While active, the verbs' raw, preprocessed and results folders lie in
+    a fresh temporary directory, which it yields; with ``prepared`` (a
+    ``HostPrep`` folder) a copy of it in there first."""
+    import tempfile
+
     with tempfile.TemporaryDirectory(prefix=prefix) as tmp:
         tmp = Path(tmp)
-        paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = (
-            str(tmp / "raw"), str(tmp / "preprocessed"), str(tmp / "results"))
-        try:
+        if prepared is not None:
+            shutil.copytree(prepared, tmp, dirs_exist_ok=True)
+        with paths_at(tmp):
             yield tmp
+
+
+# ---------------------------------------------------------------- host-bound preparation
+def prepare_part(part: str, root: Path, card: str, workers: int, threads: int):
+    """One of PREP_PARTS under ``root``: phase 8's dataset ("train"), phase
+    11's ("mamba": phases 11, 14 and 15 copy it), phase 9's raw dataset and
+    preprocessing ("pipeline"), phase 10's ("unet3d"); or the CPU side of a
+    card-vs-CPU check, on the seeded networks and inputs the card takes:
+    phase 7's gradients ("flagship_grads"), phase 10's tile and gradients
+    ("unet3d_refs"), each zoo phase's tiles ("tiles_<phase>"), phase 15's
+    fp64 gradients ("mlla_unet_grads"). Returns what the phase reads of it
+    besides the folder."""
+    import torch
+
+    refs = {"flagship_grads": flagship_cpu_grads, "unet3d_refs": unet3d_cpu_refs,
+            "mlla_unet_grads": lambda torch: mlla_unet_grads(torch, "cpu")}
+    if part in refs:
+        return refs[part](torch)
+    if part.startswith("tiles_"):
+        return cpu_tiles(torch, part[len("tiles_"):])
+    t0 = time.perf_counter()
+    if part in ("train", "mamba"):
+        write_train_dataset(root, *((MAMBA_DATASET, MAMBA_PLANS) if part == "mamba" else ()),
+                            threads=threads)
+        log(f"  {TRAIN_VERB_CASES} cases of 1x10x320x260 written and preprocessed "
+            f"({'phase 11' if part == 'mamba' else 'the predict phase'}'s 2d plan) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        return {}
+    if part == "pipeline":
+        return prepare_pipeline(root, card, workers, threads)
+    if part == "unet3d":
+        return prepare_unet3d(root, workers, threads)
+    raise ValueError(f"no such part: {part}")
+
+
+def _prep_main(root: str, repo: str, card: str, parts, out) -> None:
+    """The side process of ``HostPrep``: each part made in turn, its result
+    saved beside its folder (``root/<part>.pt``: tensors by value, not
+    through shared memory), then its log lines and seconds put on ``out``;
+    a failure put there too."""
+    global LOG_SINK
+    import traceback
+
+    sys.path.insert(0, repo)
+    # the native resampler's threads, here and in the workers
+    os.environ["OMP_NUM_THREADS"] = str(PREP_THREADS)
+    import torch
+
+    torch.set_num_threads(PREP_THREADS)
+    t_start = time.perf_counter()
+    for part in parts:
+        LOG_SINK = []
+        t0 = time.perf_counter()
+        try:
+            info = prepare_part(part, Path(root) / part, card, PREP_WORKERS, PREP_THREADS)
+        except SystemExit:   # fail() printed its line
+            out.put({"part": part, "error": "its FAIL line above", "log": LOG_SINK})
+            raise
+        except Exception:
+            out.put({"part": part, "error": traceback.format_exc(), "log": LOG_SINK})
+            raise
+        torch.save(info, Path(root) / f"{part}.pt")
+        out.put({"part": part, "log": LOG_SINK, "seconds": time.perf_counter() - t0,
+                 "at": time.perf_counter() - t_start})
+
+
+class HostPrep:
+    """The host-bound preparation of phases 8-11, 14 and 15 and the CPU
+    sides of phases 7 and 10-15's card-vs-CPU checks (PREP_PARTS) under
+    ``root``. With ``background``, a spawned process that cannot see the
+    card (CUDA_VISIBLE_DEVICES empty: numpy, nibabel, the native resampler
+    and the port's plain twins need none) makes the parts in order, beside
+    the card's work (PREP_WORKERS workers of PREP_THREADS threads, so that
+    the host-paced phases keep most of the cores); else each part is made in
+    this process when first asked for. ``folder(part)`` waits for the part, prints its log
+    lines (their seconds the side process's own, marked so) and returns its
+    folder and result."""
+
+    def __init__(self, root: Path, card: str, background: bool):
+        self.root, self.card, self.ready, self.proc = root, card, {}, None
+        if not background:
+            return
+        ctx = multiprocessing.get_context("spawn")
+        self.queue = ctx.Queue()
+        old = os.environ.get("CUDA_VISIBLE_DEVICES")
+        os.environ["CUDA_VISIBLE_DEVICES"] = ""   # the child's, read when it starts
+        try:
+            # not a daemon: its preprocessing spawns workers of its own
+            self.proc = ctx.Process(target=_prep_main, args=(
+                str(root), str(REPO), card, PREP_PARTS, self.queue))
+            self.proc.start()
         finally:
-            paths.nnUNet_raw, paths.nnUNet_preprocessed, paths.nnUNet_results = saved
+            if old is None:
+                os.environ.pop("CUDA_VISIBLE_DEVICES")
+            else:
+                os.environ["CUDA_VISIBLE_DEVICES"] = old
+        log(f"[prep] a side process (no card) makes {', '.join(PREP_PARTS)} beside the "
+            f"phases, on {PREP_WORKERS} workers of {PREP_THREADS} threads")
+
+    def folder(self, part: str):
+        import queue
+
+        import torch
+
+        if part not in self.ready and self.proc is None:
+            self.ready[part] = prepare_part(part, self.root / part, self.card, 8, 8)
+        elif part not in self.ready:
+            t0 = time.perf_counter()
+            while part not in self.ready:
+                try:
+                    msg = self.queue.get(timeout=5)
+                except queue.Empty:
+                    if not self.proc.is_alive():
+                        fail(f"the side process ended (exit code {self.proc.exitcode}) "
+                             f"before it made {part}")
+                    continue
+                for line in msg["log"]:
+                    log(f"{line} [side process]")
+                if "error" in msg:
+                    fail(f"the side process failed making {msg['part']}: {msg['error']}")
+                log(f"[prep] {msg['part']} made in {msg['seconds']:.1f} s, "
+                    f"{msg['at']:.1f} s after the side process started")
+                self.ready[msg["part"]] = torch.load(self.root / f"{msg['part']}.pt",
+                                                     weights_only=False)
+            log(f"[prep] {part}: waited {time.perf_counter() - t0:.1f} s for it")
+        return self.root / part, self.ready[part]
+
+    def close(self, failed: bool = False) -> None:
+        """Wait for the side process to end (it ends after its last part),
+        or with ``failed`` stop it; its queue drained first, so that its
+        feeder thread can finish."""
+        import queue
+
+        if self.proc is None:
+            return
+        if failed:
+            self.proc.terminate()
+        t0 = time.perf_counter()
+        while self.proc.is_alive() and time.perf_counter() - t0 < 60:
+            try:
+                self.queue.get(timeout=1)
+            except queue.Empty:
+                pass
+        self.proc.join(timeout=5)
+        if self.proc.is_alive():
+            self.proc.kill()
+            fail("the side process did not end")
 
 
 @contextlib.contextmanager
@@ -4010,22 +4408,28 @@ def ss3d_configuration(batch: int = SS3D_BATCH):
     return unet3d_configuration(UNET3D_TILE, batch)
 
 
-def zoo_networks(torch, names, three_d) -> dict:
-    """The named trainers' networks at full width, seeded, fp32, on the
-    card, as their trainers build them: those in ``three_d`` for phase
-    10's 3-D plan (SS3D_CLASSES), the others for phase 11's 2d plan."""
+def zoo_network(name: str, three_d, device: str):
+    """The trainer ``name``'s network at full width, seeded (0), fp32, on
+    ``device``, as its trainer builds it: for phase 10's 3-D plan
+    (SS3D_CLASSES) if ``name`` is in ``three_d``, else phase 11's 2d plan."""
     from mlagg_unet_torch.training.registry import get_network_builder, get_trainer_config
+
+    cfg = get_trainer_config(name)
+    return get_network_builder(cfg.network)(
+        ss3d_configuration() if name in three_d else mamba_configuration(), 1,
+        SS3D_CLASSES if name in three_d else MAMBA_CLASSES, cfg.enable_deep_supervision,
+        seed=0, device=device)
+
+
+def zoo_networks(torch, names, three_d) -> dict:
+    """The named trainers' networks on the card (``zoo_network``)."""
+    from mlagg_unet_torch.training.registry import get_trainer_config
 
     nets = {}
     for name in names:
-        cfg = get_trainer_config(name)
-        net = get_network_builder(cfg.network)(
-            ss3d_configuration() if name in three_d else mamba_configuration(), 1,
-            SS3D_CLASSES if name in three_d else MAMBA_CLASSES, cfg.enable_deep_supervision,
-            seed=0, device="cuda")
-        nets[name] = net
-        log(f"  {name} ({cfg.network}): {sum(p.numel() for p in net.parameters())} params, "
-            f"{type(net).__name__}")
+        nets[name] = net = zoo_network(name, three_d, "cuda")
+        log(f"  {name} ({get_trainer_config(name).network}): "
+            f"{sum(p.numel() for p in net.parameters())} params, {type(net).__name__}")
     return nets
 
 
@@ -4275,19 +4679,14 @@ def ss3d_phase_steps(torch, card: str, held: set, shared: Path = None) -> None:
     log(f"[ss3d] the six networks at full width: 3-D on the {UNET3D_TILE} plan, MSVM-UNet on "
         f"the {MAMBA_PATCH} plan")
     nets = zoo_networks(torch, SS3D_NETWORKS, SS3D_3D)
+    tiles = tile_agreement(torch, "ss3d", nets)
     log("[ss3d] (a) K1 and K5 at every shape one forward and backward of each network emits")
     ss3d_scan_checks(torch, card, ss3d_scan_shapes(torch, nets), held)
     log(f"  (a) done in {stamp(t0)}")
     t0 = time.perf_counter()
     log(f"[ss3d] (b) one tile, fp32, card vs CPU (U-Mambas {SS3D_CPU_TILE}, VM-UNet-3D "
         f"{VMUNET3D_CPU_TILE}: cut for the CPU)")
-    umambas = [k for k in nets if "UMamba" in k]
-    mamba_tile_agreement(torch, card, {k: nets[k] for k in umambas}, SS3D_CPU_TILE,
-                         SS3D_CLASSES)
-    mamba_tile_agreement(torch, card, {k: v for k, v in nets.items()
-                                       if k not in umambas and k != MSVM_TRAINER},
-                         VMUNET3D_CPU_TILE, SS3D_CLASSES)
-    mamba_tile_agreement(torch, card, {MSVM_TRAINER: nets[MSVM_TRAINER]})
+    tiles()
     log(f"  (b) done in {stamp(t0)}")
     t0 = time.perf_counter()
     log(f"[ss3d] (c) serve | {card}")
@@ -4339,6 +4738,8 @@ def variant_phase_steps(torch, card: str, held: set, shared: Path = None) -> Non
     log(f"[variants] the four networks at full width: 3-D on the {UNET3D_TILE} plan, 2-D on "
         f"the {MAMBA_PATCH} plan")
     nets = zoo_networks(torch, VARIANT_NETWORKS, VARIANT_3D)
+    # on the seeded weights and running statistics, before (a)'s training-mode passes
+    tiles = tile_agreement(torch, "variants", nets)
     log("[variants] (a) K1 and K5 at every shape one forward and backward of each network "
         "emits, in training mode (nnMamba's BatchNorm on the batch's statistics)")
     calls, per_model = {}, {}
@@ -4350,10 +4751,7 @@ def variant_phase_steps(torch, card: str, held: set, shared: Path = None) -> Non
     t0 = time.perf_counter()
     log(f"[variants] (b) one tile, fp32, card vs CPU (cut for the CPU: 3-D on {SS3D_CPU_TILE}, "
         f"2-D on {VARIANT_CPU_TILE_2D})")
-    mamba_tile_agreement(torch, card, {k: nets[k] for k in VARIANT_3D}, SS3D_CPU_TILE,
-                         SS3D_CLASSES)
-    mamba_tile_agreement(torch, card, {k: v for k, v in nets.items() if k not in VARIANT_3D},
-                         VARIANT_CPU_TILE_2D)
+    tiles()
     log(f"  (b) done in {stamp(t0)}")
     t0 = time.perf_counter()
     log(f"[variants] (c) serve | {card}")
@@ -4443,6 +4841,7 @@ def lkm_phase_steps(torch, card: str, held: set) -> None:
     t0 = time.perf_counter()
     log(f"[lkm-mednext] the three networks at full width on the {MAMBA_PATCH} plan")
     nets = zoo_networks(torch, LKM_NETWORKS, ())
+    tiles = tile_agreement(torch, "lkm-mednext", nets)
     log("[lkm-mednext] (a) K1 and K5 at every shape one forward and backward of LKM-UNet and "
         f"MedNeXt Mambaskip emits, in training mode, and of LKM-UNet in 3-D at batch 1 of "
         f"{UNET3D_GRAD_PATCH} on phase 10's plan")
@@ -4460,7 +4859,7 @@ def lkm_phase_steps(torch, card: str, held: set) -> None:
     log(f"  (a) done in {stamp(t0)}")
     t0 = time.perf_counter()
     log(f"[lkm-mednext] (b) one tile, fp32, card vs CPU (on {ZOO_CPU_TILE_2D}: cut for the CPU)")
-    mamba_tile_agreement(torch, card, nets, ZOO_CPU_TILE_2D)
+    tiles()
     log(f"  (b) done in {stamp(t0)}")
     t0 = time.perf_counter()
     log(f"[lkm-mednext] (c) serve | {card}")
@@ -4476,11 +4875,185 @@ def lkm_phase_steps(torch, card: str, held: set) -> None:
     t0 = time.perf_counter()
     log(f"[lkm-mednext] (d) the train verb: {LKM_TRAINER}; MedNeXt Mambaskip's gates through "
         f"Trainer | {card}")
-    with verb_paths("chip_smoke_lkm_") as tmp, no_autotune():
+    with verb_paths("chip_smoke_lkm_", HOST_PREP.folder("mamba")[0]) as tmp, no_autotune():
         train_verb_2d(torch, card, tmp, LKM_TRAINER, LKM_RECIPE, "LKM-UNet", LKM_STEPS,
                       LKM_CACHED_STEPS, 1, gate_batch=GATE_BATCH_2D)
     mednext_skip_gates(torch, card)
     log(f"  (d) done in {stamp(t0)}")
+
+
+def transformer_serve(torch, card: str, name: str, net) -> None:
+    """VolumePredictor on one MAMBA_VOLUME after a one-slice warm-up: tile
+    MAMBA_PATCH, step 0.5, Gaussian, mirror (0, 1), bf16 compute and
+    transfer, the memory budget's tile batch; volumes/s, peak memory, bf16
+    against fp32 serving of the same volume (TRANSFORMER_BF16_TOL). No port
+    kernel may run."""
+    from mlagg_unet_torch import VolumePredictor
+    from mlagg_unet_torch.ops import _ext
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_all = time.perf_counter()
+    rng = np.random.RandomState(6)
+    warm = rng.rand(1, 1, *MAMBA_PATCH).astype(np.float32)
+    volume = rng.rand(*MAMBA_VOLUME).astype(np.float32)
+    pred = VolumePredictor(net, MAMBA_PATCH, MAMBA_CLASSES, (0, 1), None,
+                           compute_dtype=torch.bfloat16, transfer_dtype=torch.bfloat16,
+                           device="cuda")
+    pred(warm)   # the budget probe
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _ext.reset_launch_counts()
+    outs, elapsed, _ = serve_window(pred, [volume])
+    ran = {k.name: k.launches for k in _ext.ALL_KERNELS if k.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tb = pred.last_tile_batch
+    ref32 = VolumePredictor(net, MAMBA_PATCH, MAMBA_CLASSES, (0, 1), None, device="cuda")(volume)
+    d = float(np.linalg.norm(outs[0] - ref32) / np.linalg.norm(ref32))
+    if outs[0].shape != (MAMBA_CLASSES, *MAMBA_VOLUME[1:]) or not np.isfinite(outs[0]).all():
+        fail(f"{name} serve output {outs[0].shape}, finite={bool(np.isfinite(outs[0]).all())}")
+    log(f"  {name}: 1 volume of {'x'.join(map(str, MAMBA_VOLUME))} after a one-slice warm-up, "
+        f"step 0.5, mirror (0, 1), bf16: {1 / elapsed:.4f} volumes/s ({elapsed:.3f} s), tile "
+        f"batch {tb} (model batch {4 * tb}), peak memory {peak:.2f} GiB; bf16 vs fp32 serving: "
+        f"rel L2 {d:.3e} (tol {TRANSFORMER_BF16_TOL[name]:g}: twice JAX's own); "
+        f"{time.perf_counter() - t_all:.1f} s in all | {card}")
+    if not d <= TRANSFORMER_BF16_TOL[name]:
+        fail(f"{name}: bf16 serving disagrees with fp32 serving: rel L2 {d:.3e}")
+    if ran:
+        fail(f"{name} serving launched port kernels: {ran}")
+    del pred, outs, ref32
+
+
+def transformer_train_verb(torch, card: str, tmp: Path) -> None:
+    """TRANSFORMER_TRAINER through the train verb on the train verb's 10
+    cases with phase 11's 2d plan (``tmp``: a copy of HOST_PREP's "mamba"
+    folder), cut to 1 epoch of TRANSFORMER_STEPS steps and MAMBA_VAL_STEPS
+    validation steps on fold 0 (its recipe: the flagship's AdamW, cosine
+    warm-up, lr 1e-4, no deep supervision): losses, ms per step with the
+    loader, no port kernel; then the predict verb on its folder for one
+    case."""
+    from dataclasses import replace
+
+    from mlagg_unet_torch.cli.entrypoints import predict_from_modelfolder_entry, train_entry
+    from mlagg_unet_torch.imageio.nifti_io import NiftiIO
+    from mlagg_unet_torch.ops import _ext
+    from mlagg_unet_torch.training import registry
+    from mlagg_unet_torch.training.checkpoint import load_checkpoint
+    from mlagg_unet_torch.training.trainer import NNUNetTrainer, Trainer
+    from mlagg_unet_torch.utils.helpers import load_json
+
+    registry.register_trainer(replace(
+        registry.get_trainer_config(TRANSFORMER_TRAINER), name=TRANSFORMER_RECIPE, num_epochs=1,
+        num_iterations_per_epoch=TRANSFORMER_STEPS, num_val_iterations_per_epoch=MAMBA_VAL_STEPS))
+    base = tmp / "results" / MAMBA_DATASET / f"{TRANSFORMER_RECIPE}__nnUNetPlans__2d"
+    times, counts = [], {}
+    with attribute_launches(_ext, Trainer, "train_step", counts, times), \
+            attribute_launches(_ext, Trainer, "val_step", counts), \
+            attribute_launches(_ext, NNUNetTrainer, "perform_actual_validation", counts):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train_entry([MAMBA_ID, "2d", "0", "-tr", TRANSFORMER_RECIPE, "-device", "cuda"])
+        verb_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    lg = load_checkpoint(str(base / "fold_0" / "checkpoint_final.ckpt"))["logging"]
+    summary = load_json(str(base / "fold_0" / "validation" / "summary.json"))
+    if len(times) != TRANSFORMER_STEPS or not all(
+            math.isfinite(v) for v in lg["train_losses"] + lg["val_losses"]):
+        fail(f"the MLLA-UNet verb ran {len(times)} steps, losses {lg['train_losses']} "
+             f"{lg['val_losses']}")
+    step_ms = statistics.median(1e3 * (b[0] - a[0]) for a, b in zip(times[1:], times[2:]))
+    epoch_s = lg["epoch_end_timestamps"][0] - lg["epoch_start_timestamps"][0]
+    log(f"  verb train {MAMBA_ID} 2d 0 -tr {TRANSFORMER_RECIPE}: {verb_s:.1f} s (1 epoch of "
+        f"{TRANSFORMER_STEPS} steps at batch {MAMBA_BATCH} of {MAMBA_PATCH} + {MAMBA_VAL_STEPS} "
+        f"validation steps, {epoch_s:.1f} s, the final validation of "
+        f"{len(summary['metric_per_case'])} cases), "
+        f"{step_ms:.2f} ms per step with the loader (median of steps 2-{TRANSFORMER_STEPS}), "
+        f"peak memory {peak:.2f} GiB; loss train {lg['train_losses']}, validation "
+        f"{lg['val_losses']}, pseudo dice {lg['mean_fg_dice']}; foreground Dice "
+        f"{summary['foreground_mean']['Dice']:.4f} | {card}")
+    if any(counts.values()):
+        fail(f"the MLLA-UNet verb launched port kernels: {counts}")
+    cases, out = tmp / "verb_imagesTs", tmp / "verb_predicted"
+    cases.mkdir()
+    shutil.copyfile(tmp / "raw" / MAMBA_DATASET / "imagesTr" / "case_000_0000.nii.gz",
+                    cases / "case_000_0000.nii.gz")
+    t0 = time.perf_counter()
+    predict_from_modelfolder_entry(["-i", str(cases), "-o", str(out), "-m", str(base), "-f", "0",
+                                    "-device", "cuda"])
+    seg, _ = NiftiIO().read_seg(str(out / "case_000.nii.gz"))
+    labels = np.unique(seg)
+    if seg.shape != (1, 10, 320, 260) or not set(labels) <= set(range(MAMBA_CLASSES)):
+        fail(f"predict verb on the MLLA-UNet folder: {seg.shape}, labels {labels}")
+    log(f"  predict verb on the MLLA-UNet folder: 1 case in {time.perf_counter() - t0:.1f} s, "
+        f"shape (1, 10, 320, 260), labels {labels.tolist()} | {card}")
+
+
+def mlla_unet_grads(torch, dev: str):
+    """TRANSFORMER_TRAINER's loss (DC+CE, no deep supervision) and every
+    parameter gradient at batch 1 of TRANSFORMER_GRAD_TILE in fp64 on
+    ``dev``, on the seeded network (drop path off; BatchNorm on the batch's
+    statistics) and a seeded batch of blobs; and the seconds."""
+    from mlagg_unet_torch.training.trainer import Trainer
+
+    t0 = time.perf_counter()
+    x, y = seeded_blobs(torch, 1, TRANSFORMER_GRAD_TILE, GATE_SEED, dev)
+    tr = Trainer(TRANSFORMER_TRAINER, TRANSFORMER_GRAD_TILE, 1, 1, MAMBA_CLASSES, seed=0,
+                 device=dev, compute_dtype=torch.float32)
+    drop_path_off(tr.network)
+    net = tr.network.to(torch.float64)
+    return train_grads(tr, net, x.to(torch.float64), y), time.perf_counter() - t0
+
+
+def transformer_grads(torch) -> None:
+    """``mlla_unet_grads`` card against CPU (the CPU's made by HostPrep), as
+    phase 10 holds the 3-D U-Net: the loss within 1e-5, each gradient
+    within 1e-3 x max + 1e-6."""
+    got, card_s = mlla_unet_grads(torch, "cuda")
+    ref, cpu_s = HOST_PREP.folder("mlla_unet_grads")[1]
+    log(f"  MLLA-UNet's loss and every gradient at batch 1 of {TRANSFORMER_GRAD_TILE} (the tile "
+        f"cut for the CPU), fp64: card {card_s:.1f} s, CPU {cpu_s:.1f} s")
+    compare_grads(torch, "MLLA-UNet, fp64, card vs CPU", *got, *ref)
+
+
+def phase_transformers(torch, card: str, held: set = None) -> None:
+    """Phase 15: SwinUNETR, Swin-TUNet, TransUNet and MLLA-UNet on the card;
+    none of K1-K8 may run in it."""
+    zoo_phase(torch, card, "transformers", transformer_phase_steps, held, kernels=())
+
+
+def transformer_phase_steps(torch, card: str, held: set) -> None:
+    """Phase 15's steps (a)-(c)."""
+    def stamp(t0):
+        return f"{time.perf_counter() - t0:.1f} s"
+
+    t0 = time.perf_counter()
+    log(f"[transformers] the four networks at full width on the {MAMBA_PATCH} plan")
+    nets = zoo_networks(torch, TRANSFORMER_NETWORKS, ())
+    counts = {k: sum(p.numel() for p in v.parameters()) for k, v in nets.items()}
+    log(f"  parameters, the port's against JAX's: "
+        f"{({k: (v, TRANSFORMER_JAX_PARAMS[k]) for k, v in counts.items()})}")
+    if any(v != TRANSFORMER_JAX_PARAMS[k] for k, v in counts.items()):
+        fail(f"a network's parameter count differs from JAX's: {counts}")
+    log(f"[transformers] (a) one {MAMBA_PATCH} tile each, fp32, card vs CPU")
+    tiles = tile_agreement(torch, "transformers", nets)
+    log(f"[transformers] (b) serve | {card}")
+    with no_autotune():
+        for name in TRANSFORMER_SERVED:
+            transformer_serve(torch, card, name, nets[name])
+    tiles()
+    log(f"  (a), (b) done in {stamp(t0)}")
+    del nets
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"[transformers] (c) the train verb: {TRANSFORMER_TRAINER}; its fp64 gradients, card vs "
+        f"CPU | {card}")
+    with verb_paths("chip_smoke_transformers_", HOST_PREP.folder("mamba")[0]) as tmp, \
+            no_autotune():
+        transformer_train_verb(torch, card, tmp)
+    transformer_grads(torch)
+    log(f"  (c) done in {stamp(t0)}")
 
 
 def phase_grad_gates(torch, card: str) -> None:
@@ -4507,12 +5080,31 @@ def phase_grad_gates(torch, card: str) -> None:
     log(f"[grad-gates] the five gates held in {time.perf_counter() - t0:.1f} s | {card}")
 
 
+def host_cpu() -> str:
+    """The host's CPU model (``/proc/cpuinfo``'s model name, or its vendor,
+    family, model and stepping where the name is hidden) and logical cores."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    name = fields.get("model name", "")
+    if not name or name == "unknown":
+        name = " ".join(f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model",
+                                                      "stepping", "cpu MHz", "bogomips")
+                        if k in fields) or "not readable"
+    return f"{name}; {os.cpu_count()} logical cores"
+
+
 def main() -> None:
-    global REPO
+    global REPO, HOST_PREP
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     ap.add_argument("--only", choices=("predict", "serve-timing", "train-verb", "pipeline",
                                        "unet3d", "mamba", "ss3d", "variants", "lkm-mednext",
-                                       "grad-gates"),
+                                       "transformers", "grad-gates"),
                     help="run the device and build phases and this one alone, with no "
                          "kernels line and no final line")
     ap.add_argument("--root", type=Path, default=REPO,
@@ -4540,6 +5132,7 @@ def main() -> None:
     card = smi[0].strip() if smi else "nvidia-smi: no output"
     log(f"[device] {torch.cuda.get_device_name(0)} | {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+    log(f"[host] {host_cpu()}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -4564,13 +5157,31 @@ def main() -> None:
     def done(phase):
         log(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s")
 
-    if opts.only:
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prep_") as prep_root:
+        # the datasets and preprocessing of phases 8-11, 14 and 15: beside the
+        # phases in a side process in the whole run, in this process under --only
+        HOST_PREP = HostPrep(Path(prep_root), card, background=not opts.only)
+        try:
+            run_phases(torch, card, opts.only, done)
+        except BaseException:
+            HOST_PREP.close(failed=True)
+            raise
+        HOST_PREP.close()
+
+
+def run_phases(torch, card: str, only, done) -> None:
+    """The phases after the build: ``only`` one of them, else all, then the
+    kernels line, the card's line and the last line."""
+    if only:
         {"serve-timing": serve_timing, "predict": phase_predict,
          "train-verb": phase_train_verb, "pipeline": phase_pipeline,
          "unet3d": phase_unet3d, "mamba": phase_mamba,
          "ss3d": phase_ss3d, "variants": phase_variants, "lkm-mednext": phase_lkm,
-         "grad-gates": phase_grad_gates}[opts.only](torch, card)
-        done(opts.only)
+         "transformers": phase_transformers,
+         "grad-gates": phase_grad_gates}[only](torch, card)
+        done(only)
         return
     report = Report(sfu_exp_per_s(torch))
     phase_kernels(torch, report)
@@ -4609,6 +5220,8 @@ def main() -> None:
         done("variants")
         phase_lkm(torch, card, held)
         done("lkm-mednext")
+    phase_transformers(torch, card)
+    done("transformers")
 
     launches = {**serve, "selective_scan_bwd": train["selective_scan_bwd"],
                 **{k: serve_f[k] for k in FUSED_KERNELS}}

@@ -252,14 +252,14 @@ class ConvTransposeTorch(nn.Module):
     stride and padding may differ per axis. ``output_padding`` ``op`` adds
     rows at the far end of each axis, as monai's up blocks take it (``op = s
     + 2p - k``: exactly ``s`` times the input). ``groups`` is flax's
-    ``feature_group_count`` (MedNeXt's up blocks are depthwise). ``weight``
-    is torch's (in, out / groups, *kernel); JAX's kernel is (*kernel, in /
-    groups, out), and JAX flips it in its forward because
-    ``conv_transpose2d`` / ``conv_transpose3d`` do."""
+    ``feature_group_count`` (MedNeXt's up blocks are depthwise), ``bias=False``
+    flax's ``use_bias=False``. ``weight`` is torch's (in, out / groups,
+    *kernel); JAX's kernel is (*kernel, in / groups, out), and JAX flips it in
+    its forward because ``conv_transpose2d`` / ``conv_transpose3d`` do."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: IntOrN, stride: IntOrN, padding: IntOrN = 0,
-                 output_padding: IntOrN = 0, groups: int = 1):
+                 output_padding: IntOrN = 0, groups: int = 1, bias: bool = True):
         super().__init__()
         if in_channels % groups or out_channels % groups:
             raise ValueError(f"ConvTransposeTorch: {in_channels} -> {out_channels} "
@@ -269,14 +269,15 @@ class ConvTransposeTorch(nn.Module):
         self.output_padding = _ntuple(output_padding, len(k))
         self.groups = groups
         self.weight = _empty(in_channels, out_channels // groups, *k)
-        self.bias = _empty(out_channels)
+        self.bias = _empty(out_channels) if bias else None
 
     def init_parameters(self, gen):
         # flax's fan-in of the (*kernel, in / groups, out) kernel
         fan_in = self.weight.shape[0] // self.groups * self.weight[0, 0].numel()
         lecun_normal_(self.weight, fan_in, gen)
-        with torch.no_grad():
-            self.bias.zero_()
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
 
     def forward(self, x):
         x, w, b = promote_dtype(x, self.weight, self.bias)

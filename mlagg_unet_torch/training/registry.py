@@ -15,9 +15,9 @@ augmentation or the sampling, with the JAX entries' values. The model zoo's
 names are all registered with the JAX entries' values; the networks of
 U-Mamba Bot / Enc (also with SS3D), VM-UNet, Mamba-UNet, Swin-UMamba(-D),
 VM-UNet-3D (three forms), MSVM-UNet, SegMamba, LightM-UNet, UltraLight
-VM-UNet, nnMamba, LKM-UNet and MedNeXt (B, kernel 3 or 5, and B k3 with its
-Mamba skip) are built, the others' raise when a trainer checks them
-(ROADMAP queue A, A16).
+VM-UNet, nnMamba, LKM-UNet, MedNeXt (B, kernel 3 or 5, and B k3 with its
+Mamba skip), SwinUNETR, Swin-TUNet, TransUNet and MLLA-UNet are built: every
+network of the JAX registry.
 """
 from __future__ import annotations
 
@@ -251,6 +251,18 @@ def _build_lkm_unet(configuration_manager, num_input_channels: int, num_output_c
                           deep_supervision, seed=seed, device=device)
 
 
+def _build_transunet(configuration_manager, num_input_channels: int, num_output_channels: int,
+                     deep_supervision: bool, *, seed: int = 0, device: DeviceLike = "cuda",
+                     **overrides):
+    """TransUNet R50-ViT-B/16 (``registry.py:365-371``), 2-D only; its
+    position embedding is built for the patch size, as JAX's init takes it
+    from the input."""
+    patch = tuple(getattr(configuration_manager, "patch_size", configuration_manager))
+    return _build_2d("mlagg_unet_torch.models.transunet", "TransUNet", False)(
+        configuration_manager, num_input_channels, num_output_channels, deep_supervision,
+        seed=seed, device=device, **{"img_size": patch, **overrides})
+
+
 def _build_mednext(model_id: str, kernel_size: int, use_mamba_skip: bool = False):
     def build(configuration_manager, num_input_channels: int, num_output_channels: int,
               deep_supervision: bool, *, seed: int = 0, device: DeviceLike = "cuda"):
@@ -289,6 +301,11 @@ NETWORK_BUILDERS: Dict[str, Callable] = {
     "mednext_b3": _build_mednext("B", 3),
     "mednext_b5": _build_mednext("B", 5),
     "mednext_b3_mambaskip": _build_mednext("B", 3, use_mamba_skip=True),
+    # the transformer baselines (registry.py:243-253, 332-379), 2-D only
+    "swin_unetr": _build_2d("mlagg_unet_torch.models.swin_unetr", "SwinUNETR", False),
+    "swin_tunet": _build_2d("mlagg_unet_torch.models.more_variants", "SwinTUNet", False),
+    "transunet": _build_transunet,
+    "mlla_unet": _build_2d("mlagg_unet_torch.models.mlla_unet", "MLLAUNet", False),
 }
 
 
@@ -406,8 +423,7 @@ register_trainer(replace(_vadam, name="nnUNetTrainerVanillaAdam3en4", initial_lr
 
 # ---------------------------------------------------------------- the model zoo
 # Copies of the JAX entries of the other networks (registry.py:243-580), with
-# their values. Only the networks in NETWORK_BUILDERS are ported; the
-# trainer's _check_ported raises for the others.
+# their values.
 register_trainer(replace(
     TRAINER_REGISTRY["nnUNetTrainer_MLAgg_2D_dt_MS"], name="nnUNetTrainer_MLLA_UNet",
     network="mlla_unet", initial_lr=1e-4, adam_eps=1e-8, enable_deep_supervision=False,

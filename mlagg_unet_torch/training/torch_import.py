@@ -4,10 +4,11 @@ Copied from ``mlagg_unet_tpu/training/torch_import.py``: the reference's key
 rules of ``MLLA_Uper`` (``REFERENCE_FLAGSHIP_RULES``, the ConvTranspose
 keys), U-Mamba Bot / Enc (also SS3D, whose A_logs / Ds merge 12 scan
 paths), VM-UNet, Mamba-UNet, Swin-UMamba(-D), VM-UNet-3D, MSVM-UNet,
-SegMamba, LightM-UNet, UltraLight VM-UNet, nnMamba, MedNeXt and LKM-UNet
-(``:109-258``, ``:259-350``, ``:397-420``, ``:559-604``), the converter to the JAX
-package's flat layout and ``CONVERTERS_BY_NETWORK`` for those networks
-(``:661-688``). nnMamba's shared Mamba layer sits under both of its blocks
+SegMamba, LightM-UNet, UltraLight VM-UNet, nnMamba, MedNeXt, LKM-UNet,
+MLLA-UNet, TransUNet and SwinUNETR (``:109-258``, ``:259-350``, ``:397-493``,
+``:559-604``), the converter to the JAX package's flat layout and
+``CONVERTERS_BY_NETWORK`` (``:661-688``): every converter of the JAX package
+(Swin-TUNet has none). nnMamba's shared Mamba layer sits under both of its blocks
 in a reference state_dict (the same tensors); both keys map to its one
 ``mamba{k}`` scope. Composed with ``weights.jax_params_to_state_dict`` (and the
 BatchNorm running statistics renamed to the port's buffers) they take a
@@ -15,8 +16,7 @@ reference ``fold_X/checkpoint_final.pth``'s ``network_weights`` to a
 state_dict the port's network loads with ``strict=True``
 (``reference_state_dict_to_port``),
 and ``load_pretrained_torch_weights`` transfers a reference checkpoint's
-weights for fine-tuning (the train verb's ``-pretrained_weights``). The
-other families' converters wait for their models (ROADMAP queue A, A16).
+weights for fine-tuning (the train verb's ``-pretrained_weights``).
 """
 from __future__ import annotations
 
@@ -347,6 +347,68 @@ REFERENCE_LKM_RULES = [
 ]
 
 
+# MLLA-UNet (nnUNetTrainer_MLLA_UNet.py:89-850); the RoPE table is a buffer
+REFERENCE_MLLA_UNET_RULES = [
+    (r"\.rope\.rotations$", None),
+    (r"^layers\.(\d+)\.blocks\.(\d+)\.", r"layer\1_block\2."),
+    (r"^layers\.(\d+)\.downsample\.conv\.(\d+)\.", r"down\1.conv_\2."),
+    (r"^layers_up\.0\.conv\.1\.", "up0.deconv."),
+    (r"^layers_up\.0\.conv\.(\d+)\.", r"up0.conv_\1."),
+    (r"^layers_up\.0\.norm\.", "up0.norm."),
+    (r"^layers_up\.(\d+)\.blocks\.(\d+)\.", r"layer_up\1_block\2."),
+    (r"^layers_up\.(\d+)\.upsample\.conv\.1\.", r"layer_up\1_upsample.deconv."),
+    (r"^layers_up\.(\d+)\.upsample\.conv\.(\d+)\.", r"layer_up\1_upsample.conv_\2."),
+    (r"^layers_up\.(\d+)\.upsample\.norm\.", r"layer_up\1_upsample.norm."),
+    (r"^concat_back_dim\.(\d+)\.", r"concat_back\1."),
+    (r"^up\.expand\.", "up_expand."),
+    (r"^up\.norm\.", "up_norm."),
+    (r"^patch_embed\.conv(\d)\.(\d)\.", r"patch_embed.conv\1_\2."),
+    (r"\.cpe1\.", ".cpe1.Conv_0."),
+    (r"\.cpe2\.", ".cpe2.Conv_0."),
+    (r"\.dwc\.", ".dwc.Conv_0."),
+    (r"\.lepe\.", ".lepe.Conv_0."),
+    (r"\.fc1\.", ".Dense_0."),
+    (r"\.fc2\.", ".Dense_1."),
+]
+
+# TransUNet R50-ViT-B/16 (nnUNetTrainerTransUNet.py:211-803)
+REFERENCE_TRANSUNET_RULES = [
+    (r"^transformer\.embeddings\.hybrid_model\.root\.conv\.", "hybrid_model.root_conv."),
+    (r"^transformer\.embeddings\.hybrid_model\.root\.gn\.", "hybrid_model.root_gn."),
+    (r"^transformer\.embeddings\.hybrid_model\.body\.block(\d+)\.unit(\d+)\.",
+     r"hybrid_model.block\1_unit\2."),
+    (r"^transformer\.embeddings\.patch_embeddings\.", "patch_embeddings."),
+    (r"^transformer\.embeddings\.position_embeddings$", "position_embeddings"),
+    (r"^transformer\.encoder\.layer\.(\d+)\.", r"encoder_block\1."),
+    (r"^transformer\.encoder\.encoder_norm\.", "encoder_norm."),
+    (r"\.ffn\.fc1\.", ".ffn.Dense_0."),
+    (r"\.ffn\.fc2\.", ".ffn.Dense_1."),
+    (r"^decoder\.conv_more\.0\.", "conv_more.conv."),
+    (r"^decoder\.conv_more\.1\.", "conv_more.bn."),
+    (r"^decoder\.blocks\.(\d+)\.conv(\d)\.0\.", r"decoder_block\1.conv\2.conv."),
+    (r"^decoder\.blocks\.(\d+)\.conv(\d)\.1\.", r"decoder_block\1.conv\2.bn."),
+    (r"^segmentation_head\.0\.", "seg_head."),
+]
+
+# SwinUNETR 2-D (nnUNetTrainerSwinUNETR_2d.py:38-46, monai's SwinUNETR); the
+# window attention's relative-position index is a buffer
+REFERENCE_SWIN_UNETR_RULES = [
+    (r"\.relative_position_index$", None),
+    (r"^swinViT\.layers(\d)\.0\.", r"swinViT.layers\1."),
+    (r"\.blocks\.(\d+)\.", r".blocks\1."),
+    (r"\.mlp\.linear1\.", ".mlp.Dense_0."),
+    (r"\.mlp\.linear2\.", ".mlp.Dense_1."),
+    (r"^swinViT\.patch_embed\.proj\.", "swinViT.patch_embed."),
+    # the swin LayerNorms kept from the instance-norm rewrite below
+    (r"^(swinViT\..*)\.norm([12])\.", r"\1.@ln@norm\2."),
+    (r"\.transp_conv\.conv\.", ".transp_conv."),
+    (r"\.(conv1|conv2|conv3)\.conv\.", r".\1."),
+    (r"\.(norm1|norm2|norm3)\.", r".\1.GroupNorm_0."),
+    (r"^out\.conv\.conv\.", "out."),
+    (r"@ln@", ""),
+]
+
+
 def convert_reference_flagship_state_dict(state_dict) -> Dict[str, np.ndarray]:
     """torch MLLA_Uper state_dict -> {'a/b/c': array} in flax layout."""
     return _convert_reference_state_dict(state_dict,
@@ -426,6 +488,24 @@ def convert_reference_nnmamba_state_dict(state_dict) -> Dict[str, np.ndarray]:
     return _convert_reference_state_dict(state_dict, REFERENCE_NNMAMBA_RULES)
 
 
+def convert_reference_mlla_unet_state_dict(state_dict) -> Dict[str, np.ndarray]:
+    """torch MLLA_UNet state_dict -> flax layout. BatchNorm running
+    statistics come out as .../running_mean|running_var."""
+    return _convert_reference_state_dict(state_dict, REFERENCE_MLLA_UNET_RULES)
+
+
+def convert_reference_transunet_state_dict(state_dict) -> Dict[str, np.ndarray]:
+    """torch TransUNet (VisionTransformer R50-ViT-B_16) state_dict -> flax
+    layout. BatchNorm running statistics come out as
+    .../running_mean|running_var."""
+    return _convert_reference_state_dict(state_dict, REFERENCE_TRANSUNET_RULES)
+
+
+def convert_reference_swin_unetr_state_dict(state_dict) -> Dict[str, np.ndarray]:
+    """torch (monai) SwinUNETR 2-D state_dict -> flax layout."""
+    return _convert_reference_state_dict(state_dict, REFERENCE_SWIN_UNETR_RULES)
+
+
 def _swin_umamba_d_converter(state_dict):
     return convert_reference_swin_umamba_state_dict(state_dict,
                                                     d_variant=True)
@@ -452,6 +532,9 @@ CONVERTERS_BY_NETWORK = {
     "lkm_unet": convert_reference_lkm_state_dict,
     "mednext_b3": convert_reference_mednext_state_dict,
     "mednext_b5": convert_reference_mednext_state_dict,
+    "mlla_unet": convert_reference_mlla_unet_state_dict,
+    "transunet": convert_reference_transunet_state_dict,
+    "swin_unetr": convert_reference_swin_unetr_state_dict,
 }
 
 
@@ -462,8 +545,8 @@ def _converter(network_key: str):
         "mlla_uper" if network_key.startswith("mlla_uper") else network_key)
     if conv is None:
         raise NotImplementedError(
-            f"reference checkpoints of network {network_key!r} are not convertible yet "
-            f"(ROADMAP queue A, A16); convertible: {sorted(CONVERTERS_BY_NETWORK)}")
+            f"reference checkpoints of network {network_key!r} have no converter (the JAX "
+            f"package has none either); convertible: {sorted(CONVERTERS_BY_NETWORK)}")
     return conv
 
 
@@ -504,6 +587,6 @@ def load_pretrained_torch_weights(network: torch.nn.Module, torch_checkpoint_pat
     if not set(converted) & set(network.state_dict()):
         raise NotImplementedError(
             f"{torch_checkpoint_path} is not a reference checkpoint of network "
-            f"{network_key!r}: no key of it names a parameter of the network (another "
-            "family's converters are not ported yet, ROADMAP queue A, A16)")
+            f"{network_key!r}: no key of it names a parameter of the network (a checkpoint "
+            "of another family)")
     return transfer_matching(network, converted, verbose)

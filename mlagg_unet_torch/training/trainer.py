@@ -41,9 +41,9 @@ converted, and a resume from one starts fresh moments at the epoch's step
 of the schedule.
 
 Not ported yet, and raised as such: on-device augmentation
-(``MLAGG_DEVICE_AUG``, A15), multi-GPU training (A14) and the model zoo's
-networks beyond U-Mamba Bot / Enc, VM-UNet, Mamba-UNet and Swin-UMamba(-D)
-(A16).
+(``MLAGG_DEVICE_AUG``, A15) and multi-GPU training (A14). Every network of
+the JAX registry is built; a trainer whose network the registry does not
+know raises at ``_check_ported``.
 """
 from __future__ import annotations
 
@@ -100,8 +100,8 @@ LOSSES = ("default", "ce", "dice", "dc_topk", "topk10", "topk10_ls01")
 def _check_ported(cfg: TrainerConfig) -> None:
     if cfg.network not in NETWORK_BUILDERS:
         raise NotImplementedError(
-            f"trainer {cfg.name!r}: network {cfg.network!r} is not ported yet (the model "
-            f"zoo, ROADMAP queue A, A16); ported: {sorted(NETWORK_BUILDERS)}")
+            f"trainer {cfg.name!r}: network {cfg.network!r} is not ported (no builder in "
+            f"the registry); ported: {sorted(NETWORK_BUILDERS)}")
     if cfg.optimizer not in OPTIMIZERS:
         raise ValueError(f"trainer {cfg.name!r}: optimizer {cfg.optimizer!r}, not one "
                          f"of {OPTIMIZERS}")

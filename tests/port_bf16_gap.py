@@ -19,9 +19,10 @@ in each package and of the port's bf16 against JAX's.
 
 Networks: umamba_bot, umamba_enc, vmunet, umamba_bot_ss3d, umamba_enc_ss3d,
 vmunet3d, vmunet3d_new, vmunet3d_swint, msvm_unet, segmamba, nnmamba,
-lightm_unet, ultralight_vmunet, lkm_unet, mednext_b3, mednext_b3_mambaskip
-(all by default). Takes a
-few minutes and a few GiB on the CPU.
+lightm_unet, ultralight_vmunet, lkm_unet, mednext_b3, mednext_b3_mambaskip,
+swin_unetr, swin_tunet, transunet, mlla_unet (all by default; the last four
+at their published widths on 160x160, TransUNet built for that patch). Takes
+a few minutes and a few GiB on the CPU.
 """
 import os
 import sys
@@ -41,14 +42,22 @@ import torch  # noqa: E402
 from mlagg_unet_tpu.models import lkm_unet as JLK  # noqa: E402
 from mlagg_unet_tpu.models import mamba_variants as JMV  # noqa: E402
 from mlagg_unet_tpu.models import mednext_net as JMN  # noqa: E402
+from mlagg_unet_tpu.models import mlla_unet as JML  # noqa: E402
+from mlagg_unet_tpu.models import more_variants as JMO  # noqa: E402
 from mlagg_unet_tpu.models import msvm_unet as JMS  # noqa: E402
+from mlagg_unet_tpu.models import swin_unetr as JSW  # noqa: E402
+from mlagg_unet_tpu.models import transunet as JTU  # noqa: E402
 from mlagg_unet_tpu.models import umamba as JUM  # noqa: E402
 from mlagg_unet_tpu.models import vmamba as JVM  # noqa: E402
 from mlagg_unet_tpu.models import vmunet3d as JV3  # noqa: E402
 from mlagg_unet_torch.models import lkm_unet as TLK  # noqa: E402
 from mlagg_unet_torch.models import mamba_variants as TMV  # noqa: E402
 from mlagg_unet_torch.models import mednext_net as TMN  # noqa: E402
+from mlagg_unet_torch.models import mlla_unet as TML  # noqa: E402
+from mlagg_unet_torch.models import more_variants as TMO  # noqa: E402
 from mlagg_unet_torch.models import msvm_unet as TMS  # noqa: E402
+from mlagg_unet_torch.models import swin_unetr as TSW  # noqa: E402
+from mlagg_unet_torch.models import transunet as TTU  # noqa: E402
 from mlagg_unet_torch.models import umamba as TUM  # noqa: E402
 from mlagg_unet_torch.models import vmamba as TVM  # noqa: E402
 from mlagg_unet_torch.models import vmunet3d as TV3  # noqa: E402
@@ -113,6 +122,11 @@ def networks():
                              TLK.LKMUNet(1, CLASSES, **lkm), x2),
         "mednext_b3": lambda: (*mednext(False), x2),
         "mednext_b3_mambaskip": lambda: (*mednext(True), x2),
+        "swin_unetr": lambda: (JSW.SwinUNETR(num_classes=CLASSES), TSW.SwinUNETR(1, CLASSES), x2),
+        "swin_tunet": lambda: (JMO.SwinTUNet(num_classes=CLASSES), TMO.SwinTUNet(1, CLASSES), x2),
+        "transunet": lambda: (JTU.TransUNet(num_classes=CLASSES),
+                              TTU.TransUNet(1, CLASSES, img_size=PATCH), x2),
+        "mlla_unet": lambda: (JML.MLLAUNet(num_classes=CLASSES), TML.MLLAUNet(1, CLASSES), x2),
     }
 
 

@@ -16,6 +16,7 @@ distance bf16 moves JAX's own network.
 import copy
 import re
 from types import SimpleNamespace
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -25,8 +26,12 @@ import torch
 from mlagg_unet_tpu.models import lkm_unet as JLK
 from mlagg_unet_tpu.models import mamba_variants as JMV
 from mlagg_unet_tpu.models import mednext_net as JMN
+from mlagg_unet_tpu.models import mlla_unet as JML
+from mlagg_unet_tpu.models import more_variants as JMO
 from mlagg_unet_tpu.models import msvm_unet as JMS
 from mlagg_unet_tpu.models import swin_umamba as JSU
+from mlagg_unet_tpu.models import swin_unetr as JSW
+from mlagg_unet_tpu.models import transunet as JTU
 from mlagg_unet_tpu.models import umamba as JUM
 from mlagg_unet_tpu.models import vmamba as JVM
 from mlagg_unet_tpu.models import vmunet3d as JV3
@@ -34,8 +39,12 @@ from mlagg_unet_tpu.training import torch_import as jti
 from mlagg_unet_torch.models import lkm_unet as TLK
 from mlagg_unet_torch.models import mamba_variants as TMV
 from mlagg_unet_torch.models import mednext_net as TMN
+from mlagg_unet_torch.models import mlla_unet as TML
+from mlagg_unet_torch.models import more_variants as TMO
 from mlagg_unet_torch.models import msvm_unet as TMS
 from mlagg_unet_torch.models import swin_umamba as TSU
+from mlagg_unet_torch.models import swin_unetr as TSW
+from mlagg_unet_torch.models import transunet as TTU
 from mlagg_unet_torch.models import umamba as TUM
 from mlagg_unet_torch.models import vmamba as TVM
 from mlagg_unet_torch.models import vmunet3d as TV3
@@ -106,6 +115,21 @@ LKM_3D_SMALL = dict(LKM_3D, features_per_stage=(4, 8))
 MEDNEXT = {"mednext_s_2d": ("S", 3, True, 2, False),
            "mednext_s_2d_mambaskip": ("S", 3, False, 2, True),
            "mednext_s_3d": ("S", 5, True, 3, False)}
+# the transformer baselines at narrow widths on 64x64. SwinUNETR takes two
+# input channels: with one, encoder1's 1x1 projection (one weight a channel)
+# is scale-invariant under its InstanceNorm, and its kernel's gradient is
+# rounding around 0 like its bias's. The Swins keep the
+# window of 7: SwinUNETR's stages at 32, 16, 8 pad to the window and shift,
+# at 4 the window is clamped; Swin-TUNet's at 16 and 8 pad and shift.
+# TransUNet: units (1, 2, 1) at width 32 (GroupNorm's 32 groups), a 4x4 grid;
+# its 64 -> 32 -> 15 max-pool leaves block 1 at 15x15, padded to 16 for the
+# skip. MLLA-UNet at embed 16 on four stages (16 to 2)
+SWIN_UNETR = dict(feature_size=12, num_heads=(1, 2, 2, 4))
+SWIN_TUNET = dict(embed_dim=16, num_heads=(1, 2, 2, 4))
+TRANSUNET = dict(hidden_size=32, mlp_dim=64, num_heads=2, num_layers=2, resnet_units=(1, 2, 1),
+                 width=32, decoder_channels=(32, 16, 16, 8))
+MLLA_UNET = dict(embed_dim=16, depths=(1, 2, 1, 1), depths_decoder=(1, 1, 1, 1),
+                 num_heads=(1, 2, 2, 4))
 
 
 def _mednext(name):
@@ -183,6 +207,15 @@ FACTORIES = {
     "mednext_s_2d_mambaskip": lambda: (*_mednext("mednext_s_2d_mambaskip"),
                                        x_of((1, 32, 32, 1)), None),
     "mednext_s_3d": lambda: (*_mednext("mednext_s_3d"), x_of((1, 16, 32, 32, 1)), "mednext_b5"),
+    "swin_unetr": lambda: (JSW.SwinUNETR(num_classes=3, **SWIN_UNETR),
+                           TSW.SwinUNETR(2, 3, **SWIN_UNETR), x_of((1, 64, 64, 2)), "swin_unetr"),
+    "swin_tunet": lambda: (JMO.SwinTUNet(num_classes=3, **SWIN_TUNET),
+                           TMO.SwinTUNet(1, 3, **SWIN_TUNET), x_of((1, 64, 64, 1)), None),
+    "transunet": lambda: (JTU.TransUNet(num_classes=3, **TRANSUNET),
+                          TTU.TransUNet(1, 3, img_size=(64, 64), **TRANSUNET),
+                          x_of((1, 64, 64, 1)), "transunet"),
+    "mlla_unet": lambda: (JML.MLLAUNet(num_classes=3, **MLLA_UNET), TML.MLLAUNet(1, 3, **MLLA_UNET),
+                          x_of((1, 64, 64, 1)), "mlla_unet"),
 }
 ORDER = list(FACTORIES)
 
@@ -446,6 +479,52 @@ TO_REFERENCE.update({
         (r"^bottleneck_(\d+)\.", r"bottleneck.\1."),
         (r"\.norm\.GroupNorm_0\.", ".norm."),
     ],
+    "mlla_unet": [
+        (r"^layer(\d+)_block(\d+)\.", r"layers.\1.blocks.\2."),
+        (r"^down(\d+)\.conv_(\d+)\.", r"layers.\1.downsample.conv.\2."),
+        (r"^up0\.deconv\.", "layers_up.0.conv.1."),
+        (r"^up0\.conv_(\d+)\.", r"layers_up.0.conv.\1."),
+        (r"^up0\.norm\.", "layers_up.0.norm."),
+        (r"^layer_up(\d+)_block(\d+)\.", r"layers_up.\1.blocks.\2."),
+        (r"^layer_up(\d+)_upsample\.deconv\.", r"layers_up.\1.upsample.conv.1."),
+        (r"^layer_up(\d+)_upsample\.conv_(\d+)\.", r"layers_up.\1.upsample.conv.\2."),
+        (r"^layer_up(\d+)_upsample\.norm\.", r"layers_up.\1.upsample.norm."),
+        (r"^concat_back(\d+)\.", r"concat_back_dim.\1."),
+        (r"^up_expand\.", "up.expand."),
+        (r"^up_norm\.", "up.norm."),
+        (r"^patch_embed\.conv(\d)_(\d)\.", r"patch_embed.conv\1.\2."),
+        (r"\.(cpe1|cpe2|dwc|lepe)\.Conv_0\.", r".\1."),
+        (r"\.Dense_0\.", ".fc1."),
+        (r"\.Dense_1\.", ".fc2."),
+    ],
+    "transunet": [
+        (r"^\.$", "transformer.embeddings."),   # the position embedding, a top-level leaf
+        (r"^hybrid_model\.root_conv\.", "transformer.embeddings.hybrid_model.root.conv."),
+        (r"^hybrid_model\.root_gn\.", "transformer.embeddings.hybrid_model.root.gn."),
+        (r"^hybrid_model\.block(\d+)_unit(\d+)\.",
+         r"transformer.embeddings.hybrid_model.body.block\1.unit\2."),
+        (r"^patch_embeddings\.", "transformer.embeddings.patch_embeddings."),
+        (r"^encoder_block(\d+)\.", r"transformer.encoder.layer.\1."),
+        (r"^encoder_norm\.", "transformer.encoder.encoder_norm."),
+        (r"\.ffn\.Dense_0\.", ".ffn.fc1."),
+        (r"\.ffn\.Dense_1\.", ".ffn.fc2."),
+        (r"^conv_more\.conv\.", "decoder.conv_more.0."),
+        (r"^conv_more\.bn\.", "decoder.conv_more.1."),
+        (r"^decoder_block(\d+)\.conv(\d)\.conv\.", r"decoder.blocks.\1.conv\2.0."),
+        (r"^decoder_block(\d+)\.conv(\d)\.bn\.", r"decoder.blocks.\1.conv\2.1."),
+        (r"^seg_head\.", "segmentation_head.0."),
+    ],
+    "swin_unetr": [
+        (r"^swinViT\.layers(\d)\.", r"swinViT.layers\1.0."),
+        (r"\.blocks(\d+)\.", r".blocks.\1."),
+        (r"\.mlp\.Dense_0\.", ".mlp.linear1."),
+        (r"\.mlp\.Dense_1\.", ".mlp.linear2."),
+        (r"^swinViT\.patch_embed\.", "swinViT.patch_embed.proj."),
+        (r"\.transp_conv\.", ".transp_conv.conv."),
+        (r"\.(conv1|conv2|conv3)\.", r".\1.conv."),
+        (r"\.(norm1|norm2|norm3)\.GroupNorm_0\.", r".\1."),
+        (r"^out\.", "out.conv.conv."),
+    ],
 })
 TO_REFERENCE["mednext_b5"] = TO_REFERENCE["mednext_b3"]
 TO_REFERENCE["umamba_enc_ss3d"] = TO_REFERENCE["umamba_bot_ss3d"]
@@ -490,6 +569,8 @@ def reference_state_dict(flat, key, stats=None):
             leaf = re.sub(r"_(weight|bias)$", r".\1", leaf)
         elif leaf == "relative_position_bias_table":
             sd[prefix + "relative_position_index"] = torch.zeros(8, 8, dtype=torch.long)
+        elif key == "mlla_unet" and prefix.endswith(".attn.qk."):   # the RoPE buffer
+            sd[prefix[:-len("qk.")] + "rope.rotations"] = torch.zeros(4, 4, 8, 2)
         sd[prefix + leaf] = torch.from_numpy(np.array(arr))
     for name, arr in (stats or {}).items():
         *path, leaf = name.split("/")
@@ -531,14 +612,16 @@ def check_pth(n):
 # and both packages' values are rounding noise, held to their conv kernel's
 LKM_NORM_FED = r"/conv/bias$"
 MEDNEXT_NORM_FED = r"(^(enc_block|dec_block|bottleneck|down|up)_[\d_]+/conv1|/conv_branch\d+)/bias$"
+UNETR_NORM_FED = r"/(conv1|conv2|conv3)/bias$"   # the UNETR blocks' convs, each before an IN
 
 
-def check_grads(n, norm_fed: str, seed: int = 7, rel: float = 2e-4):
+def check_grads(n, norm_fed: Optional[str], seed: int = 7, rel: float = 2e-4):
     """The gradients of sum(output * cotangent) over every output, in the
     input and in every parameter, against ``jax.grad``: each within ``rel``
     x its max|ref| + 1e-6 (the scan gradients' fp32 tolerance, PARITY.md),
     a bias matching ``norm_fed`` (a norm follows its conv: its gradient is
-    zero but for rounding) within ``rel`` x max|its kernel's gradient|."""
+    zero but for rounding) within ``rel`` x max|its kernel's gradient|.
+    ``norm_fed`` None: the network has no such bias."""
     rs = np.random.RandomState(seed)
     cots = [rs.randn(*np.shape(r)).astype(np.float32) for r in outputs(n["ref"])]
     variables = n["variables"]
@@ -554,8 +637,8 @@ def check_grads(n, norm_fed: str, seed: int = 7, rel: float = 2e-4):
     assert_close(tx.grad, np.asarray(gx), rel=rel, atol=1e-6)
     ref = {k: np.asarray(v) for k, v in flat_params(gp).items()}
     got = state_dict_to_jax_params({k: p.grad for k, p in tm.named_parameters()}, ref)
-    fed = [k for k in ref if re.search(norm_fed, k)]
-    assert fed, f"no bias matches {norm_fed}"
+    fed = [k for k in ref if norm_fed and re.search(norm_fed, k)]
+    assert fed or norm_fed is None, f"no bias matches {norm_fed}"
     for k in ref:
         if k in fed:
             bound = rel * np.abs(ref[k[:-len("bias")] + "kernel"]).max() + 1e-6

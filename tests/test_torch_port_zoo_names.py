@@ -1,9 +1,9 @@
 """The Mamba zoo's trainer names in the PyTorch port against the JAX
 package's registry: the first family's names (and the two aliases of its
 networks) resolve with JAX's field values and pass the port's check, and
-the registry's builders take what JAX's take. The names the next slices
-port raise at the check (``test_torch_port_zoo_unported.py``); the 3-D and
-MSVM names are in ``test_torch_port_zoo3d_train.py``.
+the registry's builders take what JAX's take. Every JAX name, each with
+its network built by the port, is in ``test_torch_port_zoo_all_names.py``;
+the 3-D and MSVM names are in ``test_torch_port_zoo3d_train.py``.
 """
 import dataclasses
 from types import SimpleNamespace

@@ -64,7 +64,8 @@ def test_reference_pth_converts_and_loads_strict(nets, name):
 def test_pretrained_pth_transfer_and_raises(nets, tmp_path):
     """``load_pretrained_torch_weights`` of a reference VM-UNet ``.pth``
     transfers every tensor into a fresh port network; a network without a
-    converter and a checkpoint of another family raise naming A16."""
+    converter (Swin-TUNet's, as in JAX) and a checkpoint of another family
+    raise, saying which."""
     n = nets["vmunet"]
     path = str(tmp_path / "vmunet.pth")
     torch.save({"network_weights": port_zoo.reference_state_dict(flat_params(n["params"]), "vmunet")},
@@ -74,8 +75,8 @@ def test_pretrained_pth_transfer_and_raises(nets, tmp_path):
     assert n_tr == n_tot == len(fresh.state_dict())
     for k, v in n["tm"].state_dict().items():
         assert torch.equal(fresh.state_dict()[k], v), k
-    with pytest.raises(NotImplementedError, match="A16"):
-        tti.load_pretrained_torch_weights(fresh, path, network_key="transunet")
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(NotImplementedError, match="no converter"):
+        tti.load_pretrained_torch_weights(fresh, path, network_key="swin_tunet")
+    with pytest.raises(NotImplementedError, match="another family"):
         tti.load_pretrained_torch_weights(nets["mamba_unet"]["tm"], path,
                                           network_key="umamba_bot")
