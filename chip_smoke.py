@@ -386,7 +386,6 @@ SCAN_D, SCAN_N, SCAN_L = 96, 16, sum(STAGE_N)
 DEPTH = 2                                # blocks per stage
 
 # tolerances, relative to the reference output's max |value|
-SLEEP_CYCLES = 2_000_000                 # ~1 ms of SM clock ahead of each timed call
 
 TOL_FP32 = 1e-4    # fp32 I/O: only the order of fp32 sums differs
 TOL_BF16 = 2e-2    # bf16 I/O: one bf16 rounding of the output and of the
@@ -682,9 +681,27 @@ TRANSFORMER_BF16_TOL = {"nnUNetTrainerTransUNet": 2 * 1.531e-02,
 # PREP_THREADS threads (writers, the native resampler) beside phases 3-8
 PREP_PARTS = ("train", "flagship_grads", "pipeline", "unet3d", "unet3d_refs", "mamba",
               "tiles_mamba", "tiles_ss3d", "tiles_variants", "tiles_lkm-mednext",
-              "tiles_transformers", "mlla_unet_grads")
+              "tiles_transformers", "mlla_unet_grads", "devaug_refs")
 PREP_WORKERS, PREP_THREADS = 2, 2
 HOST_PREP = None                         # main's HostPrep
+RUN_FIGURES = {}                         # figures a later phase reports beside its own
+# phase 16: on-device augmentation (MLAGG_DEVICE_AUG) and MLLA's full-attention block.
+# The batches: phase 10's 3-D plan and the flagship's 2d plan, each inflated as the
+# trainer inflates it (get_patch_size); (batch, patch, classes)
+DEVAUG_BATCHES = {"3d": (2, (96, 160, 160), 3), "2d": (10, (256, 224), 4)}
+DEVAUG_SEED = 16
+# (a)'s forced parameters: every gate on (p 1.1), every range one value; the noise's
+# variance 0, as the card's noise generator draws other values than the CPU's
+DEVAUG_FORCED = dict(rot3=(0.3, -0.2, 0.15), rot2=0.4, scale=1.1, sigma=0.8, mult=1.1,
+                     contrast=0.8, zoom=0.62, gamma=1.3)
+TOL_DEVAUG = 1e-4                        # data card vs CPU and vs scipy, x max|ref|
+TOL_DEVAUG_SEG = 0.9999                  # share of seg voxels equal, card vs CPU: a score
+#                                          at 0.5 within rounding may go either way
+DEVAUG_TIMED_REPS = 10
+DEVAUG_LOADER_QUEUE, DEVAUG_LOADER_BATCHES = 3, 3   # timed after the queue is drained
+DEVAUG_RECIPE, DEVAUG_STEPS = "nnUNetTrainer_chip_smoke_devaug", 6
+A6_SHAPE, A6_HEADS = (16, 8, 7, 768), 16  # the flagship's stage 4 at model batch 16
+TOL_PROFILE_AGREE = 0.01                 # raw-event sums vs key_averages(), each kernel
 UNET3D_CASCADE_RECIPE, UNET3D_CASCADE_STEPS = "nnUNetTrainer_chip_smoke_cascade", 2
 UNET3D_LOWRES_SPACING = 2.0              # mm: 48x96x96 cases, the patch their size
 UNET3D_LOWRES_POOLS = ((1, 1, 1), (2, 2, 2), (2, 2, 2), (2, 2, 2), (1, 2, 2))
@@ -709,24 +726,11 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 2) -> float:
-    """Median over ``reps`` of one call's CUDA-event time. A device-side
-    sleep of ~1 ms ahead of each call holds the stream while the host
-    enqueues the call, so a short kernel's time is its own and not the
-    host's launch overhead (which the GPU would otherwise idle through)."""
-    import torch
+    """Median over ``reps`` of one call's CUDA-event time, each call behind
+    a ~1 ms device sleep (``mlagg_unet_torch.utils.profiling.time_ms``)."""
+    from mlagg_unet_torch.utils.profiling import time_ms as event_ms
 
-    for _ in range(warmup):
-        fn()
-    events = []
-    for _ in range(reps):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
-        s.record()
-        fn()
-        e.record()
-        events.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
+    return event_ms(fn, reps, warmup)
 
 
 def rel_err(got, ref) -> tuple:
@@ -1365,40 +1369,27 @@ def profile(torch, label, fn, stats: dict = None) -> tuple:
     wall time (torch.profiler, whose own host overhead is in the wall time).
     Returns two dicts, each port kernel's launch count and device ms in the
     trace ((None, None): no device time recorded); ``stats``, when given,
-    receives the wall and busy ms. The device events (kernels, copies,
-    memsets) are summed by name from the trace's raw events: the same sums
-    as ``key_averages()``'s device rows, without the event tree it builds
-    first, which took most of a long trace's time. A torch whose profiler
-    has no raw events (``kineto_results`` is private) is read through
-    ``key_averages()``."""
-    from collections import defaultdict
-
-    from torch.autograd import DeviceType
+    receives the wall and busy ms and the profile (``prof``). The device
+    events (kernels, copies, memsets) are summed by name by
+    ``mlagg_unet_torch.utils.profiling.device_events``: from the trace's raw
+    events, the same sums as ``key_averages()``'s device rows without the
+    event tree it builds first, which took most of a long trace's time."""
     from torch.profiler import ProfilerActivity, profile as trace
+
+    from mlagg_unet_torch.utils.profiling import device_events
 
     torch.cuda.synchronize()
     with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    raw = getattr(prof.profiler, "kineto_results", None)
-    if raw is None:
-        dev = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    else:
-        by_name = defaultdict(lambda: [0.0, 0])
-        for e in raw.events():
-            if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
-                row = by_name[e.name()]
-                row[0] += e.duration_ns() / 1e6
-                row[1] += 1
-        dev = [(k, t, c) for k, (t, c) in by_name.items()]
+    dev = device_events(prof)
     if not dev:
         log("  profile: no device time recorded (not measured)")
         return None, None
     busy_ms = sum(t for _, t, _ in dev)
     if stats is not None:
-        stats.update(wall_ms=wall_ms, busy_ms=busy_ms)
+        stats.update(wall_ms=wall_ms, busy_ms=busy_ms, prof=prof)
     ours = sum(t for k, t, _ in dev if any(is_port_kernel(k, n) for n in PORT_KERNEL_NAMES))
     log(f"  profile of {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%), {sum(c for *_, c in dev)} device ops; "
@@ -2369,6 +2360,7 @@ def train_verb_timing(torch, card: str, tmp: Path, first: dict, step_ms: float,
                        device="cuda")
     tr.initialize()
     f = loader_figures(torch, tr)
+    RUN_FIGURES["loader_2d_ms"] = 1e3 / f["rate"]
     log(f"  training loader on threads (the 2D default), 4 workers, batch {TRAIN_BATCH}, "
         f"augmented: {f['rate']:.3f} batches/s alone; {f['step_ms']:.2f} ms per step fed by it "
         f"({TRAIN_STEPS} steps) | {card}")
@@ -3169,6 +3161,7 @@ def unet3d_train_verb(torch, card: str, tmp: Path, raw: Path) -> None:
     t1 = time.perf_counter()
     tr.run_steps([(x, y)] * UNET3D_STEPS)
     cached_ms = 1e3 * (time.perf_counter() - t1) / UNET3D_STEPS
+    RUN_FIGURES.update(unet3d_step_ms=step_ms, unet3d_cached_ms=cached_ms)
     log(f"  train verb {' '.join(verb)}: {verb_s:.1f} s ({UNET3D_EPOCHS} epochs of "
         f"{UNET3D_STEPS} steps + {UNET3D_VAL_STEPS} validation steps, unpacking, checkpoints "
         f"and the final validation of {len(summary['metric_per_case'])} cases); seconds per "
@@ -4248,12 +4241,13 @@ def prepare_part(part: str, root: Path, card: str, workers: int, threads: int):
     card-vs-CPU check, on the seeded networks and inputs the card takes:
     phase 7's gradients ("flagship_grads"), phase 10's tile and gradients
     ("unet3d_refs"), each zoo phase's tiles ("tiles_<phase>"), phase 15's
-    fp64 gradients ("mlla_unet_grads"). Returns what the phase reads of it
-    besides the folder."""
+    fp64 gradients ("mlla_unet_grads"), phase 16's forced augmentation
+    ("devaug_refs"). Returns what the phase reads of it besides the folder."""
     import torch
 
     refs = {"flagship_grads": flagship_cpu_grads, "unet3d_refs": unet3d_cpu_refs,
-            "mlla_unet_grads": lambda torch: mlla_unet_grads(torch, "cpu")}
+            "mlla_unet_grads": lambda torch: mlla_unet_grads(torch, "cpu"),
+            "devaug_refs": devaug_cpu_refs}
     if part in refs:
         return refs[part](torch)
     if part.startswith("tiles_"):
@@ -5056,6 +5050,411 @@ def transformer_phase_steps(torch, card: str, held: set) -> None:
     log(f"  (c) done in {stamp(t0)}")
 
 
+# ---------------------------------------------------------------- phase 16: device augmentation
+def devaug_rotation(dim: int) -> dict:
+    """The trainer's rotation ranges for a 3-D plan or the flagship's 2d plan
+    (``configure_rotation_dummyDA_mirroring_and_initial_patch_size``)."""
+    if dim == 2:
+        return {"x": (-math.pi, math.pi), "y": (0, 0), "z": (0, 0)}
+    return {k: (-math.pi / 6, math.pi / 6) for k in ("x", "y", "z")}
+
+
+def devaug_inflated(tag: str) -> tuple:
+    """The inflated patch the crop-only workers emit for ``tag``'s plan."""
+    from mlagg_unet_torch.data.augment import get_patch_size
+
+    rot = devaug_rotation(len(DEVAUG_BATCHES[tag][1]))
+    return tuple(int(v) for v in get_patch_size(list(DEVAUG_BATCHES[tag][1]), rot["x"],
+                                                rot["y"], rot["z"], (0.85, 1.25)))
+
+
+def devaug_inputs(torch, tag: str):
+    """A seeded inflated batch: data (B, 1, *inflated) float32, seg (B,
+    *inflated) int32 with labels 0..classes-1 and the loader's -1 padding in
+    the first 5 planes."""
+    batch, _, classes = DEVAUG_BATCHES[tag]
+    shape = devaug_inflated(tag)
+    rng = np.random.default_rng(DEVAUG_SEED)
+    data = rng.standard_normal((batch, 1, *shape), dtype=np.float32)
+    seg = rng.integers(0, classes, (batch, *shape), dtype=np.int32)
+    seg[:, :5] = -1
+    return torch.from_numpy(data), torch.from_numpy(seg)
+
+
+def forced_stack(torch, data, seg, interp: str, tag: str):
+    """``DeviceTrainingTransforms``'s stack in its order with (a)'s forced
+    parameters; the mirror's draws come from the same seeded host generator
+    on the card and the CPU. Returns the spatial transform's data, then the
+    stack's data (B, *patch, C) and seg (B, *patch) int32."""
+    from mlagg_unet_torch.data import device_augment as da
+
+    _, patch, classes = DEVAUG_BATCHES[tag]
+    f, ord3 = DEVAUG_FORCED, interp == "ord3"
+    gen = torch.Generator().manual_seed(DEVAUG_SEED)
+    noise_gen = torch.Generator(device=data.device).manual_seed(DEVAUG_SEED)
+    angles = f["rot3"] if len(patch) == 3 else (f["rot2"], 0.0, 0.0)
+    rot = {k: (a, a) for k, a in zip(("x", "y", "z"), angles)}
+    spatial, s = da.spatial_augment_device(
+        data, seg, gen, patch, rot, (f["scale"],) * 2, p_rot=1.1, p_scale=1.1,
+        order_data=3 if ord3 else 1, order_seg=1 if ord3 else 0, num_classes=classes)
+    d = da.gaussian_noise_device(spatial, gen, noise_gen, p=1.1, noise_variance=(0.0, 0.0))
+    d = da.gaussian_blur_device(d, gen, p=1.1, sigma_range=(f["sigma"],) * 2, p_per_channel=1.1)
+    d = da.brightness_multiplicative_device(d, gen, p=1.1, mult_range=(f["mult"],) * 2)
+    d = da.contrast_augmentation_device(d, gen, p=1.1, contrast_range=(f["contrast"],) * 2)
+    d = da.simulate_low_resolution_device(d, gen, p=1.1, zoom_range=(f["zoom"],) * 2,
+                                          p_per_channel=1.1, up_order=3 if ord3 else 1)
+    d = da.gamma_transform_device(d, gen, p=1.1, gamma_range=(f["gamma"],) * 2,
+                                  invert_image=True)
+    d = da.gamma_transform_device(d, gen, p=1.1, gamma_range=(f["gamma"],) * 2)
+    d, s = da.mirror_device(d, s, gen, tuple(range(len(patch))))
+    s = torch.where(s == -1, torch.zeros_like(s), s)
+    return spatial, d.movedim(1, -1).contiguous(), s.to(torch.int32)
+
+
+def devaug_cpu_refs(torch) -> dict:
+    """The CPU side of phase 16 (a): each batch's inputs, the forced stack's
+    outputs on the CPU in both profiles, and scipy's order-3 sampling of the
+    3-D batch's first channel at the forced rotation and scale."""
+    from scipy.ndimage import map_coordinates
+
+    from mlagg_unet_torch.data.device_augment import _rot3d
+
+    out = {}
+    for tag in DEVAUG_BATCHES:
+        t0 = time.perf_counter()
+        data, seg = devaug_inputs(torch, tag)
+        out[tag] = {"inputs": (data, seg.to(torch.int8))}
+        for interp in ("ord3", "ord1"):
+            _, d, s = forced_stack(torch, data, seg, interp, tag)
+            out[tag][interp] = (d, s.to(torch.int8))
+        log(f"  phase 16 (a): {tag} batch {tuple(data.shape)}, the forced stack in ord3 and "
+            f"ord1 on the CPU in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _, patch, _ = DEVAUG_BATCHES["3d"]
+    data = out["3d"]["inputs"][0][0, 0].double().numpy()
+    m = _rot3d(*(torch.tensor([a]) for a in DEVAUG_FORCED["rot3"]))[0].double().numpy()
+    grid = np.stack(np.meshgrid(*[np.arange(n, dtype=np.float32) - (n - 1) / 2 for n in patch],
+                                indexing="ij")).reshape(3, -1)
+    coords = (m.T @ grid) * np.float32(DEVAUG_FORCED["scale"]) \
+        + np.array([(n - 1) / 2 for n in data.shape])[:, None]
+    out["scipy"] = torch.from_numpy(map_coordinates(data, coords, order=3, mode="constant")
+                                    .reshape(patch).astype(np.float32))
+    log(f"  phase 16 (a): scipy order 3 on the 3-D batch's first channel in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def devaug_vs_cpu(torch, card: str, refs: dict) -> None:
+    """(a): the forced stack on the card against the CPU's, both batches and
+    both profiles; the 3-D spatial transform's first channel (ord3) against
+    scipy."""
+    for tag, (batch, patch, classes) in DEVAUG_BATCHES.items():
+        data, seg = (t.cuda() for t in refs[tag]["inputs"])
+        seg = seg.int()
+        for interp in ("ord3", "ord1"):
+            spatial, d, s = forced_stack(torch, data, seg, interp, tag)
+            cpu_d, cpu_s = refs[tag][interp]
+            if d.shape != (batch, *patch, 1) or not bool(torch.isfinite(d).all()):
+                fail(f"(a) {tag} {interp}: data {tuple(d.shape)}, finite "
+                     f"{bool(torch.isfinite(d).all())}")
+            check(f"(a) {tag} {interp} data, card vs CPU", d, cpu_d.cuda(), TOL_DEVAUG)
+            equal = int((s.cpu() == cpu_s.int()).sum())
+            share = equal / s.numel()
+            log(f"  (a) {tag} {interp} seg, card vs CPU: {equal} of {s.numel()} voxels equal "
+                f"({100 * share:.4f} %, tol {100 * TOL_DEVAUG_SEG:g} %)")
+            if share < TOL_DEVAUG_SEG or int(s.min()) < 0 or int(s.max()) >= classes:
+                fail(f"(a) {tag} {interp}: seg agrees on {share:.6f}, labels "
+                     f"{int(s.min())}..{int(s.max())}")
+            if tag == "3d" and interp == "ord3":
+                check("(a) 3d ord3 spatial transform, channel 0 of sample 0, card vs scipy "
+                      "map_coordinates(order=3, mode='constant')", spatial[0, 0],
+                      refs["scipy"].cuda(), TOL_DEVAUG)
+        del data, seg, spatial, d, s
+
+
+def devaug_transform_timing(torch, card: str, refs: dict) -> dict:
+    """(b): ms per batch of ``DeviceTrainingTransforms`` (the trainer's
+    ranges and gates, random draws) on the card, CUDA events, median of
+    DEVAUG_TIMED_REPS, both batches and both profiles."""
+    from mlagg_unet_torch.data.device_augment import DeviceTrainingTransforms
+    from mlagg_unet_torch.utils.profiling import time_ms
+
+    out = {}
+    for tag, (batch, patch, classes) in DEVAUG_BATCHES.items():
+        data, seg = (t.cuda() for t in refs[tag]["inputs"])
+        seg = seg.int()
+        for interp in ("ord3", "ord1"):
+            tf = DeviceTrainingTransforms(patch, devaug_rotation(len(patch)),
+                                          tuple(range(len(patch))), interp=interp,
+                                          num_classes=classes)
+            gen = torch.Generator().manual_seed(DEVAUG_SEED)
+            noise_gen = torch.Generator(device="cuda").manual_seed(DEVAUG_SEED)
+            out[(tag, interp)] = ms = time_ms(lambda: tf(data, seg, gen, noise_gen),
+                                              reps=DEVAUG_TIMED_REPS)
+            log(f"  (b) DeviceTrainingTransforms {interp}, {tag} batch {tuple(data.shape)} -> "
+                f"{(batch, *patch, 1)}: {ms:.3f} ms per batch (CUDA events, median of "
+                f"{DEVAUG_TIMED_REPS}) | {card}")
+        del data, seg
+    return out
+
+
+def devaug_loader_timing(torch, card: str, tmp: Path) -> dict:
+    """(b): the crop-only 3-D loader (``transforms=None``: the inflated
+    patch, as the trainer's workers emit it under MLAGG_DEVICE_AUG) on
+    processes and on threads: ms per batch after its queue is drained; and
+    the ``DeviceFeeder``'s copy of one such batch to the card."""
+    from mlagg_unet_torch.configuration import default_n_proc_DA
+    from mlagg_unet_torch.data.dataset import nnUNetDataset, unpack_dataset
+    from mlagg_unet_torch.data.loader import (PrefetchLoader, ProcessPrefetchLoader,
+                                              nnUNetDataLoader3D)
+    from mlagg_unet_torch.training.trainer import DeviceFeeder
+
+    folder = str(tmp / "preprocessed" / UNET3D_DATASET / "nnUNetPlans_3d_fullres")
+    unpack_dataset(folder, num_processes=4)
+    ds = nnUNetDataset(folder)
+    batch, patch, classes = DEVAUG_BATCHES["3d"]
+    inflated = list(devaug_inflated("3d"))
+
+    def make(worker):
+        return nnUNetDataLoader3D(ds, batch, inflated, list(patch), 0.33,
+                                  annotated_classes_key=tuple(range(classes)), transforms=None,
+                                  seed=1000 + worker)
+
+    out, mb = {}, None
+    for backend, pool in (("processes", ProcessPrefetchLoader), ("threads", PrefetchLoader)):
+        t0 = time.perf_counter()
+        loader = pool(make, num_workers=default_n_proc_DA, queue_size=DEVAUG_LOADER_QUEUE,
+                      num_batches_per_epoch=DEVAUG_LOADER_QUEUE + DEVAUG_LOADER_BATCHES)
+        try:
+            b = loader.get_batch()
+            first_s = time.perf_counter() - t0
+            for _ in range(DEVAUG_LOADER_QUEUE - 1):
+                b = loader.get_batch()
+            t0 = time.perf_counter()
+            for _ in range(DEVAUG_LOADER_BATCHES):
+                b = loader.get_batch()
+            out[backend] = 1e3 * (time.perf_counter() - t0) / DEVAUG_LOADER_BATCHES
+        finally:
+            t0 = time.perf_counter()
+            loader.stop()
+            stop_s = time.perf_counter() - t0
+        mb = (b["data"].nbytes + b["target"].nbytes) / 1e6
+        log(f"  (b) crop-only 3-D loader on {default_n_proc_DA} {backend}: "
+            f"{out[backend]:.1f} ms per inflated batch {tuple(b['data'].shape)} "
+            f"({mb:.1f} MB data + target), the mean of {DEVAUG_LOADER_BATCHES} after its "
+            f"queue of {DEVAUG_LOADER_QUEUE} drained; its first batch {first_s:.1f} s after "
+            f"its start, its stop {stop_s:.1f} s")
+    feed = DeviceFeeder(torch.device("cuda"))
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feed("aug_data", b["data"]), feed("aug_target", b["target"])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    out["feed"] = statistics.median(times[1:])
+    log(f"  (b) DeviceFeeder: {out['feed']:.1f} ms to send one inflated batch ({mb:.1f} MB) "
+        f"to the card through its pinned buffers (median of 3 after one) | {card}")
+    return out
+
+
+def devaug_train_verb(torch, card: str, tmp: Path):
+    """(c): ``train_entry`` with MLAGG_DEVICE_AUG=ord3 on phase 10's 3-D plan
+    (nnUNetTrainer cut to 1 epoch of DEVAUG_STEPS steps and 1 validation
+    step), the loaders on threads: the train loader a DeviceAugLoader, every
+    loss finite, the checkpoint written; ms per step start to start.
+    Returns the trainer."""
+    from mlagg_unet_torch.cli import entrypoints as cli
+    from mlagg_unet_torch.data.device_augment import DeviceAugLoader
+    from mlagg_unet_torch.ops import _ext
+    from mlagg_unet_torch.training.checkpoint import load_checkpoint
+    from mlagg_unet_torch.training.trainer import NNUNetTrainer, Trainer
+
+    register_unet3d_recipe(DEVAUG_RECIPE, 1, DEVAUG_STEPS, 1)
+    selves, steps = [], []
+    old = {k: os.environ.get(k) for k in ("MLAGG_DEVICE_AUG", "MLAGG_DA_BACKEND")}
+    # the workers on threads: on the 3-D default, processes, (b)'s transport
+    # of the inflated batch paces the step
+    os.environ.update(MLAGG_DEVICE_AUG="ord3", MLAGG_DA_BACKEND="threads")
+    try:
+        with recording_selves(NNUNetTrainer, "run_training", selves), \
+                attribute_launches(_ext, Trainer, "train_step", {}, steps):
+            t0 = time.perf_counter()
+            cli.train_entry([UNET3D_ID, "3d_fullres", "0", "-tr", DEVAUG_RECIPE])
+            verb_s = time.perf_counter() - t0
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    tr = selves[0]
+    fold = tmp / "results" / UNET3D_DATASET / f"{DEVAUG_RECIPE}__nnUNetPlans__3d_fullres" / "fold_0"
+    lg = load_checkpoint(str(fold / "checkpoint_final.ckpt"))["logging"]
+    losses = lg["train_losses"] + lg["val_losses"]
+    if not isinstance(tr.dataloader_train, DeviceAugLoader) or len(steps) != DEVAUG_STEPS \
+            or not all(math.isfinite(v) for v in losses):
+        fail(f"(c) the verb with MLAGG_DEVICE_AUG=ord3: loader "
+             f"{type(tr.dataloader_train).__name__}, {len(steps)} steps, losses {losses}")
+    gaps = [1e3 * (b[0] - a[0]) for a, b in zip(steps[1:], steps[2:])]
+    step_ms = statistics.median(gaps)
+    RUN_FIGURES["devaug_step_ms"] = step_ms
+    ph10 = ", ".join(f"{k} {RUN_FIGURES[v]:.1f}" for k, v in (
+        ("with the host loader", "unet3d_step_ms"), ("cached", "unet3d_cached_ms"))
+        if v in RUN_FIGURES) or "not run in this call"
+    log(f"  (c) train verb {UNET3D_ID} 3d_fullres 0 -tr {DEVAUG_RECIPE}, MLAGG_DEVICE_AUG=ord3, "
+        f"MLAGG_DA_BACKEND=threads: "
+        f"{verb_s:.1f} s (1 epoch of {DEVAUG_STEPS} steps + 1 validation step, the final "
+        f"validation); the train loader a {type(tr.dataloader_train).__name__}; losses "
+        f"{['%.5f' % v for v in losses]}; ms per step start to start {step_ms:.1f} (median of "
+        f"{len(gaps)}); phase 10's step: {ph10} | {card}")
+    return tr
+
+
+def devaug_profiled_step(torch, card: str, tr, refs: dict) -> None:
+    """(e): one 3-D step of (c)'s trainer on a batch its device augmentation
+    makes, profiled; the trace's device events read from the raw events and
+    through ``key_averages()``: each name's ms within TOL_PROFILE_AGREE and
+    its count equal."""
+    from mlagg_unet_torch.data.device_augment import DeviceTrainingTransforms
+    from mlagg_unet_torch.utils.profiling import device_events, device_events_averaged
+
+    batch, patch, classes = DEVAUG_BATCHES["3d"]
+    rotation, _, _, mirror = tr.configure_rotation_dummyDA_mirroring_and_initial_patch_size()
+    tf = DeviceTrainingTransforms(patch, rotation, mirror, interp="ord3", num_classes=classes)
+    data, seg = (t.cuda() for t in refs["3d"]["inputs"])
+    seg = seg.int()
+    gen = torch.Generator().manual_seed(DEVAUG_SEED)
+    noise_gen = torch.Generator(device="cuda").manual_seed(DEVAUG_SEED)
+
+    def step():
+        tr.step.train_step(*tf(data, seg, gen, noise_gen))
+        torch.cuda.synchronize()
+
+    step()
+    stats = {}
+    profile(torch, "one 3-D step with its device augmentation (ord3)", step, stats)
+    if "prof" not in stats:
+        fail("(e) the profiled step recorded no device time")
+    raw = {k: (t, c) for k, t, c in device_events(stats["prof"])}
+    t0 = time.perf_counter()
+    avg = {k: (t, c) for k, t, c in device_events_averaged(stats["prof"])}
+    avg_s = time.perf_counter() - t0
+    worst, bad = 0.0, []
+    for k in sorted(set(raw) | set(avg)):
+        (tr_, cr), (ta, ca) = raw.get(k, (0.0, 0)), avg.get(k, (0.0, 0))
+        rel = abs(tr_ - ta) / max(tr_, ta, 1e-12)
+        worst = max(worst, rel)
+        if cr != ca or rel > TOL_PROFILE_AGREE:
+            bad.append((k[:80], tr_, cr, ta, ca))
+    log(f"  (e) the trace read two ways: {len(raw)} device event names from the raw events, "
+        f"{len(avg)} through key_averages() ({avg_s:.2f} s); worst ms difference "
+        f"{100 * worst:.4f} % (tol {100 * TOL_PROFILE_AGREE:g} %), counts "
+        f"{'equal' if not bad else 'differ'}; {sum(c for _, c in raw.values())} events, "
+        f"{sum(t for t, _ in raw.values()):.2f} ms | {card}")
+    if bad:
+        fail(f"(e) raw-event sums and key_averages() disagree: {bad[:5]}")
+
+
+def devaug_attention_block(torch, card: str) -> None:
+    """(d): ``MLLABlock`` at sr_ratio 1 (``Attention``) at the flagship's
+    stage-4 width and token grid at model batch 16, eval: bf16 and fp32 on
+    the card against the plain twins there, fp32 against the CPU; K4's
+    launches; its device time by module scope."""
+    from mlagg_unet_torch.models.layers import init_parameters
+    from mlagg_unet_torch.models.mlla import MLLABlock
+    from mlagg_unet_torch.ops import _ext
+    from mlagg_unet_torch.utils.profiling import device_time_by_scope, device_time_ms, time_ms
+
+    blk = init_parameters(MLLABlock(A6_SHAPE[-1], A6_HEADS, 2.0, sr_ratio=1),
+                          torch.Generator().manual_seed(DEVAUG_SEED)).eval()
+    x = torch.randn(A6_SHAPE, generator=torch.Generator().manual_seed(DEVAUG_SEED))
+    with torch.no_grad():
+        cpu = blk(x)
+    for dtype in (torch.float32, torch.bfloat16):
+        b, xc = copy.deepcopy(blk).to("cuda", dtype), x.to("cuda", dtype)
+        _ext.reset_launch_counts()
+        with torch.no_grad():
+            got = b(xc)
+            launched = {k.name: k.launches for k in _ext.ALL_KERNELS if k.launches}
+            with plain_twins(_ext):
+                twin = b(xc)
+        tag = str(dtype).split(".")[-1]
+        if launched != {"mlla_front": 1, "mlla_tail": 1, "flash_attn_fwd": 1}:
+            fail(f"(d) MLLABlock(sr_ratio=1) {tag} launched {launched} (want K2, K3, K4 once)")
+        if dtype == torch.float32:
+            check("(d) MLLABlock(sr_ratio=1) fp32, kernels vs plain twins on the card", got, twin,
+                  TOL_MODEL)
+            check("(d) MLLABlock(sr_ratio=1) fp32, card vs CPU", got, cpu.cuda(), TOL_MODEL)
+        else:
+            d = float((got.float() - twin.float()).norm() / twin.float().norm())
+            log(f"  (d) MLLABlock(sr_ratio=1) bf16, kernels vs plain twins on the card: rel L2 "
+                f"{d:.3e} (tol {TOL_SERVE_REL_L2:g})")
+            if not d <= TOL_SERVE_REL_L2:
+                fail(f"(d) the bf16 block disagrees with its twins: rel L2 {d:.3e}")
+        with torch.no_grad():
+            ms = time_ms(lambda: b(xc))
+        log(f"  (d) {tag}: launches {launched}; {ms:.3f} ms a forward of {tuple(xc.shape)} "
+            f"(CUDA events, median of 20) | {card}")
+    for _ in range(3):   # a trace may come back without device records (ROADMAP B11)
+        with torch.no_grad():
+            total, scopes, unmatched = device_time_by_scope(b, xc, iters=3, depth=2)
+        log(f"  (d) bf16 device time by module scope: {total:.4f} ms a forward "
+            f"{[(s, round(t, 4)) for s, t in scopes]}, unmatched "
+            f"{[(k[:50], round(t, 4)) for k, t in unmatched]} | {card}")
+        if total > 0:
+            break
+    else:
+        log("  (d) device time by module scope: not measured (3 traces without device records)")
+    parts = sum(t for _, t in scopes) + sum(t for _, t in unmatched)
+    if total > 0 and (abs(parts - total) > 1e-6 * total
+                      or not any(s == "MLLABlock" for s, _ in scopes)):
+        fail(f"(d) device_time_by_scope's rows sum to {parts:.6f} of its {total:.6f} ms, or "
+             f"hold no row of the block itself: {scopes}")
+    with torch.no_grad():
+        flat, top = device_time_ms(b, xc, iters=3, top_k=4)
+    log(f"  (d) bf16 device time by kernel: {flat:.4f} ms a forward (0: not measured) "
+        f"{[(k[:50], round(t, 4)) for k, t in top]} | {card}")
+
+
+def phase_device_aug(torch, card: str) -> None:
+    """Phase 16: on-device augmentation (MLAGG_DEVICE_AUG) against the CPU
+    and scipy, its speed and the 3-D train verb with it, none of K1-K8
+    launched; MLLA's full-attention block through K4; a profiled step's
+    trace read two ways."""
+    from mlagg_unet_torch.ops import _ext
+
+    t_phase = time.perf_counter()
+    _ext.reset_launch_counts()
+    refs = HOST_PREP.folder("devaug_refs")[1]
+    log(f"[device-aug] (a) the forced stack, card vs CPU: 3-D {DEVAUG_BATCHES['3d']} and 2-D "
+        f"{DEVAUG_BATCHES['2d']} (batch, patch, classes) from "
+        f"{devaug_inflated('3d')} and {devaug_inflated('2d')}")
+    devaug_vs_cpu(torch, card, refs)
+    log(f"[device-aug] (b) speed | {card}")
+    devaug_transform_timing(torch, card, refs)
+    with verb_paths("chip_smoke_devaug_", HOST_PREP.folder("unet3d")[0]) as tmp, no_autotune():
+        loaders = devaug_loader_timing(torch, card, tmp)
+        if "loader_2d_ms" in RUN_FIGURES:
+            log(f"  (b) the host loaders of this run: phase 8's 2-D augmented batch "
+                f"{RUN_FIGURES['loader_2d_ms']:.1f} ms; the inflated 3-D batch here "
+                f"{loaders['processes']:.1f} ms on processes, {loaders['threads']:.1f} on "
+                f"threads")
+        log(f"[device-aug] (c) the 3-D train verb with MLAGG_DEVICE_AUG=ord3 | {card}")
+        tr = devaug_train_verb(torch, card, tmp)
+        launched = {k.name: k.launches for k in _ext.ALL_KERNELS if k.launches}
+        if launched:
+            fail(f"(a)-(c) launched port kernels: {launched}")
+        log(f"[device-aug] (e) a profiled step of (c)'s trainer | {card}")
+        devaug_profiled_step(torch, card, tr, refs)
+        del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[device-aug] (d) MLLABlock at sr_ratio 1, {A6_SHAPE}, {A6_HEADS} heads | {card}")
+    devaug_attention_block(torch, card)
+    log(f"[device-aug] phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_grad_gates(torch, card: str) -> None:
     """The network-level gradient gates of phases 11-14 alone, on their
     seeded weights and batches (``seeded_grad_gate``): U-Mamba Enc in 2-D
@@ -5104,7 +5503,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     ap.add_argument("--only", choices=("predict", "serve-timing", "train-verb", "pipeline",
                                        "unet3d", "mamba", "ss3d", "variants", "lkm-mednext",
-                                       "transformers", "grad-gates"),
+                                       "transformers", "grad-gates", "device-aug"),
                     help="run the device and build phases and this one alone, with no "
                          "kernels line and no final line")
     ap.add_argument("--root", type=Path, default=REPO,
@@ -5180,7 +5579,7 @@ def run_phases(torch, card: str, only, done) -> None:
          "unet3d": phase_unet3d, "mamba": phase_mamba,
          "ss3d": phase_ss3d, "variants": phase_variants, "lkm-mednext": phase_lkm,
          "transformers": phase_transformers,
-         "grad-gates": phase_grad_gates}[only](torch, card)
+         "grad-gates": phase_grad_gates, "device-aug": phase_device_aug}[only](torch, card)
         done(only)
         return
     report = Report(sfu_exp_per_s(torch))
@@ -5222,6 +5621,8 @@ def run_phases(torch, card: str, only, done) -> None:
         done("lkm-mednext")
     phase_transformers(torch, card)
     done("transformers")
+    phase_device_aug(torch, card)
+    done("device-aug")
 
     launches = {**serve, "selective_scan_bwd": train["selective_scan_bwd"],
                 **{k: serve_f[k] for k in FUSED_KERNELS}}

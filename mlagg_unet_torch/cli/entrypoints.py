@@ -4,7 +4,8 @@ Counterparts of the verbs of ``mlagg_unet_tpu/cli/entrypoints.py``, with
 the JAX package's arguments: fingerprint, plan and preprocess; train and
 predict; evaluate, ensemble, postprocessing, find_best_configuration and
 accumulate_crossval_results; model export and install; moving plans
-between datasets. Only ``train`` and the predict verbs touch a device. They
+between datasets; overlay PNGs; the old-nnU-Net and MSD dataset converters.
+Only ``train`` and the predict verbs touch a device. They
 take the upstream ``-device`` flag in place of the JAX verb's
 ``-num_devices``: ``cuda`` (the default) raises without a card, ``cpu`` runs
 on the CPU. On the CPU the predict verbs need a tile batch
@@ -12,8 +13,7 @@ on the CPU. On the CPU the predict verbs need a tile batch
 timed when not given. Also invocable as
 ``python -m mlagg_unet_torch.cli.entrypoints <verb> ...``.
 
-Not ported yet: the dataset converters and ``plot_overlay_pngs``. The
-download verb is never ported: it needs the network.
+The download verb is never ported: it needs the network.
 """
 from __future__ import annotations
 
@@ -403,6 +403,43 @@ def move_plans_between_datasets_entry(args=None):
     print("wrote", out)
 
 
+def plot_overlay_pngs_entry(args=None):
+    """reference overlay_plots.py:242."""
+    p = argparse.ArgumentParser("mlaggtorch_plot_overlay_pngs")
+    p.add_argument("-d", required=True, help="dataset name or id")
+    p.add_argument("-o", required=True, help="output folder")
+    p.add_argument("-np", type=int, default=8)
+    a = p.parse_args(args)
+    from mlagg_unet_torch.utils.overlay_plots import generate_overlays_for_dataset
+
+    generate_overlays_for_dataset(a.d, a.o, num_processes=a.np)
+
+
+def convert_old_nnunet_dataset_entry(args=None):
+    """reference convert_raw_dataset_from_old_nnunet_format.py:43."""
+    p = argparse.ArgumentParser("mlaggtorch_convert_old_nnUNet_dataset")
+    p.add_argument("input_folder", help="old TaskXXX_NAME folder path")
+    p.add_argument("output_dataset_name", help="DatasetXXX_NAME (name, not path)")
+    a = p.parse_args(args)
+    from mlagg_unet_torch.dataset_conversion.converters import convert_old_nnunet_dataset
+
+    out = convert_old_nnunet_dataset(a.input_folder, a.output_dataset_name)
+    print("wrote", out)
+
+
+def convert_msd_dataset_entry(args=None):
+    """reference convert_MSD_dataset.py:117."""
+    p = argparse.ArgumentParser("mlaggtorch_convert_MSD_dataset")
+    p.add_argument("-i", required=True, help="extracted MSD task folder")
+    p.add_argument("-overwrite_id", type=int, default=None)
+    p.add_argument("-np", type=int, default=8)
+    a = p.parse_args(args)
+    from mlagg_unet_torch.dataset_conversion.converters import convert_msd_dataset
+
+    out = convert_msd_dataset(a.i, a.overwrite_id)
+    print("wrote", out)
+
+
 def install_model_entry(args=None):
     p = argparse.ArgumentParser("mlaggtorch_install_pretrained_model_from_zip")
     p.add_argument("zip_file")
@@ -430,8 +467,11 @@ _VERBS = {
     "find_best_configuration": find_best_configuration_entry,
     "accumulate_crossval_results": accumulate_crossval_results_entry,
     "move_plans_between_datasets": move_plans_between_datasets_entry,
+    "plot_overlay_pngs": plot_overlay_pngs_entry,
     "export_model": export_model_entry,
     "install_model": install_model_entry,
+    "convert_old_nnUNet_dataset": convert_old_nnunet_dataset_entry,
+    "convert_MSD_dataset": convert_msd_dataset_entry,
 }
 
 

@@ -15,7 +15,7 @@ to the final patch size.
 
 These run on host worker threads. Copied from ``mlagg_unet_tpu/data/augment.py``
 with the imports rewritten; the on-device augmentation of ``MLAGG_DEVICE_AUG``
-is not ported yet (ROADMAP queue A, A15).
+is ``data/device_augment.py``.
 """
 from __future__ import annotations
 

@@ -2,8 +2,9 @@
 
 Counterparts of ``mlagg_unet_tpu/models/mlla.py``: ``AggregatedAttention``
 (both branches), ``MLLABlock``, ``BasicLayer``, ``ProjectBlock``,
-``PatchEmbed`` and ``MLLAEncoder``. ``Attention`` (``sr_ratio == 1``) is not
-on the flagship's path and is not ported yet.
+``PatchEmbed`` and ``MLLAEncoder``, and ``Attention``: the full softmax
+attention with LePE that ``MLLABlock`` runs at ``sr_ratio == 1``, through
+``ops.flash_attention`` (kernel K4); no network of the registry reaches it.
 
 In ``eval()`` mode, with ``fused_tail`` set, the block front and tail run
 through ``ops.mlla_fused`` (kernels K2 and K3 on the GPU, their unfused twins
@@ -124,6 +125,27 @@ class AggregatedAttention(nn.Module):
         return out.reshape(B, H, W, C).to(x.dtype) + self.lepe(v)
 
 
+class Attention(nn.Module):
+    """Full softmax attention + LePE for the ``sr_ratio == 1`` stages
+    (``mlla.py:278-306``): q is pre-scaled by head_dim ** -0.5 and the
+    attention call scales by 1.0; the LePE depthwise conv runs on v."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
+        super().__init__()
+        self.nh = num_heads
+        self.qkv = Dense(dim, 3 * dim, bias=qkv_bias)
+        self.lepe = DWConv2d(dim)
+
+    def forward(self, x):
+        B, H, W, C = x.shape
+        nh, hd = self.nh, C // self.nh
+        qkv = self.qkv(x).reshape(B, H * W, 3, nh, hd)
+        q = qkv[:, :, 0].transpose(1, 2) * hd ** -0.5
+        k, v = qkv[:, :, 1], qkv[:, :, 2]
+        out = flash_attention(q, k.transpose(1, 2), v.transpose(1, 2), 1.0)
+        return out.transpose(1, 2).reshape(B, H, W, C) + self.lepe(v.reshape(B, H, W, C))
+
+
 class _Mlp(nn.Module):
     """Param container with the tree of the JAX ``Mlp`` (Dense_0, Dense_1)."""
 
@@ -135,8 +157,9 @@ class _Mlp(nn.Module):
 
 class MLLABlock(nn.Module):
     """Mamba-like gated attention block: front (LN, gate, in-proj), dwconv +
-    SiLU, the two attention halves, tail (gate-mul, out-proj, residual, LN,
-    MLP, residual), with stochastic depth on both residual branches."""
+    SiLU, the two attention halves (at ``sr_ratio == 1`` the full
+    ``Attention``), tail (gate-mul, out-proj, residual, LN, MLP, residual),
+    with stochastic depth on both residual branches."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  sr_ratio: int = 1, drop_path: float = 0.0,
@@ -144,18 +167,19 @@ class MLLABlock(nn.Module):
                  fused_tail: Optional[bool] = None):
         super().__init__()
         self.fused_tail = fused_tail_enabled(fused_tail)
-        if sr_ratio == 1:
-            raise NotImplementedError("MLLABlock with sr_ratio == 1 (plain "
-                                      "Attention) is not ported yet")
+        self.sr_ratio = sr_ratio
         self.norm1 = LayerNorm(dim)
         self.act_proj = Dense(dim, dim)
         self.in_proj = Dense(dim, dim)
         self.dwc = DWConv2d(dim)
-        self.attn_local = AggregatedAttention(dim // 2, num_heads // 2,
-                                              local=True, sr_ratio=sr_ratio,
-                                              fused_local_attn=fused_local_attn)
-        self.attn_pool = AggregatedAttention(dim // 2, num_heads // 2,
-                                             local=False, sr_ratio=sr_ratio)
+        if sr_ratio == 1:
+            self.attn = Attention(dim, num_heads)
+        else:
+            self.attn_local = AggregatedAttention(dim // 2, num_heads // 2,
+                                                  local=True, sr_ratio=sr_ratio,
+                                                  fused_local_attn=fused_local_attn)
+            self.attn_pool = AggregatedAttention(dim // 2, num_heads // 2,
+                                                 local=False, sr_ratio=sr_ratio)
         self.out_proj = Dense(dim, dim)
         self.norm2 = LayerNorm(dim)
         self.mlp = _Mlp(dim, int(dim * mlp_ratio))
@@ -172,8 +196,11 @@ class MLLABlock(nn.Module):
                               self.act_proj.weight, self.act_proj.bias,
                               self.in_proj.weight, self.in_proj.bias)
         h = F.silu(self.dwc(h))
-        h1, h2 = h.chunk(2, dim=-1)
-        h = torch.cat([self.attn_local(h1), self.attn_pool(h2)], dim=-1)
+        if self.sr_ratio == 1:
+            h = self.attn(h)
+        else:
+            h1, h2 = h.chunk(2, dim=-1)
+            h = torch.cat([self.attn_local(h1), self.attn_pool(h2)], dim=-1)
         if fused:
             return mlla_tail(h, a, x, self.out_proj.weight, self.out_proj.bias,
                              self.norm2.weight, self.norm2.bias,

@@ -40,8 +40,10 @@ with numpy arrays for tensors; an optax state from a JAX checkpoint is not
 converted, and a resume from one starts fresh moments at the epoch's step
 of the schedule.
 
-Not ported yet, and raised as such: on-device augmentation
-(``MLAGG_DEVICE_AUG``, A15) and multi-GPU training (A14). Every network of
+With ``MLAGG_DEVICE_AUG`` set (``ord3``, ``1`` or ``ord1``) the training
+loader's workers only crop, and ``data/device_augment.py`` augments each
+batch on the device, as JAX gates it. Not ported yet, and raised as such:
+multi-GPU training (A14). Every network of
 the JAX registry is built; a trainer whose network the registry does not
 know raises at ``_check_ported``.
 """
@@ -332,13 +334,16 @@ class DeviceFeeder:
     channels-last batch of several channels is not C-contiguous), and sent
     with a non-blocking copy; a buffer is refilled only after the copy that
     last read it has finished. On the CPU the array becomes a contiguous
-    tensor."""
+    tensor. A tensor (a batch the device augmentation made) passes through
+    as it is when it lies on the device already."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self._rings: Dict[str, list] = {}
 
     def __call__(self, name: str, array: np.ndarray) -> torch.Tensor:
+        if isinstance(array, torch.Tensor):   # made on the device already
+            return array.to(self.device)
         src = torch.from_numpy(np.asarray(array))
         if self.device.type != "cuda":
             return src.to(self.device).contiguous()
@@ -525,10 +530,13 @@ class NNUNetTrainer:
             nnUNetDataLoader3D,
         )
 
-        if os.environ.get("MLAGG_DEVICE_AUG", "") not in ("", "0"):
-            raise NotImplementedError("MLAGG_DEVICE_AUG: on-device augmentation is not "
-                                      "ported yet (ROADMAP queue A, A15); unset it for the "
-                                      "host pipeline")
+        from mlagg_unet_torch.data.device_augment import (
+            DeviceAugLoader,
+            DeviceTrainingTransforms,
+            parse_device_aug_flag,
+        )
+
+        dev_aug_mode = parse_device_aug_flag(os.environ.get("MLAGG_DEVICE_AUG", ""))
         patch_size = self.configuration_manager.patch_size
         dim = len(patch_size)
         rotation, do_dummy_2d, initial_patch_size, mirror_axes = (
@@ -563,6 +571,17 @@ class NNUNetTrainer:
             sample_patch = list(initial_patch_size)
         val_transforms = ValidationTransforms(patch_size, self.is_cascaded, fg_labels)
 
+        # on-device augmentation (trainer.py:558-580): the workers only crop the
+        # inflated patch and the stack runs on the batch's device; the host path
+        # keeps dummy 2-D, the cascade's stages and DA5
+        device_aug = None
+        if (dev_aug_mode and not self.cfg.disable_da and not do_dummy_2d
+                and not self.is_cascaded and self.cfg.da_level != "DA5"):
+            device_aug = DeviceTrainingTransforms(
+                patch_size, rotation, mirror_axes, interp=dev_aug_mode,
+                num_classes=max(self.label_manager.all_labels) + 1)
+            tr_transforms = None
+
         annotated_key = tuple(self.label_manager.all_labels)
         loader_cls = nnUNetDataLoader2D if dim == 2 else nnUNetDataLoader3D
         batch_size = self.configuration_manager.batch_size
@@ -595,6 +614,10 @@ class NNUNetTrainer:
         self.dataloader_train = loader_pool(
             make_tr, num_workers=n_proc, queue_size=6,
             num_batches_per_epoch=self.cfg.num_iterations_per_epoch)
+        if device_aug is not None:
+            self.dataloader_train = DeviceAugLoader(
+                self.dataloader_train, device_aug, self.feed,
+                seed=777 + (0 if self.fold == "all" else int(self.fold)))
         self.dataloader_val = loader_pool(
             make_val, num_workers=max(1, n_proc // 2), queue_size=3,
             num_batches_per_epoch=self.cfg.num_val_iterations_per_epoch)

@@ -1,1 +1,2 @@
-"""File, JSON and dataset-name helpers."""
+"""File, JSON and dataset-name helpers; device timing and traces
+(``profiling``); overlays, batch-run commands and synthetic datasets."""

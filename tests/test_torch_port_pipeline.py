@@ -134,7 +134,7 @@ def test_every_verb_has_a_script():
 
     targets = {v.split(":")[1] for v in _scripts().values()}
     assert {f.__name__ for f in entrypoints._VERBS.values()} == targets
-    assert len(targets) == 17 and "download_model_entry" not in targets
+    assert len(targets) == 20 and "download_model_entry" not in targets
 
 
 @pytest.mark.parametrize("verb", _verbs())

@@ -155,7 +155,8 @@ def test_pretrained_weights_are_transferred(trained, tmp_path):
 
 def test_verb_needs_the_card_unless_told(trained, monkeypatch):
     """Without ``-device`` the verb runs on the card and raises without one;
-    what is not ported raises saying so; a stage of a cascade
+    what is not ported raises saying so, and so does a value of
+    ``MLAGG_DEVICE_AUG`` that JAX refuses; a stage of a cascade
     reads its previous stage's predictions from beside that stage's folds."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -164,10 +165,12 @@ def test_verb_needs_the_card_unless_told(trained, monkeypatch):
         treg.TRAINER_REGISTRY[TR], name=TR + "_zoo", network="no_such_network"))
     with pytest.raises(NotImplementedError, match="not ported"):
         entrypoints.main(["train", "995", "2d", "0", "-tr", TR + "_zoo", "-device", "cpu"])
-    monkeypatch.setenv("MLAGG_DEVICE_AUG", "ord3")
     tr = NNUNetTrainer(PLANS, "2d", 0, TINY_DATASET_JSON, trainer_name=TR, device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
-        tr.get_dataloaders()
+    for value in ("2", "yes"):   # JAX's flag: ord3, 1 and ord1 turn it on
+        monkeypatch.setenv("MLAGG_DEVICE_AUG", value)
+        with pytest.raises(ValueError, match="ord3"):
+            tr.get_dataloaders()
+    monkeypatch.delenv("MLAGG_DEVICE_AUG")
     cascade = tiny_plans(DATASET)
     cascade["configurations"]["2d"]["next_stage"] = "2d_cascade"
     cascade["configurations"]["2d_cascade"] = {"inherits_from": "2d", "previous_stage": "2d"}
